@@ -8,16 +8,20 @@ not 0 and no result line is printed:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile csrc/bincount.cu with nvcc for sm_90a, timed;
-3. kernel: weighted_bincount's CUDA kernel against its plain PyTorch
-   version on the card, at the metric path's shapes and at edge cases, and
-   timed beside the plain version, torch.bincount (a yardstick only; the
-   package never calls it) and the memory-bandwidth bound;
+3. kernel: the CUDA kernel through weighted_bincount_batched (the metric
+   path's batched calls) and weighted_bincount (1-D), against the plain
+   PyTorch versions on the card, at the metric path's shapes, past the
+   largest cluster and at edge cases; each call must launch once. Timed
+   beside the plain version, torch.bincount (a yardstick only; the package
+   never calls it: its device time from a profiler trace, and its host
+   round trip) and the memory-bandwidth bound;
 4. slice: a MetricCollection of MulticlassAccuracy(micro),
    MulticlassF1Score(macro) and MulticlassAUROC(thresholds=64), driven
    through update -> compute and through the pure init_state / update_state
    / compute_state API, at bench config 2's shape (C=100, batch 1024, 200
    steps) and at ImageNet-1k validation's (C=1000, batch 1000, 50 steps).
-   Kernel launches are counted over each drive, states must equal a
+   Kernel launches are counted over each drive (3 on the first stateful
+   update, then 2; 2 per pure update), states must equal a
    device="cpu" run on the same inputs bitwise, and computed values must
    agree with it within 1e-6.
 
@@ -33,6 +37,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 SLEEP_CYCLES = 20_000_000  # about 10 ms of the H100's clock
 VALUE_TOL = 1e-6
+# kernel cases timed beside their bound, the plain version and torch.bincount
+TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve_c1000_t64",
+               "curve_c1000_t64_1d", "past_cluster", "unweighted_int32", "random_f32_weights")
 
 
 def emit(obj) -> None:
@@ -84,46 +91,116 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> tuple:
 
 
 def kernel_cases(device):
-    """(name, idx, weights, num_bins): the metric path's shapes, then edges."""
+    """(name, entry, idx, weights, num_bins, exact): the metric path's shapes
+    through the batched entry, the 1-D entry at the largest of them, then
+    edges. ``exact`` cases must equal the plain version bitwise."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(0)
 
-    def ints(n, lo, hi):
-        return torch.randint(lo, hi, (n,), generator=g, device=device, dtype=torch.int32)
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=g, device=device, dtype=torch.int32)
 
-    def mask01(n):
-        return (torch.rand(n, generator=g, device=device) < 0.9).to(torch.float32)
+    def mask01(shape):
+        return (torch.rand(shape, generator=g, device=device) < 0.9).to(torch.float32)
 
+    mis_idx, mis_w = ints((1_000_001,), -3, 65_003), mask01((2, 1_000_001))
     return [
-        # stat scores at bench config 2: N = batch, bins = C
-        ("stat_scores_c100", ints(1024, 0, 100), mask01(1024), 100),
-        # binned curve at bench config 2: N = batch * C, bins = C * (T + 1)
-        ("curve_c100_t64", ints(102_400, 0, 6_500), mask01(102_400), 6_500),
+        # stat scores at bench config 2: S=3 rows of N = batch, bins = C
+        ("stat_scores_c100", "batched", ints((3, 1024), 0, 100), mask01((3, 1024)), 100, True),
+        # binned curve at bench config 2: shared idx of N = batch * C, S=2, bins = C * (T + 1)
+        ("curve_c100_t64", "batched", ints((102_400,), 0, 6_500), mask01((2, 102_400)), 6_500, True),
         # stat scores at ImageNet-1k
-        ("stat_scores_c1000", ints(1000, 0, 1000), mask01(1000), 1000),
-        # binned curve at ImageNet-1k: 65,000 bins cross the bin-tiling path
-        ("curve_c1000_t64", ints(1_000_000, 0, 65_000), mask01(1_000_000), 65_000),
-        ("unweighted_int32", ints(1_000_000, 0, 65_000), None, 65_000),
-        ("out_of_range", ints(200_000, -50_000, 120_000), mask01(200_000), 65_000),
-        ("empty", ints(0, 0, 10), mask01(0), 10),
-        ("random_f32_weights", ints(1_000_000, 0, 65_000),
-         torch.rand(1_000_000, generator=g, device=device), 65_000),
+        ("stat_scores_c1000", "batched", ints((3, 1000), 0, 1000), mask01((3, 1000)), 1000, True),
+        # binned curve at ImageNet-1k: 130,000 counters need a cluster
+        ("curve_c1000_t64", "batched", ints((1_000_000,), 0, 65_000), mask01((2, 1_000_000)), 65_000, True),
+        # the 1-D entry at that shape (one call per weight row before the batched entry)
+        ("curve_c1000_t64_1d", "1d", ints((1_000_000,), 0, 65_000), mask01((1_000_000,)), 65_000, True),
+        # past the largest cluster (16 CTAs of 227 KB): the bins are tiled
+        ("past_cluster", "1d", ints((1_000_000,), 0, 1_000_000), mask01((1_000_000,)), 1_000_000, True),
+        ("unweighted_int32", "batched", ints((2, 1_000_000), 0, 65_000), None, 65_000, True),
+        ("out_of_range", "batched", ints((200_000,), -50_000, 120_000), mask01((2, 200_000)), 65_000, True),
+        ("empty", "batched", ints((0,), 0, 10), mask01((2, 0)), 10, True),
+        # clusters with scalar inputs: a view off 16-byte alignment (scalar
+        # head and tail), ragged rows (N % 4 != 0: every input scalar), and
+        # few bins with ragged rows
+        ("misaligned_1d", "1d", mis_idx[1:], mis_w[0, 1:], 65_000, True),
+        ("misaligned_shared", "batched", mis_idx[1:], mis_w[:, 1:], 65_000, True),
+        ("ragged_per_row", "batched", ints((3, 100_001), -5, 65_005), None, 65_000, True),
+        ("ragged_small_bins", "batched", ints((5, 10_001), -5, 700), mask01((5, 10_001)), 700, True),
+        # more weight rows than the kernel specialises (S=6)
+        ("six_rows_shared", "batched", ints((300_000,), 0, 900), mask01((6, 300_000)), 900, True),
+        ("six_rows_cluster", "batched", ints((300_000,), 0, 20_000), mask01((6, 300_000)), 20_000, True),
+        ("random_f32_weights", "batched", ints((1_000_000,), 0, 65_000),
+         torch.rand((2, 1_000_000), generator=g, device=device), 65_000, False),
     ]
+
+
+def bound_bytes(idx, w, bins: int) -> int:
+    """Least bytes one call moves: every input read once, the output written once."""
+    n = idx.shape[-1]
+    rows = idx.shape[0] if idx.dim() == 2 else 1
+    s = w.shape[0] if w is not None and w.dim() == 2 else rows
+    w_bytes = 0 if w is None else s * n * 4
+    return rows * n * 4 + w_bytes + s * bins * 4
+
+
+def library_device_ms(idx, w, bins: int, reps: int = 10) -> float:
+    """Device time of torch.bincount for the same counts, one call per row,
+    summed over the rows: the kernels (and memsets) of a torch.profiler
+    trace, so the host round trip by which torch.bincount sizes its output
+    (a device-to-host copy and a wait) is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    idx64 = idx.long()
+    rows = w.shape[0] if w is not None and w.dim() == 2 else (idx.shape[0] if idx.dim() == 2 else 1)
+
+    def call():
+        for r in range(rows):
+            i = idx64 if idx64.dim() == 1 else idx64[r]
+            ww = None if w is None else (w if w.dim() == 1 else w[r])
+            torch.bincount(i, ww, minlength=bins)
+
+    call()
+    torch.cuda.synchronize()
+    total_us = 0.0
+    for _ in range(3):  # a trace that caught no device activity is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        total_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and "memcpy" not in e.name.lower())
+        if total_us > 0:
+            break
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time for torch.bincount")
+    return total_us / reps / 1e3
 
 
 def check_kernel(device) -> dict:
     import torch
 
-    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount, weighted_bincount_plain
+    from torchmetrics_tpu_torch.ops import bincount
 
     results = []
     max_abs_err = 0.0
-    for name, idx, w, bins in kernel_cases(device):
-        got = weighted_bincount(idx, w, bins)
-        want = weighted_bincount_plain(idx, w, bins)
+    for name, entry, idx, w, bins, exact in kernel_cases(device):
+        if entry == "1d":
+            call = lambda idx=idx, w=w, bins=bins: bincount.weighted_bincount(idx, w, bins)  # noqa: E731
+            plain = lambda idx=idx, w=w, bins=bins: bincount.weighted_bincount_plain(idx, w, bins)  # noqa: E731
+        else:
+            call = lambda idx=idx, w=w, bins=bins: bincount.weighted_bincount_batched(idx, w, bins)  # noqa: E731
+            plain = lambda idx=idx, w=w, bins=bins: bincount.weighted_bincount_batched_plain(idx, w, bins)  # noqa: E731
+        before = bincount.weighted_bincount.launches
+        got = call()
+        launched = bincount.weighted_bincount.launches - before
+        want = plain()
         torch.cuda.synchronize()
-        exact = w is None or name != "random_f32_weights"
+        n = idx.shape[-1]
+        if n and launched != 1:
+            raise AssertionError(f"kernel {name}: {launched} launches, expected 1")
         if exact:
             # int32 counts and sums of 0/1 weights are exact in any order
             if got.dtype != want.dtype or not torch.equal(got, want):
@@ -132,21 +209,27 @@ def check_kernel(device) -> dict:
             # float32 shared-memory atomics add in another order than
             # index_add_: agree per bin within rtol 1e-5
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        err = float((got.double() - want.double()).abs().max()) if bins else 0.0
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
         max_abs_err = max(max_abs_err, err)
-        row = {"case": name, "n": idx.numel(), "bins": bins, "weighted": w is not None,
+        rows = idx.shape[0] if idx.dim() == 2 else 1
+        s = w.shape[0] if w is not None and w.dim() == 2 else rows
+        plan = bincount.launch_plan(n, rows, s, bins, w is not None, torch.cuda.get_device_properties(0).multi_processor_count)
+        row = {"case": name, "entry": entry, "s": s, "n": n, "bins": bins, "shared_idx": rows == 1 and s > 1,
+               "weighted": w is not None, "plan": plan._asdict(), "launches": launched,
                "bitwise": bool(torch.equal(got, want)), "max_abs_err": err}
-        if idx.numel() and name != "out_of_range":
-            bytes_moved = idx.numel() * (8 if w is not None else 4) + bins * 4
-            row["ms"], row["host_ms"], row["ms_covered"] = time_ms(lambda: weighted_bincount(idx, w, bins))
-            row["plain_ms"], row["plain_host_ms"], row["plain_covered"] = time_ms(
-                lambda: weighted_bincount_plain(idx, w, bins))
+        if n and name in TIMED_CASES:
+            row["ms"], row["host_ms"], row["ms_covered"] = time_ms(call)
+            row["plain_ms"], row["plain_host_ms"], row["plain_covered"] = time_ms(plain)
+            row["library_device_ms"] = library_device_ms(idx, w, bins)
             # torch.bincount reads the largest index back to the host to size
-            # its output, so every call waits for the device: its time is a
-            # host round trip per call ("library_covered" comes out False)
+            # its output, so every call waits for the device: this is a host
+            # round trip per row ("library_covered" comes out False)
             idx64 = idx.long()
-            row["library_ms"], _, row["library_covered"] = time_ms(lambda: torch.bincount(idx64, w, minlength=bins))
-            row["bound_ms"] = bytes_moved / HBM_BYTES_PER_S * 1e3
+            w_rows = [None] * s if w is None else ([w] if w.dim() == 1 else list(w))
+            i_rows = [idx64] * s if idx64.dim() == 1 else list(idx64)
+            row["library_ms"], _, row["library_covered"] = time_ms(
+                lambda: [torch.bincount(i, ww, minlength=bins) for i, ww in zip(i_rows, w_rows)], reps=5)
+            row["bound_ms"] = bound_bytes(idx, w, bins) / HBM_BYTES_PER_S * 1e3
             row["bound_by"] = "bytes"
         results.append(row)
     return {"cases": results, "max_abs_err": max_abs_err}
@@ -193,7 +276,7 @@ def profile_updates(coll, preds, target, steps: int) -> dict:
         elif end > reach:
             busy_us += end - reach
             reach = end
-    ours = sum(v for k, v in by_name.items() if "histogram_tile_kernel" in k or "sum_partials_kernel" in k)
+    ours = sum(v for k, v in by_name.items() if "histogram_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
         "profiled_updates": steps,
@@ -243,8 +326,8 @@ def run_slice(label: str, num_classes: int, batch: int, steps: int, card: str, d
     later = weighted_bincount.launches - first
     values = coll.compute()
     sync()
-    if first != 8 or later != 5 * (steps - 1):
-        raise AssertionError(f"{label}: stateful launches {first} then {later}, expected 8 then {5 * (steps - 1)}")
+    if first != 3 or later != 2 * (steps - 1):
+        raise AssertionError(f"{label}: stateful launches {first} then {later}, expected 3 then {2 * (steps - 1)}")
     if coll.compute_groups != {0: ["acc", "f1"], 1: ["auroc"]}:
         raise AssertionError(f"{label}: compute groups {coll.compute_groups}")
 
@@ -258,8 +341,8 @@ def run_slice(label: str, num_classes: int, batch: int, steps: int, card: str, d
     pure_s = time.perf_counter() - t0
     pure_launches = weighted_bincount.launches
     pure_values = coll.compute_state(state)
-    if pure_launches != 5 * steps:
-        raise AssertionError(f"{label}: pure launches {pure_launches}, expected {5 * steps}")
+    if pure_launches != 2 * steps:
+        raise AssertionError(f"{label}: pure launches {pure_launches}, expected {2 * steps}")
 
     # the same run on the CPU (the kernel's plain version) over the same inputs
     ref = make_collection(num_classes, "cpu")
@@ -344,7 +427,11 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-        "shape": {"n": main_case["n"], "bins": main_case["bins"], "weighted": True},
+        "library_device_ms": main_case["library_device_ms"],
+        "library_ms_is": "host round trip per row (torch.bincount sizes its output on the host)",
+        "host_ms": main_case["host_ms"],
+        "shape": {"s": main_case["s"], "n": main_case["n"], "bins": main_case["bins"], "shared_idx": True,
+                  "weighted": True},
     }]})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

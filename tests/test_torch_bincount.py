@@ -1,10 +1,16 @@
-"""Port's weighted_bincount (plain PyTorch version on the CPU) against the JAX
-package's Pallas kernel in interpret mode and against numpy.
+"""Port's weighted_bincount and weighted_bincount_batched (plain PyTorch
+versions on the CPU) against the JAX package's ``weighted_bincount`` and
+``jax.vmap`` of it, through its scatter path and its Pallas kernel in
+interpret mode, and against numpy.
 
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
-against the plain version there. Here the plain version and the wrapper's
-dispatch are checked.
+against the plain version there. Here the plain versions, the wrappers'
+dispatch and the host-side launch plan are checked.
 """
+import ctypes
+import re
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -13,7 +19,12 @@ import jax.numpy as jnp
 
 from torchmetrics_tpu.ops import weighted_bincount as jax_weighted_bincount
 from torchmetrics_tpu_torch.ops import bincount as port_bincount
-from torchmetrics_tpu_torch.ops import weighted_bincount, weighted_bincount_plain
+from torchmetrics_tpu_torch.ops import (
+    weighted_bincount,
+    weighted_bincount_batched,
+    weighted_bincount_batched_plain,
+    weighted_bincount_plain,
+)
 
 
 def _jax_pallas(idx, w, bins):
@@ -98,16 +109,26 @@ def test_non_cpu_non_cuda_tensor_raises():
 def test_plain_version_is_only_for_cpu(monkeypatch):
     """A CUDA tensor goes to the launch path, never to the plain version."""
     calls = []
-    monkeypatch.setattr(port_bincount, "_launch", lambda idx, w, bins: calls.append(bins) or "launched")
+
+    def fake_launch(idx, w, bins, rows):
+        calls.append((tuple(idx.shape), None if w is None else tuple(w.shape), bins, rows))
+        return torch.zeros(rows, bins)
+
+    monkeypatch.setattr(port_bincount, "_launch", fake_launch)
     monkeypatch.setattr(port_bincount, "weighted_bincount_plain", lambda *a: pytest.fail("plain version used"))
+    monkeypatch.setattr(port_bincount, "weighted_bincount_batched_plain",
+                        lambda *a: pytest.fail("plain version used"))
 
     class FakeCuda:
         type = "cuda"
 
     idx = torch.zeros(3, dtype=torch.int32)
-    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: FakeCuda()))
-    assert port_bincount.weighted_bincount(idx, None, 5) == "launched"
-    assert calls == [5]
+    w = torch.ones(2, 3)
+    fake_device = FakeCuda()
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: fake_device))
+    assert port_bincount.weighted_bincount(idx, None, 5).shape == (5,)
+    assert port_bincount.weighted_bincount_batched(idx, w, 4).shape == (2, 4)
+    assert calls == [((3,), None, 5, 1), ((3,), (2, 3), 4, 2)]
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -119,18 +140,174 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "n,bins,sms,expect",
+    "n,rows,out_rows,bins,weighted,expect",
     [
-        (1024, 100, 132, (1, 100)),  # one block writes the output directly
-        (102_400, 6_500, 132, (16, 6_500)),
-        (1_000_000, 65_000, 132, (31, 32_500)),  # two bin tiles
-        (10**8, 1000, 132, (264, 1000)),  # capped at about two blocks per SM
+        # stat scores, one batched call: one CTA writes the output directly
+        (1024, 3, 3, 100, True, (1, 1, 1, 100, 100, 0)),
+        (1000, 3, 3, 1000, True, (1, 1, 1, 1000, 1000, 0)),
+        # binned curve at C=100, shared idx: 13,000 counters fit one CTA; 23
+        # CTAs count disjoint inputs, capped by the merge bound
+        (102_400, 1, 2, 6_500, True, (23, 1, 1, 6_500, 6_500, 0)),
+        # binned curve at C=1000: 130,000 counters need a cluster of 4
+        # (130 KB each, two stages of 256 vectors), 23 clusters by the merge bound
+        (1_000_000, 1, 2, 65_000, True, (23, 4, 1, 65_000, 16_252, 256)),
+        # the 1-D entry at that shape: a cluster of 2 would hold the bins, but
+        # clusters of 4 keep 120 CTAs busy at the same number of clusters
+        (1_000_000, 1, 1, 65_000, True, (30, 4, 1, 65_000, 16_252, 640)),
+        (1_000_000, 2, 2, 65_000, False, (15, 4, 1, 65_000, 16_252, 768)),
+        # more weight rows than the kernel specialises, over a cluster
+        (300_000, 1, 6, 20_000, True, (17, 4, 1, 20_000, 5_000, 96)),
+        # past the largest cluster: two bin tiles, each re-reads the inputs
+        (1_000_000, 1, 1, 1_000_000, True, (2, 16, 2, 500_000, 31_252, 96)),
+        # many inputs, few bins: one CTA per SM, no cluster
+        (10**8, 1, 1, 1000, True, (132, 1, 1, 1000, 1000, 0)),
     ],
 )
-def test_launch_plan(n, bins, sms, expect):
-    grid_x, tile = port_bincount.launch_plan(n, bins, sms)
-    assert (grid_x, tile) == expect
-    assert tile <= port_bincount.MAX_TILE_BINS and tile * -(-bins // tile) >= bins
+def test_launch_plan(n, rows, out_rows, bins, weighted, expect):
+    plan = port_bincount.launch_plan(n, rows, out_rows, bins, weighted, 132)
+    assert tuple(plan) == expect
+    streams = 1 + (out_rows // rows if weighted else 0)
+    assert port_bincount.smem_bytes(plan, out_rows, streams) <= port_bincount.SMEM_BYTES
+    assert plan.cluster <= port_bincount.MAX_CLUSTER and plan.cluster & (plan.cluster - 1) == 0
+    assert plan.tiles * plan.tile_bins >= bins and plan.cluster * plan.bs >= plan.tile_bins
+    if plan.cluster > 1:
+        # bulk copies and reductions need 16-byte steps
+        assert plan.bs % 4 == 0 and plan.tile_bins % 4 == 0
+        assert port_bincount.MIN_STAGE_VECTORS <= plan.chv <= port_bincount.MAX_STAGE_VECTORS
+    # the partial histograms added into the output move no more bytes than the inputs
+    in_bytes = 4 * rows * n + (4 * out_rows * n if weighted else 0)
+    assert plan.clusters == 1 or plan.clusters * out_rows * bins * 4 <= in_bytes
+    # the kernel's owner lookup (b * magic) >> 40 is b // bs over the whole tile
+    b = np.arange(plan.tile_bins, dtype=np.uint64)
+    magic = np.uint64(port_bincount.slice_magic(plan.bs))
+    np.testing.assert_array_equal((b * magic) >> np.uint64(40), b // np.uint64(plan.bs))
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132])
+def test_launch_plan_scales_with_sm_count(sms):
+    """The grid follows the card, not N: at most about one CTA per SM."""
+    plan = port_bincount.launch_plan(1_000_000, 1, 2, 65_000, True, sms)
+    assert plan.tiles == 1 and plan.cluster * plan.bs >= 65_000
+    assert plan.clusters * plan.cluster <= max(sms, plan.cluster)
+
+
+def test_plan_struct_mirrors_the_kernel_source():
+    """The ctypes structure and ``struct Plan`` in csrc/bincount.cu agree
+    field by field, in order (the layout is the C ABI's on both sides)."""
+    src = port_bincount.SOURCE.read_text()
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*(int|unsigned long long) (\w+);", body, re.M)
+    sizes = {"int": 4, "unsigned long long": 8}
+    ours = [(ctypes.sizeof(t), name) for name, t in port_bincount._PlanStruct._fields_]
+    assert [(sizes[t], name) for t, name in fields] == ours
+
+
+def _jax_vmap(idx, w, bins, shared, **kw):
+    """``jax.vmap`` of the JAX package's weighted_bincount over the rows."""
+    if w is None:
+        return np.asarray(jax.vmap(lambda i: jax_weighted_bincount(i, None, bins, **kw))(jnp.asarray(idx)))
+    fn = jax.vmap(lambda i, ww: jax_weighted_bincount(i, ww, bins, **kw), in_axes=(None if shared else 0, 0))
+    return np.asarray(fn(jnp.asarray(idx), jnp.asarray(w)))
+
+
+def _batched_inputs(seed, s, n, bins, shared, zero_one):
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(-3, bins + 3, n if shared else (s, n)).astype(np.int32)  # a few out of range
+    w = ((rng.rand(s, n) < 0.7) if zero_one else rng.rand(s, n)).astype(np.float32)
+    return idx, w
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_idx", "per_row_idx"])
+@pytest.mark.parametrize("s,n,bins", [(1, 500, 7), (2, 5000, 100), (3, 4096, 1500), (5, 20_000, 6_500)])
+def test_batched_matches_jax_vmap(shared, s, n, bins):
+    idx, w = _batched_inputs(n + s, s, n, bins, shared, zero_one=False)
+    ours = weighted_bincount_batched(torch.from_numpy(idx), torch.from_numpy(w), bins)
+    assert ours.dtype == torch.float32 and ours.shape == (s, bins)
+    # float32 sums in another order than XLA's scatter: agree to float32
+    # rounding of sums of ~n/bins terms
+    np.testing.assert_allclose(ours.numpy(), _jax_vmap(idx, w, bins, shared), rtol=1e-5, atol=1e-4)
+    # 0/1 weights (the metric path's masks) are exact in any order
+    idx, w = _batched_inputs(n + s + 1, s, n, bins, shared, zero_one=True)
+    ours = weighted_bincount_batched(torch.from_numpy(idx), torch.from_numpy(w), bins).numpy()
+    np.testing.assert_array_equal(ours, _jax_vmap(idx, w, bins, shared))
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_idx", "per_row_idx"])
+@pytest.mark.parametrize("zero_one", [True, False], ids=["zero_one", "random_f32"])
+def test_batched_matches_jax_pallas_vmap(shared, zero_one):
+    """Against vmap over the Pallas kernel (its sequential batching rule) in
+    interpret mode, at small sizes."""
+    s, n, bins = 3, 3000, 300
+    idx, w = _batched_inputs(17, s, n, bins, shared, zero_one)
+    ours = weighted_bincount_batched(torch.from_numpy(idx), torch.from_numpy(w), bins).numpy()
+    ref = _jax_vmap(idx, w, bins, shared, force_pallas=True, interpret=True)
+    if zero_one:
+        np.testing.assert_array_equal(ours, ref)
+    else:
+        np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("force_pallas", [False, True], ids=["scatter", "pallas"])
+def test_batched_unweighted_counts_int32(force_pallas):
+    rng = np.random.RandomState(23)
+    idx = rng.randint(-50, 350, (4, 2000)).astype(np.int32)
+    ours = weighted_bincount_batched(torch.from_numpy(idx), None, 300)
+    assert ours.dtype == torch.int32 and ours.shape == (4, 300)
+    kw = dict(force_pallas=True, interpret=True) if force_pallas else {}
+    ref = _jax_vmap(idx, None, 300, shared=False, **kw)
+    assert ref.dtype == np.int32
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    for r in range(4):
+        keep = idx[r][(idx[r] >= 0) & (idx[r] < 300)]
+        np.testing.assert_array_equal(ours[r].numpy(), np.bincount(keep, minlength=300))
+
+
+def test_batched_masks_out_of_range_per_row():
+    """An out-of-range index of one row never lands in a neighbouring row."""
+    idx = torch.tensor([[-1, 0, 4, 5, 9], [5, -5, 3, 2**31 - 1, 4]])
+    w = torch.tensor([[1.0, 2.0, 3.0, 4.0, 5.0], [6.0, 7.0, 8.0, 9.0, 10.0]])
+    ours = weighted_bincount_batched(idx, w, 5)
+    assert ours.tolist() == [[2.0, 0.0, 0.0, 0.0, 3.0], [0.0, 0.0, 0.0, 8.0, 10.0]]
+    shared = weighted_bincount_batched(idx[0], w, 5)
+    assert shared.tolist() == [[2.0, 0.0, 0.0, 0.0, 3.0], [7.0, 0.0, 0.0, 0.0, 8.0]]
+
+
+def test_batched_empty_and_single_row():
+    out = weighted_bincount_batched(torch.zeros(0, dtype=torch.int32), torch.zeros(3, 0), 4)
+    assert out.dtype == torch.float32 and torch.equal(out, torch.zeros(3, 4))
+    out = weighted_bincount_batched(torch.zeros(2, 0, dtype=torch.int64), None, 3)
+    assert out.dtype == torch.int32 and torch.equal(out, torch.zeros(2, 3, dtype=torch.int32))
+    rng = np.random.RandomState(29)
+    idx = torch.from_numpy(rng.randint(0, 50, 777))
+    w = torch.from_numpy(rng.rand(777).astype(np.float32))
+    one = weighted_bincount_batched(idx, w[None], 50)
+    assert one.shape == (1, 50)
+    assert torch.equal(one[0], weighted_bincount(idx, w, 50))
+    assert torch.equal(weighted_bincount_batched(idx[None], None, 50)[0], weighted_bincount(idx, None, 50))
+
+
+def test_batched_invalid_arguments_raise():
+    with pytest.raises(ValueError, match="num_bins"):
+        weighted_bincount_batched(torch.zeros(2, 3, dtype=torch.int32), None, 0)
+    with pytest.raises(ValueError, match=r"\(S, N\) indices"):
+        weighted_bincount_batched(torch.zeros(3, dtype=torch.int32), None, 4)
+    with pytest.raises(ValueError, match=r"\(S, N\)"):
+        weighted_bincount_batched(torch.zeros(3, dtype=torch.int32), torch.ones(3), 4)
+    with pytest.raises(ValueError, match="indices of shape"):
+        weighted_bincount_batched(torch.zeros(4, dtype=torch.int32), torch.ones(2, 3), 4)
+    with pytest.raises(ValueError, match="indices of shape"):
+        weighted_bincount_batched(torch.zeros(3, 3, dtype=torch.int32), torch.ones(2, 3), 4)
+    with pytest.raises(TypeError, match="integer"):
+        weighted_bincount_batched(torch.zeros(2, 3), None, 4)
+
+
+def test_batched_plain_is_per_row_plain():
+    rng = np.random.RandomState(31)
+    idx = torch.from_numpy(rng.randint(-2, 90, (3, 1000)).astype(np.int32))
+    w = torch.from_numpy(rng.rand(3, 1000).astype(np.float32))
+    out = weighted_bincount_batched_plain(idx, w, 88)
+    for r in range(3):
+        assert torch.equal(out[r], weighted_bincount_plain(idx[r], w[r], 88))
 
 
 def test_plain_matches_torch_bincount():

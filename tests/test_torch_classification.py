@@ -7,6 +7,8 @@ within 1e-6, absolute or relative to the value (float32 reductions run in
 another order; a macro mean of counts near 30 has an ulp of 2e-6), unless a
 case says why not.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -121,6 +123,44 @@ def test_multiclass_functional_match_jax(average):
                                                                               ignore_index=-1))
     _assert_close(PF.multiclass_fbeta_score(tp_, tt, 0.5, C, average=average, ignore_index=-1),
                   JF.multiclass_fbeta_score(jp, jt, 0.5, C, average=average, ignore_index=-1))
+
+
+def _count_batched_bincounts(monkeypatch, engine):
+    """Wrap the engine's ``weighted_bincount_batched`` to record each call's
+    index shape, weight shape and bin count."""
+    module = importlib.import_module(f"torchmetrics_tpu_torch.functional.classification.{engine}")
+    real, calls = module.weighted_bincount_batched, []
+
+    def counted(idx, weights, num_bins):
+        calls.append((tuple(idx.shape), tuple(weights.shape), num_bins))
+        return real(idx, weights, num_bins)
+
+    monkeypatch.setattr(module, "weighted_bincount_batched", counted)
+    return calls
+
+
+@pytest.mark.parametrize("classes", MC_CLASSES, ids=["stat_scores", "accuracy", "f1"])
+@pytest.mark.parametrize("ignore_index", [None, 2])
+def test_multiclass_stat_update_is_one_batched_bincount(monkeypatch, classes, ignore_index):
+    """Each global multiclass update counts tp, target and prediction totals
+    in one batched call (one kernel launch on the card): three rows of N."""
+    calls = _count_batched_bincounts(monkeypatch, "stat_scores")
+    batches = _mc_batches(11, ignore_index=ignore_index)
+    jm, pm = _run_both(*classes, dict(num_classes=C, average="macro", ignore_index=ignore_index), batches)
+    assert calls == [((3, N), (3, N), C)] * len(batches)
+    _assert_states_bitwise(jm, pm)
+
+
+@pytest.mark.parametrize("thresholds", [16, 64])
+def test_binned_curve_update_is_one_batched_bincount(monkeypatch, thresholds):
+    """Each binned-curve update counts positives and totals per (class, bin)
+    in one batched call over one shared cell index."""
+    calls = _count_batched_bincounts(monkeypatch, "precision_recall_curve")
+    batches = _mc_batches(41, ignore_index=-1)
+    jm, pm = _run_both(J.MulticlassAUROC, P.MulticlassAUROC,
+                       dict(num_classes=C, thresholds=thresholds, ignore_index=-1), batches)
+    assert calls == [((N * C,), (2, N * C), C * (thresholds + 1))] * len(batches)
+    _assert_states_bitwise(jm, pm)
 
 
 def test_task_facades_dispatch():

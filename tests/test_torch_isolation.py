@@ -37,7 +37,7 @@ def _imported_modules(path: pathlib.Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bincount_ablation.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     for name in _imported_modules(path):

@@ -14,16 +14,17 @@ Deviations from the JAX package, both deliberate:
   with the reciprocal rounded to float32, the last point is exactly 1.0).
   ``torch.linspace`` rounds differently and disagrees in up to half the
   points; a threshold one ulp off moves samples between bins.
-- ``_binned_confusion_from_bins`` counts (class, bin) cells with two
-  ``weighted_bincount`` calls over ``idx = c*(T+1) + k`` (the CUDA kernel on
-  the card) where the JAX package contracts a bf16 one-hot of the bins on
+- ``_binned_confusion_from_bins`` counts (class, bin) cells with one
+  ``weighted_bincount_batched`` call over ``idx = c*(T+1) + k`` and two
+  weight rows (the CUDA kernel on the card, one launch that reads ``idx``
+  once) where the JAX package contracts a bf16 one-hot of the bins on
   the TPU's matrix unit. Both sum 0/1 weights in float32.
 """
 from typing import List, Optional, Tuple, Union
 
 import torch
 
-from ...ops.bincount import weighted_bincount
+from ...ops.bincount import weighted_bincount_batched
 from ...utils.compute import _safe_divide, normalize_logits_if_needed
 
 Tensor = torch.Tensor
@@ -60,29 +61,28 @@ def _adjust_threshold_arg(thresholds: Thresholds, device: Union[str, torch.devic
     return thr
 
 
-def _binned_confusion_from_bins(pos_w: Tensor, all_w: Tensor, bin_idx: Tensor, len_t: int) -> Tensor:
+def _binned_confusion_from_bins(weights: Tensor, bin_idx: Tensor, len_t: int) -> Tensor:
     """(T, C, 2, 2) int32 binned confusion from per-sample bins.
 
     ``bin_idx[i, c] = #thresholds <= pred`` (so ``pred >= thr_t <=> bin > t``).
-    Two bincounts over the flat cell index ``c*(T+1) + bin`` give, per
-    (class, bin), the positive and the total weight; suffix sums over the
-    bin axis recover per-threshold counts.
+    One batched bincount over the flat cell index ``c*(T+1) + bin``, shared
+    by both weight rows, gives per (class, bin) the positive and the total
+    weight; suffix sums over the bin axis recover per-threshold counts.
 
     Exactness: counts accumulate in float32, so one update is integer-exact
     only up to 2^24 samples per (class, bin) cell, the ceiling the JAX
     package documents (``precision_recall_curve.py:113-118``).
 
-    pos_w/all_w: (N, C) weights for positives / all samples; bin_idx: (N, C)
-    ints in [0, T].
+    weights: (2, N, C) weights for positives and for all samples; bin_idx:
+    (N, C) ints in [0, T].
     """
     bins = len_t + 1
     num_classes = bin_idx.shape[1]
     offsets = torch.arange(num_classes, dtype=torch.int32, device=bin_idx.device) * bins
     idx = (bin_idx.to(torch.int32) + offsets).reshape(-1)
     cells = num_classes * bins
-    hist_pos = weighted_bincount(idx, pos_w.reshape(-1), cells).reshape(num_classes, bins)
-    hist_all = weighted_bincount(idx, all_w.reshape(-1), cells).reshape(num_classes, bins)
-    hist = torch.stack([hist_pos, hist_all], dim=1)  # (C, 2, K)
+    counts = weighted_bincount_batched(idx, weights.reshape(2, -1), cells)
+    hist = counts.reshape(2, num_classes, bins).movedim(0, 1)  # (C, 2, K)
     suffix = torch.flip(torch.cumsum(torch.flip(hist, [-1]), dim=-1), [-1])  # S[k] = sum_{j >= k}
     tp = suffix[:, 0, 1:]  # (C, T): positives with bin > t
     pred_pos = suffix[:, 1, 1:]  # all samples with bin > t
@@ -125,9 +125,11 @@ def _multiclass_precision_recall_curve_update(
     k = torch.searchsorted(thresholds, preds, right=True)  # (N, C): pred >= thr_t <=> k > t
     k = torch.where(torch.isnan(preds), 0, k)  # NaN pred: never predicted-positive
     classes = torch.arange(num_classes, device=target.device)
-    pos_w = (target[:, None] == classes).to(torch.float32) * w[:, None]  # (N, C)
-    all_w = w[:, None].expand(pos_w.shape)
-    return _binned_confusion_from_bins(pos_w, all_w, k, len_t)
+    # both weight rows written straight into the kernel's (2, N, C) input
+    weights = torch.empty((2,) + tuple(preds.shape), dtype=torch.float32, device=preds.device)
+    torch.mul(target[:, None] == classes, w[:, None], out=weights[0])  # positives
+    weights[1].copy_(w[:, None].expand(preds.shape))  # all samples
+    return _binned_confusion_from_bins(weights, k, len_t)
 
 
 def _multiclass_precision_recall_curve_compute(

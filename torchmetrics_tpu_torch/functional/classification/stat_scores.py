@@ -6,8 +6,8 @@ Counterpart of ``torchmetrics_tpu/functional/classification/stat_scores.py``.
 shapes never depend on the data and the update needs no host sync.
 
 Deviation from the JAX package: the multiclass global counters come from
-three ``weighted_bincount`` calls (the hand-written CUDA kernel on the card)
-at every size, where the JAX package builds bf16 one-hot matrices for the
+one ``weighted_bincount_batched`` call over three rows (the hand-written
+CUDA kernel on the card, one launch) at every size, where the JAX package builds bf16 one-hot matrices for the
 TPU's matrix unit below a size gate (``stat_scores.py:298-307``) and uses
 its Pallas bincount only past it. A per-class count is a histogram: O(N)
 work against the one-hot product's O(N*C). Both accumulate 0/1 weights in
@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...ops.bincount import weighted_bincount
+from ...ops.bincount import weighted_bincount_batched
 from ...utils.checks import _check_same_shape
 from ...utils.compute import normalize_logits_if_needed
 from ...utils.data import select_topk, to_onehot
@@ -273,9 +273,9 @@ def _multiclass_stat_scores_update(
         # JAX package
         wf = w.reshape(-1) * ((tgt >= 0) & (tgt < num_classes))
         correct = wf * (prd == tgt)
-        tp = weighted_bincount(tgt, correct, num_classes)
-        tgt_cnt = weighted_bincount(tgt, wf, num_classes)
-        prd_cnt = weighted_bincount(prd, wf, num_classes)
+        counts = weighted_bincount_batched(torch.stack([tgt, tgt, prd]), torch.stack([correct, wf, wf]),
+                                           num_classes)
+        tp, tgt_cnt, prd_cnt = counts[0], counts[1], counts[2]
         fn = tgt_cnt - tp
         fp = prd_cnt - tp
         tn = torch.sum(wf) - tp - fp - fn

@@ -3,10 +3,11 @@
 Counterpart of ``torchmetrics_tpu/ops/bincount.py`` ``weighted_bincount``
 (:146), whose Pallas kernel ``_kernel`` (:38) the CUDA source
 ``csrc/bincount.cu`` replaces; that file's header gives the kernel's design
-and its bound.
+and its bound. ``weighted_bincount_batched`` is the counterpart of
+``jax.vmap(weighted_bincount)``: S histograms in one launch, with indices
+shared by all S weight rows read once. The 1-D entry is its S = 1 case.
 
-``weighted_bincount`` takes the plain version only for tensors that lie on
-the CPU. A CUDA tensor goes to the kernel or raises: a failed build, a
+Both entries take the plain version only for tensors that lie on the CPU. A CUDA tensor goes to the kernel or raises: a failed build, a
 refused launch or a tensor the kernel does not take is an error, never a
 quiet switch to another path.
 
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,12 +35,26 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# 48 Ki four-byte bins (192 KiB) per block, under the 227 KB of shared memory
-# a Hopper block may use; more bins are tiled over the grid's second axis
-MAX_TILE_BINS = 48 * 1024
-# a block counts at least this many inputs, so zeroing and writing its
-# partial histogram never costs more than the counting itself
-_MIN_INPUTS_PER_BLOCK = 4096
+# shared memory one Hopper CTA may use (227 KB)
+SMEM_BYTES = 232_448
+# CTAs per cluster: clusters above 8 are non-portable, and 16 is the most Hopper launches
+MAX_CLUSTER = 16
+# up to this many index reads, with counters that fit one CTA, one CTA counts
+# everything and writes the output directly: one launch, no merge
+SINGLE_CTA_INPUTS = 16_384
+# a CTA of a multi-CTA plan counts at least about this many inputs, so that
+# zeroing and flushing its counters stays small against the counting
+MIN_INPUTS_PER_CTA = 4096
+# clusters larger than this are used only when the bins need them: every CTA
+# of a cluster receives all of the cluster's inputs, and clusters of 8 and 16
+# measured slower than clusters of 4 at the same or more CTAs
+# (bincount_ablation.py, PERF.md)
+PREFERRED_CLUSTER = 4
+# 16-byte vectors of each input stream each CTA of a cluster brings in per
+# stage (of two): at least 32 so a stage is worth its cluster barrier, at
+# most 1024 (16 KB)
+MIN_STAGE_VECTORS = 32
+MAX_STAGE_VECTORS = 1024
 
 
 def _nvcc() -> str:
@@ -84,22 +99,38 @@ def build() -> Path:
     return lib
 
 
+class _PlanStruct(ctypes.Structure):
+    """Mirrors ``struct Plan`` in ``csrc/bincount.cu``."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("wrows", ctypes.c_int),
+        ("num_bins", ctypes.c_int),
+        ("clusters", ctypes.c_int),
+        ("cluster", ctypes.c_int),
+        ("tiles", ctypes.c_int),
+        ("tile_bins", ctypes.c_int),
+        ("bs", ctypes.c_int),
+        ("chv", ctypes.c_int),
+        ("magic", ctypes.c_ulonglong),
+        ("device", ctypes.c_int),
+    ]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    fn = lib.tm_weighted_bincount
-    fn.argtypes = [
+    lib.tm_bincount.argtypes = [
+        ctypes.c_void_p,  # const Plan*
         ctypes.c_void_p,  # idx (int32)
         ctypes.c_void_p,  # weights (float32) or None
-        ctypes.c_longlong,  # n
-        ctypes.c_int,  # num_bins
-        ctypes.c_int,  # grid_x
-        ctypes.c_int,  # tile_bins
-        ctypes.c_void_p,  # partial scratch or None
         ctypes.c_void_p,  # out
         ctypes.c_void_p,  # cudaStream_t
     ]
-    fn.restype = ctypes.c_int
+    lib.tm_bincount.restype = ctypes.c_int
+    lib.tm_bincount_error_string.argtypes = [ctypes.c_int]
+    lib.tm_bincount_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -108,63 +139,215 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def launch_plan(n: int, num_bins: int, sm_count: int) -> tuple:
-    """``(grid_x, tile_bins)`` for one launch: bins split into equal tiles of
-    at most ``MAX_TILE_BINS``; inputs split over at most about two blocks per
-    SM in all, each block taking at least ``max(4096, tile_bins)`` inputs."""
-    tiles = -(-num_bins // MAX_TILE_BINS)
-    tile_bins = -(-num_bins // tiles)
-    per_block = max(_MIN_INPUTS_PER_BLOCK, tile_bins)
-    grid_x = max(1, min(-(-n // per_block), (2 * sm_count) // tiles))
-    return grid_x, tile_bins
+class LaunchPlan(NamedTuple):
+    """How one call is laid out: ``clusters`` clusters of ``cluster`` CTAs
+    for each of ``tiles`` tiles of ``tile_bins`` bins; each CTA owns ``bs``
+    bins of its tile in every output row and, in a cluster, brings in
+    ``chv`` 16-byte vectors of each input stream per stage. More than one
+    cluster per tile adds its counters into a zeroed output."""
+
+    clusters: int
+    cluster: int
+    tiles: int
+    tile_bins: int
+    bs: int
+    chv: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align4(x: int) -> int:
+    return _cdiv(x, 4) * 4
+
+
+def smem_bytes(plan: LaunchPlan, out_rows: int, streams: int) -> int:
+    """Shared memory of one CTA, as the kernel lays it out: two barriers,
+    ``out_rows`` rows of counters padded to 16-byte phase and, in a cluster,
+    two stages of ``cluster * chv`` vectors per input stream."""
+    counters = _cdiv(out_rows * (_align4(plan.bs) + 4) * 4, 16) * 16
+    stages = 2 * plan.cluster * plan.chv * 16 * streams if plan.cluster > 1 else 0
+    return 16 + counters + stages
+
+
+def launch_plan(n: int, rows: int, out_rows: int, num_bins: int, weighted: bool, sm_count: int) -> LaunchPlan:
+    """Plan for ``rows`` index rows of ``n`` inputs into ``out_rows`` x
+    ``num_bins`` counters.
+
+    When every counter fits one CTA, each CTA holds them all: one CTA for
+    small calls (at most ``SINGLE_CTA_INPUTS`` index reads), else a grid of
+    such CTAs reading disjoint inputs. Otherwise the bins are split over a
+    power-of-two cluster whose CTAs hold their share and two stages of at
+    least ``MIN_STAGE_VECTORS`` vectors (tiled only past ``MAX_CLUSTER``
+    CTAs). The number of clusters is at most one CTA per SM, at most what
+    keeps the partial histograms added into the output (clusters x counters
+    x 4 bytes) within the input bytes, and at most what gives each CTA
+    ``MIN_INPUTS_PER_CTA`` inputs. Among the cluster sizes that fit, up to
+    ``PREFERRED_CLUSTER`` or the smallest that fits, the plan takes the one
+    with the most clusters, then the most CTAs.
+    """
+    streams = 1 + (out_rows // rows if weighted else 0)
+    hist = out_rows * num_bins
+    inputs = rows * n
+    in_bytes = 4 * inputs + (4 * out_rows * n if weighted else 0)
+    merge_cap = max(1, in_bytes // (4 * hist))
+    whole = LaunchPlan(1, 1, 1, num_bins, num_bins, 0)
+    if smem_bytes(whole, out_rows, streams) <= SMEM_BYTES:
+        if inputs <= SINGLE_CTA_INPUTS:
+            return whole
+        clusters = min(sm_count, merge_cap, _cdiv(inputs, MIN_INPUTS_PER_CTA))
+        return whole._replace(clusters=max(1, clusters))
+    tiles = 1
+    while True:
+        tile_bins = _align4(_cdiv(num_bins, tiles))
+        best = None
+        cluster = 2
+        while cluster <= MAX_CLUSTER:
+            plan = LaunchPlan(1, cluster, tiles, tile_bins, _align4(_cdiv(tile_bins, cluster)), 0)
+            room = SMEM_BYTES - smem_bytes(plan, out_rows, streams)
+            chv = min(MAX_STAGE_VECTORS, room // (2 * cluster * 16 * streams)) // 32 * 32
+            if chv >= MIN_STAGE_VECTORS:
+                clusters = max(1, min(sm_count // (cluster * tiles), merge_cap,
+                                      _cdiv(inputs, MIN_INPUTS_PER_CTA * cluster)))
+                if best is None or (clusters, cluster) > (best.clusters, best.cluster):
+                    best = plan._replace(clusters=clusters, chv=chv)
+                if cluster >= PREFERRED_CLUSTER:
+                    return best
+            cluster *= 2
+        if best is not None:
+            return best
+        tiles += 1
+
+
+def slice_magic(bs: int) -> int:
+    """``ceil(2^40 / bs)``: the kernel finds the CTA that owns a bin as
+    ``(b * magic) >> 40``, which equals ``b // bs`` while ``b * bs < 2^40``
+    (true for every bin of a tile: both stay below 2^20)."""
+    return (2**40 + bs - 1) // bs
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_plan(device_index: int, n: int, rows: int, out_rows: int, num_bins: int, weighted: bool) -> tuple:
+    """(plan structure, its address), built once per shape; the cache keeps
+    the structure alive for its address."""
+    p = launch_plan(n, rows, out_rows, num_bins, weighted, _sm_count(device_index))
+    st = _PlanStruct(n, rows, out_rows if rows == 1 else 1, num_bins, p.clusters, p.cluster, p.tiles, p.tile_bins,
+                     p.bs, p.chv, slice_magic(p.bs), device_index)
+    return st, ctypes.addressof(st)
+
+
+def weighted_bincount_batched_plain(idx: torch.Tensor, weights: Optional[torch.Tensor],
+                                    num_bins: int) -> torch.Tensor:
+    """Plain PyTorch version: one ``index_add_`` over row-offset indices.
+
+    ``idx`` (S, N), or (N,) shared when ``weights`` (S, N) is given; out
+    (S, num_bins), int32 when unweighted, float32 when weighted
+    (``torch.bincount`` would give int64 and float64 on the CPU).
+    Out-of-range entries are sent to counter 0 with weight 0, so there is no
+    boolean indexing and no host sync.
+    """
+    rows = idx.shape[0] if weights is None else weights.shape[0]
+    idx = idx.expand(rows, idx.shape[-1])
+    valid = (idx >= 0) & (idx < num_bins)
+    offsets = torch.arange(rows, device=idx.device)[:, None] * num_bins
+    flat = torch.where(valid, idx.to(torch.int64) + offsets, 0).reshape(-1)
+    if weights is None:
+        w = valid.to(torch.int32)
+        out = torch.zeros(rows * num_bins, dtype=torch.int32, device=idx.device)
+    else:
+        w = torch.where(valid, weights.to(torch.float32), 0.0)
+        out = torch.zeros(rows * num_bins, dtype=torch.float32, device=idx.device)
+    return out.index_add_(0, flat, w.reshape(-1)).reshape(rows, num_bins)
 
 
 def weighted_bincount_plain(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: int) -> torch.Tensor:
-    """Plain PyTorch version: ``index_add_`` over the in-range indices.
-
-    int32 out when unweighted, float32 when weighted (``torch.bincount``
-    would give int64 and float64 on the CPU). Out-of-range entries are sent
-    to bin 0 with weight 0, so there is no boolean indexing and no host sync.
-    """
-    idx = idx.reshape(-1)
-    valid = (idx >= 0) & (idx < num_bins)
-    safe = torch.where(valid, idx, torch.zeros_like(idx)).to(torch.int64)
-    if weights is None:
-        w = valid.to(torch.int32)
-        out = torch.zeros(num_bins, dtype=torch.int32, device=idx.device)
-    else:
-        w = torch.where(valid, weights.reshape(-1).to(torch.float32), 0.0)
-        out = torch.zeros(num_bins, dtype=torch.float32, device=idx.device)
-    return out.index_add_(0, safe, w)
+    """Plain PyTorch version of the 1-D entry: the batched one at S = 1."""
+    w = None if weights is None else weights.reshape(1, -1)
+    return weighted_bincount_batched_plain(idx.reshape(1, -1), w, num_bins)[0]
 
 
-def _launch(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: int) -> torch.Tensor:
+def _launch(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: int, out_rows: int) -> torch.Tensor:
+    """One kernel launch for (out_rows, num_bins) counters; ``idx`` is (N,)
+    or (out_rows, N) int32, ``weights`` (out_rows, N) float32 or None."""
     dtype = torch.int32 if weights is None else torch.float32
-    n = idx.numel()
-    out = torch.empty(num_bins, dtype=dtype, device=idx.device)
+    n = idx.shape[-1]
+    rows = idx.shape[0] if idx.dim() == 2 else 1
+    out = torch.empty((out_rows, num_bins), dtype=dtype, device=idx.device)
     if n == 0:
         return out.zero_()
-    if not idx.is_contiguous() or (weights is not None and not weights.is_contiguous()):
-        raise ValueError("weighted_bincount kernel needs contiguous idx and weights")
-    fn = _library().tm_weighted_bincount
-    with torch.cuda.device(idx.device):
-        grid_x, tile_bins = launch_plan(n, num_bins, _sm_count(idx.device.index))
-        partial = torch.empty(grid_x * num_bins, dtype=dtype, device=idx.device) if grid_x > 1 else None
-        err = fn(
-            idx.data_ptr(),
-            None if weights is None else weights.data_ptr(),
-            n,
-            num_bins,
-            grid_x,
-            tile_bins,
-            None if partial is None else partial.data_ptr(),
-            out.data_ptr(),
-            torch.cuda.current_stream(idx.device).cuda_stream,
-        )
+    idx = idx.contiguous()
+    weights = None if weights is None else weights.contiguous()
+    if rows * n >= 2**31 or out_rows * n >= 2**31 or out_rows * num_bins >= 2**31:
+        raise ValueError(f"weighted_bincount kernel counts below 2^31 inputs and counters, got "
+                         f"{rows} x {n} indices, {out_rows} x {num_bins} counters")
+    _, plan = _kernel_plan(idx.device.index, n, rows, out_rows, num_bins, weights is not None)
+    lib = _library()
+    err = lib.tm_bincount(
+        plan,
+        idx.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        out.data_ptr(),
+        torch.cuda.current_stream(idx.device).cuda_stream,
+    )
     if err != 0:
-        raise RuntimeError(f"weighted_bincount kernel launch failed with cudaError {err}")
+        raise RuntimeError(f"weighted_bincount kernel launch failed: cudaError {err} "
+                           f"({lib.tm_bincount_error_string(err).decode()})")
     weighted_bincount.launches += 1
     return out
+
+
+def _as_int32_indices(idx: torch.Tensor) -> torch.Tensor:
+    if idx.dtype == torch.int32:
+        return idx
+    if idx.is_floating_point() or idx.is_complex():
+        raise TypeError(f"weighted_bincount needs integer indices, got {idx.dtype}")
+    return idx.to(torch.int32)
+
+
+def _on_kernel_device(idx: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version), True for CUDA ones (kernel)."""
+    if idx.device.type == "cpu":
+        return False
+    if idx.device.type != "cuda":
+        raise ValueError(f"weighted_bincount runs on CUDA or CPU tensors, got {idx.device}")
+    return True
+
+
+def weighted_bincount_batched(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
+                              num_bins: int = 0) -> torch.Tensor:
+    """S weighted bincounts in one kernel launch: ``jax.vmap`` of
+    ``weighted_bincount`` over a leading axis.
+
+    ``weights`` is (S, N) or ``None`` for int32 counts; ``idx`` is (S, N),
+    or (N,) shared by all S weight rows, whose indices the kernel then reads
+    once for all of them. Returns (S, num_bins). The 1-D contract holds per
+    row: indices cast to int32, out-of-range ones dropped, ``N == 0`` gives
+    zeros, ``num_bins <= 0`` raises.
+
+    CPU tensors take :func:`weighted_bincount_batched_plain`; CUDA tensors
+    launch the kernel, and ``weighted_bincount.launches`` counts it.
+    """
+    if num_bins <= 0:
+        raise ValueError(f"num_bins must be positive, got {num_bins}")
+    idx = _as_int32_indices(idx)
+    if weights is None:
+        if idx.dim() != 2:
+            raise ValueError(f"weights=None needs (S, N) indices, got shape {tuple(idx.shape)}")
+        rows = idx.shape[0]
+    else:
+        if weights.dim() != 2:
+            raise ValueError(f"weights must be (S, N), got shape {tuple(weights.shape)}")
+        rows, n = weights.shape
+        if tuple(idx.shape) not in ((n,), (rows, n)):
+            raise ValueError(f"indices of shape {tuple(idx.shape)} for weights of shape {(rows, n)}")
+        if weights.device != idx.device:
+            raise ValueError(f"weights on {weights.device} but indices on {idx.device}")
+        if weights.dtype != torch.float32:
+            weights = weights.to(torch.float32)
+    if not _on_kernel_device(idx):
+        return weighted_bincount_batched_plain(idx, weights, num_bins)
+    return _launch(idx, weights, num_bins, rows)
 
 
 def weighted_bincount(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
@@ -177,15 +360,12 @@ def weighted_bincount(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
     ``num_bins <= 0`` raises, as in the JAX package.
 
     CPU tensors take :func:`weighted_bincount_plain`; CUDA tensors launch the
-    kernel, and ``weighted_bincount.launches`` counts those launches.
+    kernel (the batched one at S = 1), and ``weighted_bincount.launches``
+    counts those launches, the batched entry's included.
     """
     if num_bins <= 0:
         raise ValueError(f"num_bins must be positive, got {num_bins}")
-    idx = idx.reshape(-1)
-    if idx.dtype != torch.int32:
-        if idx.is_floating_point() or idx.is_complex():
-            raise TypeError(f"weighted_bincount needs integer indices, got {idx.dtype}")
-        idx = idx.to(torch.int32)
+    idx = _as_int32_indices(idx.reshape(-1))
     if weights is not None:
         if weights.device != idx.device:
             raise ValueError(f"weights on {weights.device} but indices on {idx.device}")
@@ -194,11 +374,9 @@ def weighted_bincount(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
             raise ValueError(f"{weights.numel()} weights for {idx.numel()} indices")
         if weights.dtype != torch.float32:
             weights = weights.to(torch.float32)
-    if idx.device.type == "cpu":
+    if not _on_kernel_device(idx):
         return weighted_bincount_plain(idx, weights, num_bins)
-    if idx.device.type != "cuda":
-        raise ValueError(f"weighted_bincount runs on CUDA or CPU tensors, got {idx.device}")
-    return _launch(idx, weights, num_bins)
+    return _launch(idx, None if weights is None else weights.view(1, -1), num_bins, 1).view(num_bins)
 
 
 weighted_bincount.launches = 0
