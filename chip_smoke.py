@@ -15,15 +15,26 @@ not 0 and no result line is printed:
    beside the plain version, torch.bincount (a yardstick only; the package
    never calls it: its device time from a profiler trace, and its host
    round trip) and the memory-bandwidth bound;
-4. slice: a MetricCollection of MulticlassAccuracy(micro),
-   MulticlassF1Score(macro) and MulticlassAUROC(thresholds=64), driven
-   through update -> compute and through the pure init_state / update_state
-   / compute_state API, at bench config 2's shape (C=100, batch 1024, 200
-   steps) and at ImageNet-1k validation's (C=1000, batch 1000, 50 steps).
-   Kernel launches are counted over each drive (3 on the first stateful
-   update, then 2; 2 per pure update), states must equal a
-   device="cpu" run on the same inputs bitwise, and computed values must
-   agree with it within 1e-6.
+4. paths: each a MetricCollection driven through update -> compute and
+   through the pure init_state / update_state / compute_state API, with
+   kernel launches counted over each drive, compute groups checked, states
+   equal to a device="cpu" run on the same inputs bitwise and computed
+   values within 1e-6 of it and of their direct definitions, and a
+   torch.profiler breakdown of steady-state updates:
+   - bench_config2 / imagenet1k_val: MulticlassAccuracy(micro),
+     MulticlassF1Score(macro) and MulticlassAUROC(thresholds=64) at bench
+     config 2's shape (C=100, batch 1024, 200 steps) and ImageNet-1k
+     validation's (C=1000, batch 1000, 50 steps); 3 launches on the first
+     stateful update, then 2; 2 per pure update;
+   - mvtec_pixel_binary: BinaryAUROC and BinaryAveragePrecision
+     (thresholds=64), BinaryPrecision, BinaryRecall, BinarySpecificity and
+     BinaryF1Score over 32 score maps of 256 x 256 per update, 8 updates;
+     2 launches on the first stateful update, then 1; 1 per pure update;
+   - coco_multilabel: MultilabelAveragePrecision and MultilabelAUROC (macro,
+     thresholds=64), MultilabelF1Score, MultilabelPrecision,
+     MultilabelRecall, MultilabelHammingDistance and MultilabelExactMatch
+     at 80 labels, batch 1,024, 40 updates; 2 launches, then 1; 1 per pure
+     update.
 
 The last lines are the kernels' record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -39,7 +50,8 @@ SLEEP_CYCLES = 20_000_000  # about 10 ms of the H100's clock
 VALUE_TOL = 1e-6
 # kernel cases timed beside their bound, the plain version and torch.bincount
 TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve_c1000_t64",
-               "curve_c1000_t64_1d", "past_cluster", "unweighted_int32", "random_f32_weights")
+               "curve_c1000_t64_1d", "curve_binary_pixel_t64", "curve_multilabel_l80_t64", "past_cluster",
+               "unweighted_int32", "random_f32_weights")
 
 
 def emit(obj) -> None:
@@ -116,6 +128,13 @@ def kernel_cases(device):
         ("curve_c1000_t64", "batched", ints((1_000_000,), 0, 65_000), mask01((2, 1_000_000)), 65_000, True),
         # the 1-D entry at that shape (one call per weight row before the batched entry)
         ("curve_c1000_t64_1d", "1d", ints((1_000_000,), 0, 65_000), mask01((1_000_000,)), 65_000, True),
+        # binary pixel curve (32 masks of 256 x 256 per update): shared idx of
+        # N = 2,097,152 bins in [0, T], S=2, 65 bins: a grid of CTAs that each
+        # hold all 130 counters
+        ("curve_binary_pixel_t64", "batched", ints((2_097_152,), 0, 65), mask01((2, 2_097_152)), 65, True),
+        # multilabel curve at COCO's 80 labels, batch 1,024: shared idx of
+        # N = 81,920, S=2, bins = L * (T + 1) = 5,200
+        ("curve_multilabel_l80_t64", "batched", ints((81_920,), 0, 5_200), mask01((2, 81_920)), 5_200, True),
         # past the largest cluster (16 CTAs of 227 KB): the bins are tiled
         ("past_cluster", "1d", ints((1_000_000,), 0, 1_000_000), mask01((1_000_000,)), 1_000_000, True),
         ("unweighted_int32", "batched", ints((2, 1_000_000), 0, 65_000), None, 65_000, True),
@@ -235,15 +254,107 @@ def check_kernel(device) -> dict:
     return {"cases": results, "max_abs_err": max_abs_err}
 
 
-def make_collection(num_classes: int, device):
-    from torchmetrics_tpu_torch import MetricCollection
-    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
+def multiclass_path(num_classes: int, batch: int, steps: int) -> dict:
+    """The main path: Accuracy (micro) + F1 (macro) + binned AUROC over C classes."""
 
-    return MetricCollection({
-        "acc": MulticlassAccuracy(num_classes=num_classes, average="micro", validate_args=False, device=device),
-        "f1": MulticlassF1Score(num_classes=num_classes, average="macro", validate_args=False, device=device),
-        "auroc": MulticlassAUROC(num_classes=num_classes, thresholds=64, validate_args=False, device=device),
-    })
+    def make(device):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
+
+        return MetricCollection({
+            "acc": MulticlassAccuracy(num_classes=num_classes, average="micro", validate_args=False, device=device),
+            "f1": MulticlassF1Score(num_classes=num_classes, average="macro", validate_args=False, device=device),
+            "auroc": MulticlassAUROC(num_classes=num_classes, thresholds=64, validate_args=False, device=device),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        preds = torch.softmax(torch.randn(steps, batch, num_classes, generator=g, device=dev), dim=-1)
+        return preds, torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
+
+    def direct(preds, target):
+        return {"acc": (preds.argmax(-1) == target).double().mean().item()}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps,
+            "groups": {0: ["acc", "f1"], 1: ["auroc"]}, "launches": (3, 2, 2),
+            "shape": {"num_classes": num_classes, "batch": batch, "thresholds": 64}}
+
+
+def pixel_binary_path(masks: int = 32, side: int = 256, steps: int = 8) -> dict:
+    """Pixel-level binary evaluation, as anomaly-detection evaluations on
+    MVTec AD score every pixel of every test mask: per update ``masks``
+    score maps of side x side probabilities against {0, 1} masks. Binned
+    AUROC and AP (one curve group, one kernel launch per update) beside
+    precision, recall, specificity and F1 (one stat-scores group, counted
+    without the kernel)."""
+
+    def make(device):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.classification import (BinaryAUROC, BinaryAveragePrecision, BinaryF1Score,
+                                                           BinaryPrecision, BinaryRecall, BinarySpecificity)
+
+        kw = dict(validate_args=False, device=device)
+        return MetricCollection({
+            "auroc": BinaryAUROC(thresholds=64, **kw), "ap": BinaryAveragePrecision(thresholds=64, **kw),
+            "precision": BinaryPrecision(**kw), "recall": BinaryRecall(**kw),
+            "specificity": BinarySpecificity(**kw), "f1": BinaryF1Score(**kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        target = (torch.rand(steps, masks, side, side, generator=g, device=dev) < 0.05).to(torch.int64)
+        logits = torch.randn(steps, masks, side, side, generator=g, device=dev) + 3.0 * target - 2.0
+        return torch.sigmoid(logits), target
+
+    def direct(preds, target):
+        hit = (preds > 0.5) & (target == 1)
+        return {"recall": (hit.double().sum() / (target == 1).double().sum()).item(),
+                "precision": (hit.double().sum() / (preds > 0.5).double().sum()).item()}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps,
+            "groups": {0: ["ap", "auroc"], 1: ["f1", "precision", "recall", "specificity"]},
+            "launches": (2, 1, 1), "shape": {"masks": masks, "side": side, "pixels_per_update": masks * side * side,
+                                             "thresholds": 64}}
+
+
+def coco_multilabel_path(labels: int = 80, batch: int = 1024, steps: int = 40) -> dict:
+    """MS-COCO 80-label image classification, where mAP is the reported
+    metric: 40 updates of 1,024 images (about the 40,504-image val2014 set).
+    Binned mAP and AUROC (one curve group, one launch per update) beside F1,
+    precision, recall and Hamming (one stat-scores group) and exact match."""
+
+    def make(device):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.classification import (MultilabelAUROC, MultilabelAveragePrecision,
+                                                           MultilabelExactMatch, MultilabelF1Score,
+                                                           MultilabelHammingDistance, MultilabelPrecision,
+                                                           MultilabelRecall)
+
+        kw = dict(num_labels=labels, validate_args=False, device=device)
+        return MetricCollection({
+            "map": MultilabelAveragePrecision(average="macro", thresholds=64, **kw),
+            "auroc": MultilabelAUROC(average="macro", thresholds=64, **kw),
+            "f1": MultilabelF1Score(**kw), "precision": MultilabelPrecision(**kw), "recall": MultilabelRecall(**kw),
+            "hamming": MultilabelHammingDistance(**kw), "exact_match": MultilabelExactMatch(**kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        # about 2.9 labels per image, as in COCO
+        target = (torch.rand(steps, batch, labels, generator=g, device=dev) < 0.036).to(torch.int64)
+        logits = torch.randn(steps, batch, labels, generator=g, device=dev) + 4.0 * target - 2.5
+        return torch.sigmoid(logits), target
+
+    def direct(preds, target):
+        return {"exact_match": ((preds > 0.5) == (target == 1)).all(-1).double().mean().item(),
+                "hamming": ((preds > 0.5) != (target == 1)).double().mean().item()}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps,
+            "groups": {0: ["auroc", "map"], 1: ["exact_match"], 2: ["f1", "hamming", "precision", "recall"]},
+            "launches": (2, 1, 1), "shape": {"labels": labels, "batch": batch, "thresholds": 64}}
 
 
 def profile_updates(coll, preds, target, steps: int) -> dict:
@@ -289,7 +400,10 @@ def profile_updates(coll, preds, target, steps: int) -> dict:
     }
 
 
-def run_slice(label: str, num_classes: int, batch: int, steps: int, card: str, dev) -> int:
+def run_path(label: str, path: dict, card: str, dev) -> int:
+    """Drive one path's collection through the stateful and the pure loop,
+    check groups, launch counts, states against a CPU run and values against
+    it and against their direct definitions; returns the kernel launches."""
     import torch
 
     from torchmetrics_tpu_torch.interop import state_to_numpy
@@ -299,21 +413,22 @@ def run_slice(label: str, num_classes: int, batch: int, steps: int, card: str, d
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    make, steps = path["make"], path["steps"]
+    first_want, later_want, pure_want = path["launches"]
     g = torch.Generator(device=dev).manual_seed(1234)
-    preds = torch.softmax(torch.randn(steps, batch, num_classes, generator=g, device=dev), dim=-1)
-    target = torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
+    preds, target = path["inputs"](g, dev)
     sync()
 
     # warm-up (allocator, library handles) on a throwaway collection
-    warm = make_collection(num_classes, dev)
-    for i in range(3):
+    warm = make(dev)
+    for i in range(min(3, steps)):
         warm.update(preds[i], target[i])
     warm.compute()
     warm.update_state(warm.init_state(), preds[0], target[0])
     sync()
 
     # stateful update loop -> compute
-    coll = make_collection(num_classes, dev)
+    coll = make(dev)
     weighted_bincount.launches = 0
     coll.update(preds[0], target[0])
     sync()
@@ -326,9 +441,10 @@ def run_slice(label: str, num_classes: int, batch: int, steps: int, card: str, d
     later = weighted_bincount.launches - first
     values = coll.compute()
     sync()
-    if first != 3 or later != 2 * (steps - 1):
-        raise AssertionError(f"{label}: stateful launches {first} then {later}, expected 3 then {2 * (steps - 1)}")
-    if coll.compute_groups != {0: ["acc", "f1"], 1: ["auroc"]}:
+    if first != first_want or later != later_want * (steps - 1):
+        raise AssertionError(f"{label}: stateful launches {first} then {later}, "
+                             f"expected {first_want} then {later_want * (steps - 1)}")
+    if coll.compute_groups != path["groups"]:
         raise AssertionError(f"{label}: compute groups {coll.compute_groups}")
 
     # pure API
@@ -341,11 +457,11 @@ def run_slice(label: str, num_classes: int, batch: int, steps: int, card: str, d
     pure_s = time.perf_counter() - t0
     pure_launches = weighted_bincount.launches
     pure_values = coll.compute_state(state)
-    if pure_launches != 2 * steps:
-        raise AssertionError(f"{label}: pure launches {pure_launches}, expected {2 * steps}")
+    if pure_launches != pure_want * steps:
+        raise AssertionError(f"{label}: pure launches {pure_launches}, expected {pure_want * steps}")
 
     # the same run on the CPU (the kernel's plain version) over the same inputs
-    ref = make_collection(num_classes, "cpu")
+    ref = make("cpu")
     preds_cpu, target_cpu = preds.cpu(), target.cpu()
     for i in range(steps):
         ref.update(preds_cpu[i], target_cpu[i])
@@ -365,20 +481,20 @@ def run_slice(label: str, num_classes: int, batch: int, steps: int, card: str, d
                 raise AssertionError(f"{label}: {how} {key} = {got}")
             if abs(float(got) - float(want)) > VALUE_TOL:
                 raise AssertionError(f"{label}: {how} {key} {float(got)} vs CPU {float(want)}")
-    # accuracy against its definition
-    direct = (preds.argmax(-1) == target).double().mean().item()
-    if abs(direct - float(values["acc"])) > VALUE_TOL:
-        raise AssertionError(f"{label}: accuracy {float(values['acc'])} vs direct {direct}")
+    # values against their definitions, computed directly in float64
+    for key, want in path["direct"](preds, target).items():
+        if abs(want - float(values[key])) > VALUE_TOL:
+            raise AssertionError(f"{label}: {key} {float(values[key])} vs direct {want}")
 
     breakdown = None
     if dev.type == "cuda":
-        prof_coll = make_collection(num_classes, dev)
+        prof_coll = make(dev)
         prof_coll.update(preds[0], target[0])  # group discovery, outside the trace
         breakdown = profile_updates(prof_coll, preds[1:], target[1:], min(20, steps - 1))
 
     emit({
-        "phase": "slice", "shape": label, "num_classes": num_classes, "batch": batch, "steps": steps,
-        "thresholds": 64, "launches_first_update": first, "launches_per_later_update": later / (steps - 1),
+        "phase": "slice", "path": label, **path["shape"], "steps": steps,
+        "launches_first_update": first, "launches_per_later_update": later / (steps - 1),
         "launches_per_pure_update": pure_launches / steps,
         "stateful_updates_per_s": (steps - 1) / loop_s, "stateful_ms_per_update": loop_s / (steps - 1) * 1e3,
         "pure_updates_per_s": steps / pure_s, "pure_ms_per_update": pure_s / steps * 1e3,
@@ -410,9 +526,13 @@ def main() -> int:
     emit({"phase": "kernel", "card": card, **kernel})
 
     dev = torch.device("cuda")
-    launches = 0
-    launches += run_slice("bench_config2", num_classes=100, batch=1024, steps=200, card=card, dev=dev)
-    launches += run_slice("imagenet1k_val", num_classes=1000, batch=1000, steps=50, card=card, dev=dev)
+    paths = [
+        ("bench_config2", multiclass_path(num_classes=100, batch=1024, steps=200)),
+        ("imagenet1k_val", multiclass_path(num_classes=1000, batch=1000, steps=50)),
+        ("mvtec_pixel_binary", pixel_binary_path()),
+        ("coco_multilabel", coco_multilabel_path()),
+    ]
+    launches = sum(run_path(label, path, card, dev) for label, path in paths)
 
     main_case = next(c for c in kernel["cases"] if c["case"] == "curve_c1000_t64")
     emit({"kernels": [{

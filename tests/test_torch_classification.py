@@ -287,11 +287,14 @@ def test_multiclass_auroc_from_logits_match_jax():
 
 
 def test_curve_modes_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="exact"):
+    """The exact curve mode (thresholds=None) still raises, naming ROADMAP A9,
+    for every task; the binned binary and multilabel curves compute
+    (tests/test_torch_curves.py)."""
+    with pytest.raises(NotImplementedError, match="exact.*A9"):
         P.MulticlassAUROC(num_classes=3, thresholds=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="binary"):
-        P.AUROC(task="binary", thresholds=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="multilabel"):
-        PF.auroc(torch.rand(4, 3), torch.zeros(4, 3), "multilabel", thresholds=8, num_labels=3)
-    with pytest.raises(NotImplementedError, match="exact"):
+    with pytest.raises(NotImplementedError, match="exact.*A9"):
+        P.AUROC(task="binary", thresholds=None, device="cpu")
+    with pytest.raises(NotImplementedError, match="exact.*A9"):
+        PF.auroc(torch.rand(4, 3), torch.zeros(4, 3), "multilabel", thresholds=None, num_labels=3)
+    with pytest.raises(NotImplementedError, match="exact.*A9"):
         PF.multiclass_auroc(torch.rand(4, 3), torch.zeros(4, dtype=torch.long), 3)

@@ -15,9 +15,13 @@ REPO = PKG.parent
 
 
 def test_import_leaves_jax_out_of_sys_modules():
+    """Every module of the package, imported in a fresh process."""
     code = (
-        "import sys, torchmetrics_tpu_torch, torchmetrics_tpu_torch.functional, "
-        "torchmetrics_tpu_torch.interop, torchmetrics_tpu_torch.ops.bincount\n"
+        "import importlib, pkgutil, sys, torchmetrics_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(torchmetrics_tpu_torch.__path__, 'torchmetrics_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'torchmetrics_tpu_torch.classification.average_precision' in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'torchmetrics_tpu.')) or m == 'torchmetrics_tpu')\n"
         "print(bad)\n"

@@ -7,28 +7,8 @@ of the classification path is a hand-written CUDA weighted bincount
 (``ops.weighted_bincount``). See README.md, "PyTorch/CUDA port".
 """
 from . import functional
-from .classification import (
-    AUROC,
-    Accuracy,
-    BinaryAccuracy,
-    BinaryF1Score,
-    BinaryFBetaScore,
-    BinaryStatScores,
-    F1Score,
-    FBetaScore,
-    MulticlassAccuracy,
-    MulticlassAUROC,
-    MulticlassF1Score,
-    MulticlassFBetaScore,
-    MulticlassPrecisionRecallCurve,
-    MulticlassStatScores,
-    MultilabelAccuracy,
-    MultilabelF1Score,
-    MultilabelFBetaScore,
-    MultilabelStatScores,
-    PrecisionRecallCurve,
-    StatScores,
-)
+from .classification import *  # noqa: F401,F403
+from .classification import __all__ as _classification_all
 from .collections import MetricCollection
 from .interop import state_from_numpy, state_to_numpy
 from .metric import Metric
@@ -37,31 +17,12 @@ from .parallel import NoSync, Reduction, SyncBackend
 from .state import MetricState
 
 __all__ = [
-    "AUROC",
-    "Accuracy",
-    "BinaryAccuracy",
-    "BinaryF1Score",
-    "BinaryFBetaScore",
-    "BinaryStatScores",
-    "F1Score",
-    "FBetaScore",
+    *_classification_all,
     "Metric",
     "MetricCollection",
     "MetricState",
-    "MulticlassAUROC",
-    "MulticlassAccuracy",
-    "MulticlassF1Score",
-    "MulticlassFBetaScore",
-    "MulticlassPrecisionRecallCurve",
-    "MulticlassStatScores",
-    "MultilabelAccuracy",
-    "MultilabelF1Score",
-    "MultilabelFBetaScore",
-    "MultilabelStatScores",
     "NoSync",
-    "PrecisionRecallCurve",
     "Reduction",
-    "StatScores",
     "SyncBackend",
     "functional",
     "state_from_numpy",

@@ -9,8 +9,7 @@ import torch
 from ..functional.classification._reduce import _fbeta_reduce
 from ..functional.classification.f_beta import _check_beta
 from ..metric import Metric
-from ..utils.enums import ClassificationTask
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _stat_dispatch, _stat_facade_new
 from .stat_scores import BinaryStatScores, MulticlassStatScores, MultilabelStatScores
 
 Tensor = torch.Tensor
@@ -93,20 +92,6 @@ class MultilabelF1Score(MultilabelFBetaScore):
         super().__init__(1.0, num_labels, threshold, average, multidim_average, ignore_index, validate_args, **kwargs)
 
 
-def _dispatch(task, beta, threshold, num_classes, num_labels, average, top_k, kwargs, classes) -> Metric:
-    binary_cls, multiclass_cls, multilabel_cls = classes
-    task = ClassificationTask.from_str(task)
-    if task == ClassificationTask.BINARY:
-        return binary_cls(*beta, threshold, **kwargs)
-    if task == ClassificationTask.MULTICLASS:
-        if not isinstance(num_classes, int):
-            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
-        return multiclass_cls(*beta, num_classes, top_k, average, **kwargs)
-    if not isinstance(num_labels, int):
-        raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
-    return multilabel_cls(*beta, num_labels, threshold, average, **kwargs)
-
-
 class FBetaScore(_ClassificationTaskWrapper):
     """Task facade."""
 
@@ -117,8 +102,8 @@ class FBetaScore(_ClassificationTaskWrapper):
         kwargs.update(
             {"multidim_average": multidim_average, "ignore_index": ignore_index, "validate_args": validate_args}
         )
-        return _dispatch(task, (beta,), threshold, num_classes, num_labels, average, top_k, kwargs,
-                         (BinaryFBetaScore, MulticlassFBetaScore, MultilabelFBetaScore))
+        return _stat_dispatch(task, (beta,), threshold, num_classes, num_labels, average, top_k, kwargs,
+                              (BinaryFBetaScore, MulticlassFBetaScore, MultilabelFBetaScore))
 
 
 class F1Score(_ClassificationTaskWrapper):
@@ -134,12 +119,4 @@ class F1Score(_ClassificationTaskWrapper):
         0.75
     """
 
-    def __new__(cls, task: str, threshold: float = 0.5, num_classes: Optional[int] = None,
-                num_labels: Optional[int] = None, average: Optional[str] = "micro",
-                multidim_average: str = "global", top_k: int = 1, ignore_index: Optional[int] = None,
-                validate_args: bool = True, **kwargs: Any) -> Metric:
-        kwargs.update(
-            {"multidim_average": multidim_average, "ignore_index": ignore_index, "validate_args": validate_args}
-        )
-        return _dispatch(task, (), threshold, num_classes, num_labels, average, top_k, kwargs,
-                         (BinaryF1Score, MulticlassF1Score, MultilabelF1Score))
+    __new__ = _stat_facade_new((BinaryF1Score, MulticlassF1Score, MultilabelF1Score))

@@ -27,8 +27,7 @@ from ..functional.classification.stat_scores import (
 )
 from ..metric import Metric
 from ..utils.data import dim_zero_cat
-from ..utils.enums import ClassificationTask
-from .base import _ClassificationTaskWrapper
+from .base import _ClassificationTaskWrapper, _stat_facade_new
 
 Tensor = torch.Tensor
 
@@ -218,29 +217,4 @@ class StatScores(_ClassificationTaskWrapper):
         [3, 1, 7, 1, 4]
     """
 
-    def __new__(
-        cls,
-        task: str,
-        threshold: float = 0.5,
-        num_classes: Optional[int] = None,
-        num_labels: Optional[int] = None,
-        average: Optional[str] = "micro",
-        multidim_average: str = "global",
-        top_k: int = 1,
-        ignore_index: Optional[int] = None,
-        validate_args: bool = True,
-        **kwargs: Any,
-    ) -> Metric:
-        task = ClassificationTask.from_str(task)
-        kwargs.update(
-            {"multidim_average": multidim_average, "ignore_index": ignore_index, "validate_args": validate_args}
-        )
-        if task == ClassificationTask.BINARY:
-            return BinaryStatScores(threshold, **kwargs)
-        if task == ClassificationTask.MULTICLASS:
-            if not isinstance(num_classes, int):
-                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
-            return MulticlassStatScores(num_classes, top_k, average, **kwargs)
-        if not isinstance(num_labels, int):
-            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
-        return MultilabelStatScores(num_labels, threshold, average, **kwargs)
+    __new__ = _stat_facade_new((BinaryStatScores, MulticlassStatScores, MultilabelStatScores))

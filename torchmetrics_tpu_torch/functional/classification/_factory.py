@@ -8,6 +8,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ...utils.enums import ClassificationTask
 from .stat_scores import (
     _binary_stat_scores_arg_validation,
     _binary_stat_scores_format,
@@ -81,3 +82,24 @@ def _multilabel_stat_metric(
     preds, target, mask = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
     tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, mask, multidim_average)
     return reduce_fn(tp, fp, tn, fn, average=average, multidim_average=multidim_average, multilabel=True)
+
+
+def _stat_task_dispatch(fns, preds: Tensor, target: Tensor, task, threshold: float = 0.5,
+                        num_classes: Optional[int] = None, num_labels: Optional[int] = None,
+                        average: Optional[str] = "micro", multidim_average: str = "global", top_k: int = 1,
+                        ignore_index: Optional[int] = None, validate_args: bool = True) -> Tensor:
+    """Task dispatcher over the (binary, multiclass, multilabel) functions of
+    one stat-scores consumer."""
+    binary_fn, multiclass_fn, multilabel_fn = fns
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.BINARY:
+        return binary_fn(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    if task == ClassificationTask.MULTICLASS:
+        if not isinstance(num_classes, int):
+            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
+        return multiclass_fn(preds, target, num_classes, average, top_k, multidim_average, ignore_index,
+                             validate_args)
+    if not isinstance(num_labels, int):
+        raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
+    return multilabel_fn(preds, target, num_labels, threshold, average, multidim_average, ignore_index,
+                         validate_args)

@@ -81,3 +81,70 @@ def _fbeta_reduce(
         return _safe_divide((1 + beta2) * tp, (1 + beta2) * tp + beta2 * fn + fp, zero_division)
     score = _safe_divide((1 + beta2) * tp, (1 + beta2) * tp + beta2 * fn + fp, zero_division)
     return _adjust_weights_safe_divide(score, average, multilabel, tp, fp, fn)
+
+
+def _precision_recall_reduce(
+    stat: str,
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    average: Optional[str],
+    multidim_average: str = "global",
+    multilabel: bool = False,
+    top_k: int = 1,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Parity: reference ``functional/classification/precision_recall.py:25``;
+    ``stat`` is ``"precision"`` (tp / (tp + fp)) or ``"recall"`` (tp / (tp + fn))."""
+    different_stat = fp if stat == "precision" else fn
+    if average == "binary":
+        return _safe_divide(tp, tp + different_stat, zero_division)
+    if average == "micro":
+        tp, different_stat = _sum_all(0 if multidim_average == "global" else 1, tp, different_stat)
+        return _safe_divide(tp, tp + different_stat, zero_division)
+    score = _safe_divide(tp, tp + different_stat, zero_division)
+    return _adjust_weights_safe_divide(score, average, multilabel, tp, fp, fn, top_k)
+
+
+def _specificity_reduce(
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    average: Optional[str],
+    multidim_average: str = "global",
+    multilabel: bool = False,
+    top_k: int = 1,
+) -> Tensor:
+    """Parity: reference ``functional/classification/specificity.py:23``."""
+    if average == "binary":
+        return _safe_divide(tn, tn + fp)
+    if average == "micro":
+        fp, tn = _sum_all(0 if multidim_average == "global" else 1, fp, tn)
+        return _safe_divide(tn, tn + fp)
+    score = _safe_divide(tn, tn + fp)
+    return _adjust_weights_safe_divide(score, average, multilabel, tp, fp, fn)
+
+
+def _hamming_distance_reduce(
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    average: Optional[str],
+    multidim_average: str = "global",
+    multilabel: bool = False,
+    top_k: int = 1,
+) -> Tensor:
+    """Parity: reference ``functional/classification/hamming.py:25``: one minus
+    the accuracy of the same counts."""
+    if average == "binary":
+        return 1 - _safe_divide(tp + tn, tp + fp + tn + fn)
+    if average == "micro":
+        tp, fp, tn, fn = _sum_all(0 if multidim_average == "global" else 1, tp, fp, tn, fn)
+        if multilabel:
+            return 1 - _safe_divide(tp + tn, tp + fp + tn + fn)
+        return 1 - _safe_divide(tp, tp + fn)
+    score = 1 - (_safe_divide(tp + tn, tp + fp + tn + fn) if multilabel else _safe_divide(tp, tp + fn))
+    return _adjust_weights_safe_divide(score, average, multilabel, tp, fp, fn)

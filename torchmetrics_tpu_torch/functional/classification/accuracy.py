@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from ._factory import _binary_stat_metric, _multiclass_stat_metric, _multilabel_stat_metric
+from ._factory import _binary_stat_metric, _multiclass_stat_metric, _multilabel_stat_metric, _stat_task_dispatch
 from ._reduce import _accuracy_reduce
 
 Tensor = torch.Tensor
@@ -69,19 +69,6 @@ def accuracy(
     validate_args: bool = True,
 ) -> Tensor:
     """Task dispatcher."""
-    from ...utils.enums import ClassificationTask
-
-    task = ClassificationTask.from_str(task)
-    if task == ClassificationTask.BINARY:
-        return binary_accuracy(preds, target, threshold, multidim_average, ignore_index, validate_args)
-    if task == ClassificationTask.MULTICLASS:
-        if not isinstance(num_classes, int):
-            raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
-        return multiclass_accuracy(
-            preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
-        )
-    if not isinstance(num_labels, int):
-        raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
-    return multilabel_accuracy(
-        preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
-    )
+    return _stat_task_dispatch((binary_accuracy, multiclass_accuracy, multilabel_accuracy), preds, target, task,
+                               threshold, num_classes, num_labels, average, multidim_average, top_k, ignore_index,
+                               validate_args)

@@ -2,10 +2,10 @@
 
 Counterpart of
 ``torchmetrics_tpu/functional/classification/precision_recall_curve.py``.
-This slice ports the multiclass binned mode: a fixed-shape (T, C, 2, 2)
-confusion state per threshold, summed over updates. The exact mode
-(``thresholds=None``) and the binary and multilabel tasks raise
-``NotImplementedError`` until later slices.
+The binned mode is ported for the binary, multiclass and multilabel tasks: a
+fixed-shape (T, 2, 2), (T, C, 2, 2) or (T, L, 2, 2) confusion state per
+threshold, summed over updates. The exact mode (``thresholds=None``) raises
+``NotImplementedError`` until a later slice.
 
 Deviations from the JAX package, both deliberate:
 
@@ -14,11 +14,12 @@ Deviations from the JAX package, both deliberate:
   with the reciprocal rounded to float32, the last point is exactly 1.0).
   ``torch.linspace`` rounds differently and disagrees in up to half the
   points; a threshold one ulp off moves samples between bins.
-- ``_binned_confusion_from_bins`` counts (class, bin) cells with one
+- ``_binned_confusion_from_bins`` counts (column, bin) cells with one
   ``weighted_bincount_batched`` call over ``idx = c*(T+1) + k`` and two
   weight rows (the CUDA kernel on the card, one launch that reads ``idx``
   once) where the JAX package contracts a bf16 one-hot of the bins on
-  the TPU's matrix unit. Both sum 0/1 weights in float32.
+  the TPU's matrix unit. Both sum 0/1 weights in float32. A column is a
+  class (multiclass), a label (multilabel) or the one binary column.
 """
 from typing import List, Optional, Tuple, Union
 
@@ -26,21 +27,17 @@ import torch
 
 from ...ops.bincount import weighted_bincount_batched
 from ...utils.compute import _safe_divide, normalize_logits_if_needed
+from ...utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
 Thresholds = Union[int, List[float], Tensor, None]
 
-_LATER = "is not ported yet; the PyTorch port covers the multiclass binned curve (thresholds=int/list/tensor)"
-
 
 def _exact_mode_not_ported() -> NotImplementedError:
     return NotImplementedError(
-        "thresholds=None (the exact curve) " + _LATER + "; the exact path follows with ROADMAP A9"
+        "thresholds=None (the exact curve) is not ported yet; the PyTorch port covers the binned curves "
+        "(thresholds=int/list/tensor), and the exact path follows with ROADMAP A9"
     )
-
-
-def _task_not_ported(task: str) -> NotImplementedError:
-    return NotImplementedError(f"the {task} curve family " + _LATER + "; it follows with ROADMAP A4")
 
 
 def _adjust_threshold_arg(thresholds: Thresholds, device: Union[str, torch.device] = "cpu") -> Optional[Tensor]:
@@ -66,11 +63,11 @@ def _binned_confusion_from_bins(weights: Tensor, bin_idx: Tensor, len_t: int) ->
 
     ``bin_idx[i, c] = #thresholds <= pred`` (so ``pred >= thr_t <=> bin > t``).
     One batched bincount over the flat cell index ``c*(T+1) + bin``, shared
-    by both weight rows, gives per (class, bin) the positive and the total
+    by both weight rows, gives per (column, bin) the positive and the total
     weight; suffix sums over the bin axis recover per-threshold counts.
 
     Exactness: counts accumulate in float32, so one update is integer-exact
-    only up to 2^24 samples per (class, bin) cell, the ceiling the JAX
+    only up to 2^24 samples per (column, bin) cell, the ceiling the JAX
     package documents (``precision_recall_curve.py:113-118``).
 
     weights: (2, N, C) weights for positives and for all samples; bin_idx:
@@ -94,6 +91,108 @@ def _binned_confusion_from_bins(weights: Tensor, bin_idx: Tensor, len_t: int) ->
     out = torch.stack([torch.stack([tn, fp], -1), torch.stack([fn, tp], -1)], -2)  # (C, T, 2, 2)
     return torch.movedim(out, 0, 1).to(torch.int32)  # (T, C, 2, 2)
 
+
+def _bins_of(preds: Tensor, thresholds: Tensor) -> Tensor:
+    """``#thresholds <= pred`` per prediction (so ``pred >= thr_t <=> bin > t``);
+    a NaN prediction goes to bin 0, never predicted-positive."""
+    k = torch.searchsorted(thresholds, preds, right=True)
+    return torch.where(torch.isnan(preds), 0, k)
+
+
+def _curve_weights(target: Tensor, mask: Optional[Tensor]) -> Tensor:
+    """The (2, N, C) weights of positives and of all samples, written straight
+    into the kernel's input buffer: ``target * w`` and ``w``, where ``target``
+    is (N, C) 0/1 and ``w`` the 0/1 ``mask`` (broadcast to (N, C)) or 1."""
+    weights = torch.empty((2,) + tuple(target.shape), dtype=torch.float32, device=target.device)
+    if mask is None:
+        weights[1].fill_(1.0)
+        weights[0].copy_(target)
+    else:
+        weights[1].copy_(mask)
+        torch.mul(target, weights[1], out=weights[0])
+    return weights
+
+
+def _pr_from_confmat(state: Tensor, thresholds: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    """Per-column (C, T+1) precision and recall from a (T, C, 2, 2) state, each
+    ending in the (1, 0) point."""
+    if thresholds is None:
+        raise _exact_mode_not_ported()
+    tps = state[:, :, 1, 1]
+    fps = state[:, :, 0, 1]
+    fns = state[:, :, 1, 0]
+    precision = _safe_divide(tps, tps + fps).T  # (C, T)
+    recall = _safe_divide(tps, tps + fns).T
+    ones = torch.ones(precision.shape[0], 1, dtype=precision.dtype, device=precision.device)
+    return torch.cat([precision, ones], 1), torch.cat([recall, torch.zeros_like(ones)], 1), thresholds
+
+
+# ---------------------------------------------------------------------------
+# binary
+# ---------------------------------------------------------------------------
+
+def _binary_precision_recall_curve_format(
+    preds: Tensor,
+    target: Tensor,
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Optional[Tensor], Optional[Tensor]]:
+    """(preds, target, thresholds, mask); the mask is None without ignore_index.
+    Logits are detected among the kept entries only."""
+    preds = preds.reshape(-1)
+    target = target.reshape(-1)
+    valid = None if ignore_index is None else (target != ignore_index)
+    preds = normalize_logits_if_needed(preds.to(torch.float32), "sigmoid", valid)
+    if ignore_index is not None:
+        target = torch.clamp(target, 0, 1)
+    return preds, target.to(torch.int32), _adjust_threshold_arg(thresholds, preds.device), valid
+
+
+def _binary_precision_recall_curve_update(
+    preds: Tensor, target: Tensor, thresholds: Optional[Tensor], mask: Optional[Tensor] = None
+) -> Tensor:
+    """Binned state (T, 2, 2) int32: the one-column case of the multiclass
+    engine, one batched bincount of two weight rows."""
+    if thresholds is None:
+        raise _exact_mode_not_ported()
+    weights = _curve_weights(target[:, None], None if mask is None else mask[:, None])
+    return _binned_confusion_from_bins(weights, _bins_of(preds, thresholds)[:, None], thresholds.shape[0])[:, 0]
+
+
+def _binary_precision_recall_curve_compute(
+    state: Tensor, thresholds: Optional[Tensor]
+) -> Tuple[Tensor, Tensor, Tensor]:
+    precision, recall, thresholds = _pr_from_confmat(state[:, None], thresholds)
+    return precision[0], recall[0], thresholds
+
+
+def binary_precision_recall_curve(
+    preds: Tensor,
+    target: Tensor,
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Binned precision-recall curve: (T+1,) precision and recall, (T,) thresholds.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.functional.classification import binary_precision_recall_curve
+        >>> preds = torch.tensor([0.1, 0.8, 0.6, 0.3, 0.9, 0.4])
+        >>> target = torch.tensor([0, 1, 1, 0, 1, 0])
+        >>> [[round(float(x), 4) for x in v] for v in binary_precision_recall_curve(preds, target, thresholds=5)]
+        [[0.5, 0.6, 1.0, 1.0, 0.0, 1.0], [1.0, 1.0, 1.0, 0.6667, 0.0, 0.0], [0.0, 0.25, 0.5, 0.75, 1.0]]
+    """
+    if thresholds is None:
+        raise _exact_mode_not_ported()
+    preds, target, thr, mask = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
+    state = _binary_precision_recall_curve_update(preds, target, thr, mask)
+    return _binary_precision_recall_curve_compute(state, thr)
+
+
+# ---------------------------------------------------------------------------
+# multiclass (one-vs-rest)
+# ---------------------------------------------------------------------------
 
 def _multiclass_precision_recall_curve_format(
     preds: Tensor,
@@ -120,16 +219,9 @@ def _multiclass_precision_recall_curve_update(
     """Binned state (T, C, 2, 2) int32."""
     if thresholds is None:
         raise _exact_mode_not_ported()
-    len_t = thresholds.shape[0]
-    w = torch.ones_like(target, dtype=torch.float32) if mask is None else mask.to(torch.float32)
-    k = torch.searchsorted(thresholds, preds, right=True)  # (N, C): pred >= thr_t <=> k > t
-    k = torch.where(torch.isnan(preds), 0, k)  # NaN pred: never predicted-positive
-    classes = torch.arange(num_classes, device=target.device)
-    # both weight rows written straight into the kernel's (2, N, C) input
-    weights = torch.empty((2,) + tuple(preds.shape), dtype=torch.float32, device=preds.device)
-    torch.mul(target[:, None] == classes, w[:, None], out=weights[0])  # positives
-    weights[1].copy_(w[:, None].expand(preds.shape))  # all samples
-    return _binned_confusion_from_bins(weights, k, len_t)
+    onehot = target[:, None] == torch.arange(num_classes, device=target.device)
+    weights = _curve_weights(onehot, None if mask is None else mask[:, None])
+    return _binned_confusion_from_bins(weights, _bins_of(preds, thresholds), thresholds.shape[0])
 
 
 def _multiclass_precision_recall_curve_compute(
@@ -137,16 +229,7 @@ def _multiclass_precision_recall_curve_compute(
     num_classes: int,
     thresholds: Optional[Tensor],
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    if thresholds is None:
-        raise _exact_mode_not_ported()
-    tps = state[:, :, 1, 1]
-    fps = state[:, :, 0, 1]
-    fns = state[:, :, 1, 0]
-    precision = _safe_divide(tps, tps + fps).T  # (C, T)
-    recall = _safe_divide(tps, tps + fns).T
-    precision = torch.cat([precision, torch.ones(num_classes, 1, dtype=precision.dtype, device=precision.device)], 1)
-    recall = torch.cat([recall, torch.zeros(num_classes, 1, dtype=recall.dtype, device=recall.device)], 1)
-    return precision, recall, thresholds
+    return _pr_from_confmat(state, thresholds)
 
 
 def multiclass_precision_recall_curve(
@@ -167,24 +250,88 @@ def multiclass_precision_recall_curve(
     return _multiclass_precision_recall_curve_compute(state, num_classes, thr)
 
 
-def binary_precision_recall_curve(*args, **kwargs):
-    raise _task_not_ported("binary")
+# ---------------------------------------------------------------------------
+# multilabel
+# ---------------------------------------------------------------------------
+
+def _multilabel_precision_recall_curve_format(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Optional[Tensor], Optional[Tensor]]:
+    """Unlike the binary format, logits are detected and sigmoided BEFORE the
+    ignore mask exists (JAX ``precision_recall_curve.py:295-296``), and the
+    targets are clipped to {0, 1} only when thresholds are given."""
+    preds = preds.reshape(-1, num_labels)
+    target = target.reshape(-1, num_labels)
+    preds = normalize_logits_if_needed(preds.to(torch.float32), "sigmoid")
+    thr = _adjust_threshold_arg(thresholds, preds.device)
+    mask = None
+    if ignore_index is not None:
+        mask = target != ignore_index
+        if thr is not None:
+            target = torch.clamp(target, 0, 1)
+    return preds, target.to(torch.int32), thr, mask
 
 
-def multilabel_precision_recall_curve(*args, **kwargs):
-    raise _task_not_ported("multilabel")
+def _multilabel_precision_recall_curve_update(
+    preds: Tensor, target: Tensor, num_labels: int, thresholds: Optional[Tensor], mask: Optional[Tensor] = None
+) -> Tensor:
+    """Binned state (T, L, 2, 2) int32: per-element weights ``target * w`` and
+    ``w`` over the (N, L) bins, no one-hot."""
+    if thresholds is None:
+        raise _exact_mode_not_ported()
+    weights = _curve_weights(target, mask)
+    return _binned_confusion_from_bins(weights, _bins_of(preds, thresholds), thresholds.shape[0])
+
+
+def _multilabel_precision_recall_curve_compute(
+    state: Tensor,
+    num_labels: int,
+    thresholds: Optional[Tensor],
+) -> Tuple[Tensor, Tensor, Tensor]:
+    return _pr_from_confmat(state, thresholds)
+
+
+def multilabel_precision_recall_curve(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+):
+    """Binned precision-recall curve per label: (L, T+1) precision and recall."""
+    if thresholds is None:
+        raise _exact_mode_not_ported()
+    preds, target, thr, mask = _multilabel_precision_recall_curve_format(
+        preds, target, num_labels, thresholds, ignore_index
+    )
+    state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thr, mask)
+    return _multilabel_precision_recall_curve_compute(state, num_labels, thr)
+
+
+def _check_task_count(task, num_classes: Optional[int], num_labels: Optional[int]):
+    """The task enum, after checking that a multiclass or multilabel task was
+    given its class or label count."""
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.MULTICLASS and not isinstance(num_classes, int):
+        raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
+    if task == ClassificationTask.MULTILABEL and not isinstance(num_labels, int):
+        raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
+    return task
 
 
 def precision_recall_curve(
     preds: Tensor, target: Tensor, task: str, thresholds: Thresholds = None, num_classes: Optional[int] = None,
     num_labels: Optional[int] = None, ignore_index: Optional[int] = None, validate_args: bool = True,
 ):
-    """Task dispatcher (multiclass only in this slice)."""
-    from ...utils.enums import ClassificationTask
-
-    task = ClassificationTask.from_str(task)
-    if task != ClassificationTask.MULTICLASS:
-        raise _task_not_ported(task.value)
-    if not isinstance(num_classes, int):
-        raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
-    return multiclass_precision_recall_curve(preds, target, num_classes, thresholds, ignore_index, validate_args)
+    """Task dispatcher."""
+    task = _check_task_count(task, num_classes, num_labels)
+    if task == ClassificationTask.BINARY:
+        return binary_precision_recall_curve(preds, target, thresholds, ignore_index, validate_args)
+    if task == ClassificationTask.MULTICLASS:
+        return multiclass_precision_recall_curve(preds, target, num_classes, thresholds, ignore_index, validate_args)
+    return multilabel_precision_recall_curve(preds, target, num_labels, thresholds, ignore_index, validate_args)
