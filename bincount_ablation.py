@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Ablations of the weighted-bincount CUDA kernel on one CUDA card.
 
-    python3 bincount_ablation.py
+    python3 bincount_ablation.py [--parts plans,source,sparse]
 
-Two parts, one JSON line per measurement, at the metric path's shapes
-(binned curve at C=1000 through the batched entry and the 1-D entry, binned
-curve at C=100, stat scores at C=1000):
+Three parts, one JSON line per measurement. The first two at the metric
+path's shapes (binned curve at C=1000 through the batched entry and the 1-D
+entry, binned curve at C=100, stat scores at C=1000):
 
 1. plans: the kernel's own plan beside others with a different cluster size
    or number of clusters, each checked against the plain version, so the
@@ -14,11 +14,17 @@ curve at C=100, stat scores at C=1000):
    replaced (no counting adds, integer instead of float32 shared-memory
    adds, no merge, no memset), built and timed beside the unchanged source,
    to apportion the kernel's time. These copies give wrong counts on
-   purpose; only the unchanged source is checked.
+   purpose; only the unchanged source is checked;
+3. sparse: the sparse plan (global atomics into the zeroed output) beside
+   the plan the kernel would use without it, over counters that do not fit
+   one CTA and a sweep of inputs per row, each checked against the plain
+   version and timed beside torch.bincount's device time; this sets
+   SPARSE_BINS_PER_INPUT, the cut-over between the two.
 
 Times are device ms per call (chip_smoke.time_ms). It needs nvcc and one
 card, and prints the card's name and power limit first.
 """
+import argparse
 import ctypes
 import json
 import os
@@ -28,7 +34,7 @@ import tempfile
 
 import torch
 
-from chip_smoke import card_line, time_ms
+from chip_smoke import card_line, library_device_ms, time_ms
 from torchmetrics_tpu_torch.ops import bincount
 
 ABLATIONS = {
@@ -155,14 +161,76 @@ def run_source(device) -> None:
     bincount._library = own_library
 
 
+# (rows, out_rows, bins, weighted, spread) families and the inputs per row
+# swept: the ImageNet-1k confusion matrix's 1,000,000 int32 cells (bin tiles
+# of clusters of 16 without the sparse plan), the same with every input on
+# the 1,000 diagonal cells (a perfect classifier: contended atomics),
+# 100,000 int32 cells (a cluster of 4) and the binned curve's two weight
+# rows of 65,000 bins (clusters of 4), from far fewer inputs than bins to
+# more inputs than bins
+SPARSE_SWEEP = [
+    ((1, 1, 1_000_000, False, "uniform"),
+     (1000, 4000, 16_000, 62_500, 125_000, 250_000, 500_000, 1_000_000, 2_000_000, 4_000_000)),
+    ((1, 1, 1_000_000, False, "diagonal"), (1000, 62_500, 500_000, 1_000_000)),
+    ((1, 1, 100_000, False, "uniform"), (1000, 6250, 12_500, 25_000, 50_000, 100_000, 200_000, 400_000, 1_600_000)),
+    ((1, 2, 65_000, True, "uniform"), (1000, 4000, 8125, 16_250, 32_500, 65_000, 130_000, 260_000, 1_000_000)),
+]
+
+
+def run_sparse(device) -> None:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    own_plan, own_cut = bincount.launch_plan, bincount.SPARSE_BINS_PER_INPUT
+    g = torch.Generator(device=device).manual_seed(0)
+    for (rows, out_rows, bins, weighted, spread), ns in SPARSE_SWEEP:
+        for n in ns:
+            shape = (rows, n) if not weighted else (n,)
+            if spread == "diagonal":  # cell c * (C + 1) of a C x C matrix
+                side = round(bins**0.5)
+                idx = torch.randint(0, side, shape, generator=g, device=device, dtype=torch.int32) * (side + 1)
+            else:
+                idx = torch.randint(0, bins, shape, generator=g, device=device, dtype=torch.int32)
+            w = (torch.rand((out_rows, n), generator=g, device=device) < 0.9).to(torch.float32) if weighted else None
+            want = bincount.weighted_bincount_batched_plain(idx, w, bins)
+            bincount.SPARSE_BINS_PER_INPUT = 2**62  # never sparse: the plan without it
+            dense = own_plan(n, rows, out_rows, bins, weighted, sms)
+            bincount.SPARSE_BINS_PER_INPUT = own_cut
+            sparse = bincount.LaunchPlan(max(1, min(sms, -(-rows * n // bincount.SPARSE_INPUTS_PER_CTA))), 1, 1,
+                                         bins, bins, 0, sparse=True)
+            row = {"part": "sparse", "rows": rows, "out_rows": out_rows, "bins": bins, "weighted": weighted,
+                   "spread": spread, "n": n,
+                   "bins_per_input": bins / n, "own_plan_sparse": own_plan(n, rows, out_rows, bins, weighted,
+                                                                           sms).sparse,
+                   "library_device_ms": library_device_ms(idx, w, bins)}
+            for label, plan in (("dense", dense), ("sparse", sparse)):
+                bincount.launch_plan = lambda *args, plan=plan: plan
+                bincount._kernel_plan.cache_clear()
+                got = bincount.weighted_bincount_batched(idx, w, bins)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"sparse sweep {bins} bins, n={n}, {plan}: not bitwise equal to the plain "
+                                         "version")
+                row[f"{label}_ms"], _, row[f"{label}_covered"] = time_ms(
+                    lambda: bincount.weighted_bincount_batched(idx, w, bins))
+                row[f"{label}_plan"] = plan._asdict()
+            bincount.launch_plan = own_plan
+            bincount._kernel_plan.cache_clear()
+            emit(row)
+
+
+PARTS = {"plans": run_plans, "source": run_source, "sparse": run_sparse}
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parts", default=",".join(PARTS), help="comma-separated parts to run, in order")
+    parts = parser.parse_args().parts.split(",")
     if not torch.cuda.is_available():
         print("bincount_ablation: no CUDA device is available", file=sys.stderr)
         return 1
     emit({"card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda})
     device = torch.device("cuda")
-    run_plans(device)
-    run_source(device)
+    for part in parts:
+        PARTS[part](device)
     return 0
 
 

@@ -11,7 +11,8 @@ not 0 and no result line is printed:
 3. kernel: the CUDA kernel through weighted_bincount_batched (the metric
    path's batched calls) and weighted_bincount (1-D), against the plain
    PyTorch versions on the card, at the metric path's shapes, past the
-   largest cluster and at edge cases; each call must launch once. Timed
+   largest cluster, at the sparse plan's shape (the ImageNet-1k confusion
+   matrix) and at edge cases; each call must launch once. Timed
    beside the plain version, torch.bincount (a yardstick only; the package
    never calls it: its device time from a profiler trace, and its host
    round trip) and the memory-bandwidth bound;
@@ -19,8 +20,9 @@ not 0 and no result line is printed:
    through the pure init_state / update_state / compute_state API, with
    kernel launches counted over each drive, compute groups checked, states
    equal to a device="cpu" run on the same inputs bitwise and computed
-   values within 1e-6 of it and of their direct definitions, and a
-   torch.profiler breakdown of steady-state updates:
+   values within 1e-6 of it and of their direct definitions (matrices
+   elementwise, int32 ones bitwise), and a torch.profiler breakdown of
+   steady-state updates:
    - bench_config2 / imagenet1k_val: MulticlassAccuracy(micro),
      MulticlassF1Score(macro) and MulticlassAUROC(thresholds=64) at bench
      config 2's shape (C=100, batch 1024, 200 steps) and ImageNet-1k
@@ -34,7 +36,20 @@ not 0 and no result line is printed:
      thresholds=64), MultilabelF1Score, MultilabelPrecision,
      MultilabelRecall, MultilabelHammingDistance and MultilabelExactMatch
      at 80 labels, batch 1,024, 40 updates; 2 launches, then 1; 1 per pure
-     update.
+     update;
+   - cityscapes_miou: semantic-segmentation evaluation as mmsegmentation
+     runs it on Cityscapes val: MulticlassJaccardIndex (mIoU),
+     MulticlassConfusionMatrix (normalize="true"), MulticlassAccuracy
+     (micro: pixel accuracy) and Dice (macro), 19 classes,
+     ignore_index=255, one 1024 x 2048 image of float32 logits per update,
+     10 updates; 4 launches on the first stateful update (every member runs
+     before the two groups are found), then 2; 2 per pure update;
+   - imagenet1k_confmat: MulticlassConfusionMatrix, MulticlassCohenKappa,
+     MulticlassMatthewsCorrCoef (one confusion-matrix group, 1,000,000
+     cells: the kernel's sparse plan) and MulticlassCalibrationError
+     (n_bins=15) at C=1000, batch 1000, 50 updates; 3 launches, then 1; 1
+     per pure update; and 1 per compute, where the calibration error bins
+     its cat states.
 
 The last lines are the kernels' record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -51,7 +66,10 @@ VALUE_TOL = 1e-6
 # kernel cases timed beside their bound, the plain version and torch.bincount
 TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve_c1000_t64",
                "curve_c1000_t64_1d", "curve_binary_pixel_t64", "curve_multilabel_l80_t64", "past_cluster",
-               "unweighted_int32", "random_f32_weights")
+               "unweighted_int32", "random_f32_weights", "confmat_cityscapes", "stat_scores_cityscapes",
+               "confmat_imagenet1k", "calibration_imagenet1k")
+# this slice's cases, reported beside the main one in the kernels line
+SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k")
 
 
 def emit(obj) -> None:
@@ -117,6 +135,11 @@ def kernel_cases(device):
         return (torch.rand(shape, generator=g, device=device) < 0.9).to(torch.float32)
 
     mis_idx, mis_w = ints((1_000_001,), -3, 65_003), mask01((2, 1_000_001))
+    # Cityscapes: one 1024 x 2048 label map, about 10% of the pixels ignored
+    # (index -1, which the kernel drops)
+    city = ints((1, 2_097_152), 0, 361)
+    city = torch.where(torch.rand(city.shape, generator=g, device=device) < 0.1, -1, city)
+    conf = torch.rand((50_000,), generator=g, device=device)
     return [
         # stat scores at bench config 2: S=3 rows of N = batch, bins = C
         ("stat_scores_c100", "batched", ints((3, 1024), 0, 100), mask01((3, 1024)), 100, True),
@@ -152,6 +175,19 @@ def kernel_cases(device):
         ("six_rows_cluster", "batched", ints((300_000,), 0, 20_000), mask01((6, 300_000)), 20_000, True),
         ("random_f32_weights", "batched", ints((1_000_000,), 0, 65_000),
          torch.rand((2, 1_000_000), generator=g, device=device), 65_000, False),
+        # confusion matrix at Cityscapes (19 classes): int32 counts of one
+        # image's pixels into 19^2 cells
+        ("confmat_cityscapes", "batched", city, None, 361, True),
+        # the stat scores of Dice and pixel accuracy there: 3 rows of 2,097,152
+        ("stat_scores_cityscapes", "batched", ints((3, 2_097_152), 0, 19), mask01((3, 2_097_152)), 19, True),
+        # confusion matrix at ImageNet-1k: 1,000 samples into 1,000,000 cells,
+        # the sparse plan
+        ("confmat_imagenet1k", "batched", ints((1, 1000), 0, 1_000_000), None, 1_000_000, True),
+        # calibration error over ImageNet-1k val: counts, confidence and
+        # accuracy sums of 50,000 samples in 15 bins over one shared index;
+        # the confidences are arbitrary float32 weights
+        ("calibration_imagenet1k", "batched", torch.clamp((conf * 15).to(torch.int32), 0, 14),
+         torch.stack([torch.ones_like(conf), conf, mask01((50_000,))]), 15, False),
     ]
 
 
@@ -172,7 +208,8 @@ def library_device_ms(idx, w, bins: int, reps: int = 10) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    idx64 = idx.long()
+    # torch.bincount refuses negative indices: dropped ones count in bin 0
+    idx64 = idx.long().clamp_min(0)
     rows = w.shape[0] if w is not None and w.dim() == 2 else (idx.shape[0] if idx.dim() == 2 else 1)
 
     def call():
@@ -243,7 +280,7 @@ def check_kernel(device) -> dict:
             # torch.bincount reads the largest index back to the host to size
             # its output, so every call waits for the device: this is a host
             # round trip per row ("library_covered" comes out False)
-            idx64 = idx.long()
+            idx64 = idx.long().clamp_min(0)
             w_rows = [None] * s if w is None else ([w] if w.dim() == 1 else list(w))
             i_rows = [idx64] * s if idx64.dim() == 1 else list(idx64)
             row["library_ms"], _, row["library_covered"] = time_ms(
@@ -277,7 +314,7 @@ def multiclass_path(num_classes: int, batch: int, steps: int) -> dict:
         return {"acc": (preds.argmax(-1) == target).double().mean().item()}
 
     return {"make": make, "inputs": inputs, "direct": direct, "steps": steps,
-            "groups": {0: ["acc", "f1"], 1: ["auroc"]}, "launches": (3, 2, 2),
+            "groups": {0: ["acc", "f1"], 1: ["auroc"]}, "launches": (3, 2, 2, 0),
             "shape": {"num_classes": num_classes, "batch": batch, "thresholds": 64}}
 
 
@@ -315,7 +352,7 @@ def pixel_binary_path(masks: int = 32, side: int = 256, steps: int = 8) -> dict:
 
     return {"make": make, "inputs": inputs, "direct": direct, "steps": steps,
             "groups": {0: ["ap", "auroc"], 1: ["f1", "precision", "recall", "specificity"]},
-            "launches": (2, 1, 1), "shape": {"masks": masks, "side": side, "pixels_per_update": masks * side * side,
+            "launches": (2, 1, 1, 0), "shape": {"masks": masks, "side": side, "pixels_per_update": masks * side * side,
                                              "thresholds": 64}}
 
 
@@ -354,7 +391,145 @@ def coco_multilabel_path(labels: int = 80, batch: int = 1024, steps: int = 40) -
 
     return {"make": make, "inputs": inputs, "direct": direct, "steps": steps,
             "groups": {0: ["auroc", "map"], 1: ["exact_match"], 2: ["f1", "hamming", "precision", "recall"]},
-            "launches": (2, 1, 1), "shape": {"labels": labels, "batch": batch, "thresholds": 64}}
+            "launches": (2, 1, 1, 0), "shape": {"labels": labels, "batch": batch, "thresholds": 64}}
+
+
+def cityscapes_miou_path(num_classes: int = 19, height: int = 1024, width: int = 2048, steps: int = 10) -> dict:
+    """Semantic-segmentation evaluation as mmsegmentation runs it on
+    Cityscapes val: one 1024 x 2048 image of float32 logits (1, 19, H, W)
+    per update against a label map with about 10% of the pixels at 255
+    (ignored), 10 updates (the val set has 500 images). mIoU (macro) and the
+    row-normalised confusion matrix form one confusion-matrix group (one
+    int32 launch per update, 361 cells), pixel accuracy and Dice (macro)
+    one stat-scores group (one launch of 3 rows)."""
+
+    def make(device):
+        from torchmetrics_tpu_torch import Dice, MetricCollection
+        from torchmetrics_tpu_torch.classification import (MulticlassAccuracy, MulticlassConfusionMatrix,
+                                                           MulticlassJaccardIndex)
+
+        kw = dict(num_classes=num_classes, ignore_index=255, validate_args=False, device=device)
+        return MetricCollection({
+            "miou": MulticlassJaccardIndex(**kw),
+            "confmat": MulticlassConfusionMatrix(normalize="true", **kw),
+            "pixel_acc": MulticlassAccuracy(average="micro", **kw),
+            "dice": Dice(average="macro", **kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        # skewed class frequencies (a few classes cover most pixels, as in
+        # street scenes), about 10% ignored pixels, logits that favour the
+        # true class
+        weights = 0.75 ** torch.arange(num_classes, dtype=torch.float64, device=dev)
+        cdf = torch.cumsum(weights / weights.sum(), 0).to(torch.float32)
+        u = torch.rand(steps, 1, height, width, generator=g, device=dev)
+        target = torch.clamp(torch.searchsorted(cdf, u), max=num_classes - 1)
+        ignored = torch.rand(steps, 1, height, width, generator=g, device=dev) < 0.1
+        logits = torch.randn(steps, 1, num_classes, height, width, generator=g, device=dev)
+        logits.scatter_add_(2, target.unsqueeze(2), torch.full_like(target, 2.5, dtype=torch.float32).unsqueeze(2))
+        return logits, torch.where(ignored, 255, target)
+
+    def direct(preds, target):
+        import torch
+
+        pred = preds.argmax(2).reshape(-1)
+        tgt = target.reshape(-1)
+        keep = tgt != 255
+        cm = torch.bincount(num_classes * tgt[keep] + pred[keep], minlength=num_classes**2)
+        cm = cm.reshape(num_classes, num_classes).double()
+        tp, rows, cols = cm.diagonal(), cm.sum(1), cm.sum(0)
+        union = rows + cols - tp
+        present = union > 0
+        dice_den = rows + cols
+        return {"miou": (tp[present] / union[present]).mean().item(),
+                "pixel_acc": (tp.sum() / cm.sum()).item(),
+                "dice": (2 * tp[dice_den > 0] / dice_den[dice_den > 0]).mean().item(),
+                "confmat": cm / rows.clamp_min(1)[:, None]}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps,
+            "groups": {0: ["confmat", "miou"], 1: ["dice", "pixel_acc"]}, "launches": (4, 2, 2, 0),
+            "shape": {"num_classes": num_classes, "height": height, "width": width, "ignore_index": 255}}
+
+
+def imagenet1k_confmat_path(num_classes: int = 1000, batch: int = 1000, steps: int = 50) -> dict:
+    """ImageNet-1k validation at C=1000, batch 1000, 50 updates (the
+    50,000-image set): the confusion matrix, Cohen's kappa and MCC (one
+    group over 1,000,000 int32 cells, one sparse-plan launch per update)
+    and the expected calibration error (15 bins; one launch at compute)."""
+
+    def make(device):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.classification import (MulticlassCalibrationError, MulticlassCohenKappa,
+                                                           MulticlassConfusionMatrix, MulticlassMatthewsCorrCoef)
+
+        kw = dict(num_classes=num_classes, validate_args=False, device=device)
+        return MetricCollection({
+            "confmat": MulticlassConfusionMatrix(**kw), "kappa": MulticlassCohenKappa(**kw),
+            "mcc": MulticlassMatthewsCorrCoef(**kw), "ece": MulticlassCalibrationError(n_bins=15, **kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        # softmax probabilities as multiclass_path makes them, with the true
+        # class's logit raised by a uniform amount in [0, 10): about two in
+        # three top-1 predictions are right, at confidences spread over all
+        # 15 bins
+        target = torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
+        logits = torch.randn(steps, batch, num_classes, generator=g, device=dev)
+        logits.scatter_add_(2, target.unsqueeze(2), 10.0 * torch.rand(steps, batch, 1, generator=g, device=dev))
+        return torch.softmax(logits, dim=-1), target
+
+    def direct(preds, target):
+        import numpy as np
+        import torch
+
+        pred = preds.argmax(-1).reshape(-1)
+        tgt = target.reshape(-1)
+        cm = torch.bincount(num_classes * tgt + pred, minlength=num_classes**2).reshape(num_classes, num_classes)
+        cmd = cm.cpu().numpy().astype(np.float64)
+        n, rows, cols, correct = cmd.sum(), cmd.sum(1), cmd.sum(0), np.trace(cmd)
+        disagree = 1.0 - np.eye(num_classes)
+        kappa = 1.0 - (disagree * cmd).sum() / (disagree * np.outer(rows, cols) / n).sum()
+        mcc = (correct * n - (rows * cols).sum()) / np.sqrt((n**2 - (cols**2).sum()) * (n**2 - (rows**2).sum()))
+        conf = preds.amax(-1).reshape(-1)
+        bins = torch.clamp((conf * 15).to(torch.int32), 0, 14).long().cpu().numpy()
+        conf64 = conf.double().cpu().numpy()
+        hit = (pred == tgt).double().cpu().numpy()
+        count = np.bincount(bins, minlength=15)
+        seen = count > 0
+        gap = np.abs(np.bincount(bins, hit, 15)[seen] / count[seen] - np.bincount(bins, conf64, 15)[seen] / count[seen])
+        return {"confmat": cm, "kappa": float(kappa), "mcc": float(mcc),
+                "ece": float((gap * count[seen] / count.sum()).sum())}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps,
+            "groups": {0: ["confmat", "kappa", "mcc"], 1: ["ece"]}, "launches": (3, 1, 1, 1),
+            "shape": {"num_classes": num_classes, "batch": batch, "n_bins": 15}}
+
+
+def _check_value(label: str, what: str, got, want) -> None:
+    """``got`` (a tensor) against ``want`` (a tensor or a float): finite,
+    of the same shape, integer values equal and float ones within
+    ``VALUE_TOL`` elementwise."""
+    import torch
+
+    got = got.detach().cpu()
+    want = torch.as_tensor(want).detach().cpu()
+    if not torch.isfinite(got.double()).all() or got.shape != want.shape:
+        raise AssertionError(f"{label}: {what} = {got} (want shape {tuple(want.shape)})")
+    if not got.is_floating_point() and not want.is_floating_point():
+        if not torch.equal(got.long(), want.long()):
+            raise AssertionError(f"{label}: {what} integer values differ")
+        return
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    if err > VALUE_TOL:
+        raise AssertionError(f"{label}: {what} differs by {err} (tolerance {VALUE_TOL})")
+
+
+def _summary(value):
+    return float(value) if value.numel() == 1 else {"shape": list(value.shape), "sum": float(value.double().sum())}
 
 
 def profile_updates(coll, preds, target, steps: int) -> dict:
@@ -404,6 +579,7 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     """Drive one path's collection through the stateful and the pure loop,
     check groups, launch counts, states against a CPU run and values against
     it and against their direct definitions; returns the kernel launches."""
+    import numpy as np
     import torch
 
     from torchmetrics_tpu_torch.interop import state_to_numpy
@@ -414,7 +590,7 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
             torch.cuda.synchronize()
 
     make, steps = path["make"], path["steps"]
-    first_want, later_want, pure_want = path["launches"]
+    first_want, later_want, pure_want, compute_want = path["launches"]
     g = torch.Generator(device=dev).manual_seed(1234)
     preds, target = path["inputs"](g, dev)
     sync()
@@ -441,9 +617,10 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     later = weighted_bincount.launches - first
     values = coll.compute()
     sync()
-    if first != first_want or later != later_want * (steps - 1):
-        raise AssertionError(f"{label}: stateful launches {first} then {later}, "
-                             f"expected {first_want} then {later_want * (steps - 1)}")
+    computed = weighted_bincount.launches - first - later
+    if first != first_want or later != later_want * (steps - 1) or computed != compute_want:
+        raise AssertionError(f"{label}: stateful launches {first} then {later}, {computed} at compute; "
+                             f"expected {first_want} then {later_want * (steps - 1)}, {compute_want}")
     if coll.compute_groups != path["groups"]:
         raise AssertionError(f"{label}: compute groups {coll.compute_groups}")
 
@@ -457,8 +634,11 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     pure_s = time.perf_counter() - t0
     pure_launches = weighted_bincount.launches
     pure_values = coll.compute_state(state)
-    if pure_launches != pure_want * steps:
-        raise AssertionError(f"{label}: pure launches {pure_launches}, expected {pure_want * steps}")
+    sync()
+    pure_computed = weighted_bincount.launches - pure_launches
+    if pure_launches != pure_want * steps or pure_computed != compute_want:
+        raise AssertionError(f"{label}: pure launches {pure_launches}, {pure_computed} at compute; "
+                             f"expected {pure_want * steps}, {compute_want}")
 
     # the same run on the CPU (the kernel's plain version) over the same inputs
     ref = make("cpu")
@@ -467,24 +647,24 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         ref.update(preds_cpu[i], target_cpu[i])
     ref_values = ref.compute()
 
+    def whole(value):  # a cat state is a list of arrays
+        return np.concatenate(value) if isinstance(value, list) else value
+
     gpu_states = state_to_numpy(coll)
     pure_states = state_to_numpy(state)
     for member, ref_state in state_to_numpy(ref).items():
         for key, want in ref_state.items():
+            want = whole(want)
             for got, how in ((gpu_states[member][key], "stateful"), (pure_states[member][key], "pure")):
-                if got.dtype != want.dtype or not (got == want).all():
+                got = whole(got)
+                if got.dtype != want.dtype or got.shape != want.shape or not (got == want).all():
                     raise AssertionError(f"{label}: {how} state {member}.{key} differs from the CPU run")
     for key, want in ref_values.items():
         for got, how in ((values[key], "stateful"), (pure_values[key], "pure")):
-            got = got.cpu()
-            if not torch.isfinite(got).all() or got.shape != want.shape:
-                raise AssertionError(f"{label}: {how} {key} = {got}")
-            if abs(float(got) - float(want)) > VALUE_TOL:
-                raise AssertionError(f"{label}: {how} {key} {float(got)} vs CPU {float(want)}")
+            _check_value(label, f"{how} {key} against the CPU run", got, want)
     # values against their definitions, computed directly in float64
     for key, want in path["direct"](preds, target).items():
-        if abs(want - float(values[key])) > VALUE_TOL:
-            raise AssertionError(f"{label}: {key} {float(values[key])} vs direct {want}")
+        _check_value(label, f"{key} against its direct definition", values[key], want)
 
     breakdown = None
     if dev.type == "cuda":
@@ -498,10 +678,10 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         "launches_per_pure_update": pure_launches / steps,
         "stateful_updates_per_s": (steps - 1) / loop_s, "stateful_ms_per_update": loop_s / (steps - 1) * 1e3,
         "pure_updates_per_s": steps / pure_s, "pure_ms_per_update": pure_s / steps * 1e3,
-        "values": {k: float(v) for k, v in values.items()}, "states_equal_cpu": True,
-        "profile": breakdown, "card": card,
+        "launches_per_compute": computed, "values": {k: _summary(v) for k, v in values.items()},
+        "states_equal_cpu": True, "profile": breakdown, "card": card,
     })
-    return first + later + pure_launches
+    return first + later + computed + pure_launches + pure_computed
 
 
 def main() -> int:
@@ -531,6 +711,8 @@ def main() -> int:
         ("imagenet1k_val", multiclass_path(num_classes=1000, batch=1000, steps=50)),
         ("mvtec_pixel_binary", pixel_binary_path()),
         ("coco_multilabel", coco_multilabel_path()),
+        ("cityscapes_miou", cityscapes_miou_path()),
+        ("imagenet1k_confmat", imagenet1k_confmat_path()),
     ]
     launches = sum(run_path(label, path, card, dev) for label, path in paths)
 
@@ -552,6 +734,9 @@ def main() -> int:
         "host_ms": main_case["host_ms"],
         "shape": {"s": main_case["s"], "n": main_case["n"], "bins": main_case["bins"], "shared_idx": True,
                   "weighted": True},
+        "slice_cases": {c["case"]: {k: c[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_device_ms",
+                                                      "max_abs_err", "plan")}
+                        for c in kernel["cases"] if c["case"] in SLICE_CASES},
     }]})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

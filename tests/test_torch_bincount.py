@@ -161,11 +161,26 @@ def test_build_without_nvcc_raises(monkeypatch):
         (1_000_000, 1, 1, 1_000_000, True, (2, 16, 2, 500_000, 31_252, 96)),
         # many inputs, few bins: one CTA per SM, no cluster
         (10**8, 1, 1, 1000, True, (132, 1, 1, 1000, 1000, 0)),
+        # binary pixel curve (32 masks of 256 x 256), shared idx: 130 counters
+        # in each of 132 CTAs
+        (2_097_152, 1, 2, 65, True, (132, 1, 1, 65, 65, 0)),
+        # COCO multilabel curve (80 labels, batch 1,024): 20 CTAs
+        (81_920, 1, 2, 5_200, True, (20, 1, 1, 5_200, 5_200, 0)),
+        # Cityscapes confusion matrix (one 1024 x 2048 image, 19^2 cells),
+        # int32: 132 CTAs that each hold the 361 counters
+        (2_097_152, 1, 1, 361, False, (132, 1, 1, 361, 361, 0)),
+        # Cityscapes stat scores (Dice, pixel accuracy): 3 rows of 2,097,152
+        (2_097_152, 3, 3, 19, True, (132, 1, 1, 19, 19, 0)),
+        # ImageNet-1k calibration (50,000 samples, 15 bins), three weight rows
+        # over one shared index: 13 CTAs
+        (50_000, 1, 3, 15, True, (13, 1, 1, 15, 15, 0)),
     ],
 )
 def test_launch_plan(n, rows, out_rows, bins, weighted, expect):
+    """Every plan that PERF.md's kernel table measured stays as it was:
+    none of these shapes takes the sparse plan."""
     plan = port_bincount.launch_plan(n, rows, out_rows, bins, weighted, 132)
-    assert tuple(plan) == expect
+    assert plan == port_bincount.LaunchPlan(*expect) and not plan.sparse
     streams = 1 + (out_rows // rows if weighted else 0)
     assert port_bincount.smem_bytes(plan, out_rows, streams) <= port_bincount.SMEM_BYTES
     assert plan.cluster <= port_bincount.MAX_CLUSTER and plan.cluster & (plan.cluster - 1) == 0
@@ -181,6 +196,47 @@ def test_launch_plan(n, rows, out_rows, bins, weighted, expect):
     b = np.arange(plan.tile_bins, dtype=np.uint64)
     magic = np.uint64(port_bincount.slice_magic(plan.bs))
     np.testing.assert_array_equal((b * magic) >> np.uint64(40), b // np.uint64(plan.bs))
+
+
+SPARSE = port_bincount.SPARSE_BINS_PER_INPUT
+
+
+@pytest.mark.parametrize(
+    "n,rows,out_rows,bins,weighted,ctas",
+    [
+        # ImageNet-1k confusion matrix: 1,000 samples into 1,000,000 cells,
+        # int32; two CTAs of 512 threads
+        (1000, 1, 1, 1_000_000, False, 2),
+        # at the cut-over, with inputs enough for one CTA per SM
+        (1_000_000 // SPARSE, 1, 1, 1_000_000, False, 132),
+        # weighted, shared idx: two weight rows over 200,000 bins each
+        (10_000, 1, 2, 200_000, True, 20),
+        # per-row idx, int32
+        (5_000, 3, 3, 100_000, False, 30),
+    ],
+)
+def test_launch_plan_sparse(n, rows, out_rows, bins, weighted, ctas):
+    """Counters that do not fit one CTA, fed far fewer inputs per row than
+    they have bins: each input goes straight into the zeroed output."""
+    plan = port_bincount.launch_plan(n, rows, out_rows, bins, weighted, 132)
+    assert plan == port_bincount.LaunchPlan(ctas, 1, 1, bins, bins, 0, sparse=True)
+
+
+@pytest.mark.parametrize(
+    "n,rows,out_rows,bins,weighted",
+    [
+        # one input past the cut-over: the cluster plan with tiles
+        (1_000_000 // SPARSE + 1, 1, 1, 1_000_000, False),
+        # few inputs, but the counters fit one CTA: the single-CTA plan
+        (10, 1, 1, 40_000, False),
+        (10, 1, 2, 20_000, True),
+    ],
+)
+def test_launch_plan_not_sparse(n, rows, out_rows, bins, weighted):
+    plan = port_bincount.launch_plan(n, rows, out_rows, bins, weighted, 132)
+    assert not plan.sparse
+    streams = 1 + (out_rows // rows if weighted else 0)
+    assert port_bincount.smem_bytes(plan, out_rows, streams) <= port_bincount.SMEM_BYTES
 
 
 @pytest.mark.parametrize("sms", [1, 78, 114, 132])
@@ -308,6 +364,36 @@ def test_batched_plain_is_per_row_plain():
     out = weighted_bincount_batched_plain(idx, w, 88)
     for r in range(3):
         assert torch.equal(out[r], weighted_bincount_plain(idx[r], w[r], 88))
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["confmat_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k"],
+)
+def test_slice_shapes_scaled_down_match_jax_vmap(case):
+    """The confusion-matrix and calibration calls of this slice, at a
+    tenth or less of their size: int32 counts over C^2 cells with dropped
+    (masked) indices, a call with far fewer inputs than bins (the sparse
+    plan's shape), and three float32 weight rows over 15 bins."""
+    rng = np.random.RandomState(43)
+    if case == "confmat_cityscapes":
+        idx = rng.randint(-1, 361, (1, 20_000)).astype(np.int32)  # -1: an ignored pixel
+        ours = weighted_bincount_batched(torch.from_numpy(idx), None, 361)
+        np.testing.assert_array_equal(ours.numpy(), _jax_vmap(idx, None, 361, shared=False))
+    elif case == "confmat_imagenet1k":
+        idx = rng.randint(0, 10_000, (1, 100)).astype(np.int32)
+        ours = weighted_bincount_batched(torch.from_numpy(idx), None, 10_000)
+        np.testing.assert_array_equal(ours.numpy(), _jax_vmap(idx, None, 10_000, shared=False))
+    else:
+        conf = rng.rand(5000).astype(np.float32)
+        idx = np.clip((conf * 15).astype(np.int32), 0, 14)
+        w = np.stack([np.ones_like(conf), conf, (rng.rand(5000) < 0.7).astype(np.float32)])
+        ours = weighted_bincount_batched(torch.from_numpy(idx), torch.from_numpy(w), 15).numpy()
+        ref = _jax_vmap(idx, w, 15, shared=True)
+        # counts and 0/1 accuracy sums are exact; confidence sums agree to
+        # float32 rounding of ~330 terms a bin
+        np.testing.assert_array_equal(ours[[0, 2]], ref[[0, 2]])
+        np.testing.assert_allclose(ours[1], ref[1], rtol=1e-5)
 
 
 def test_plain_matches_torch_bincount():

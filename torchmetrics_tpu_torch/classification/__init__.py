@@ -7,6 +7,15 @@ from .average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from .calibration_error import BinaryCalibrationError, CalibrationError, MulticlassCalibrationError
+from .cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
+from .confusion_matrix import (
+    BinaryConfusionMatrix,
+    ConfusionMatrix,
+    MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
+)
+from .dice import Dice
 from .exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from .f_beta import (
     BinaryF1Score,
@@ -19,6 +28,13 @@ from .f_beta import (
     MultilabelFBetaScore,
 )
 from .hamming import BinaryHammingDistance, HammingDistance, MulticlassHammingDistance, MultilabelHammingDistance
+from .jaccard import BinaryJaccardIndex, JaccardIndex, MulticlassJaccardIndex, MultilabelJaccardIndex
+from .matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
+)
 from .precision_recall import (
     BinaryPrecision,
     BinaryRecall,
@@ -46,26 +62,42 @@ __all__ = [
     "BinaryAUROC",
     "BinaryAccuracy",
     "BinaryAveragePrecision",
+    "BinaryCalibrationError",
+    "BinaryCohenKappa",
+    "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
     "BinaryHammingDistance",
+    "BinaryJaccardIndex",
+    "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
     "BinaryRecall",
     "BinarySpecificity",
     "BinaryStatScores",
+    "CalibrationError",
+    "CohenKappa",
+    "ConfusionMatrix",
+    "Dice",
     "ExactMatch",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
+    "MulticlassCalibrationError",
+    "MulticlassCohenKappa",
+    "MulticlassConfusionMatrix",
     "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassHammingDistance",
+    "MulticlassJaccardIndex",
+    "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
     "MulticlassROC",
@@ -75,10 +107,13 @@ __all__ = [
     "MultilabelAUROC",
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
+    "MultilabelConfusionMatrix",
     "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
     "MultilabelHammingDistance",
+    "MultilabelJaccardIndex",
+    "MultilabelMatthewsCorrCoef",
     "MultilabelPrecision",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",

@@ -18,9 +18,11 @@
 // input byte read once and the output written once:
 //   shared idx   N*4 + S*N*4 + S*bins*4 bytes
 //   per-row idx  S*N*8 + S*bins*4 bytes (S*N*4 + S*bins*4 unweighted)
+// For sparse calls the output term dominates: writing it once is the bound.
 //
 // Design: one launch of `histogram_kernel` per call (after a memset of
-// `out` when several clusters add into it).
+// `out` when several clusters add into it), or of `sparse_histogram_kernel`
+// after a memset of `out` for sparse calls.
 //   * Small calls (every counter in one CTA, a few thousand inputs): one CTA
 //     counts everything with shared-memory atomics and stores `out`.
 //   * Counters that fit one CTA, many inputs: a persistent grid of such CTAs,
@@ -50,6 +52,14 @@
 //     different place by each cluster) and atomics for ragged ends: clusters
 //     * S * bins * 4 bytes of reductions into `out`, which the plan keeps
 //     within the input bytes. No scratch is allocated.
+//   * Sparse calls (the host plan's `sparse`: the counters do not fit one
+//     CTA and each output row gets far fewer inputs than it has bins, as in
+//     a 1,000 x 1,000 confusion matrix of 1,000 samples): `out` is zeroed
+//     and `sparse_histogram_kernel` adds every input straight into it with a
+//     global atomic (`red.global.add`, native for int32 and float32 on
+//     sm_90). No shared-memory histogram is zeroed and flushed, and no bin
+//     tile re-reads the inputs, so the time is the output's memset and the
+//     launch; the bound there is writing the output once.
 //   * Zero weights are skipped: adding +-0 leaves a float32 sum that started
 //     at +0 unchanged, and the metric path's masks are mostly 0.
 // What it does about each cause of the first design's distance from the
@@ -91,6 +101,7 @@ struct Plan {
   int chv;        // 16-byte vectors per CTA and stage streamed by multicast (cluster > 1)
   unsigned long long magic;  // ceil(2^40 / bs): a bin's owner as a multiply
   int device;
+  int sparse;     // 1: global atomics into the zeroed output (clusters = CTAs)
 };
 
 namespace {
@@ -137,6 +148,14 @@ __device__ __forceinline__ void red_local(uint32_t addr, float v) {
 
 __device__ __forceinline__ void red_local(uint32_t addr, int v) {
   asm volatile("red.shared.add.s32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void red_global(float* p, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void red_global(int* p, int v) {
+  asm volatile("red.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void bulk_reduce(void* gmem, uint32_t smem, int bytes, float) {
@@ -414,6 +433,38 @@ __global__ void __launch_bounds__(kThreads) histogram_kernel(const __grid_consta
   }
 }
 
+// Sparse plan: a grid-stride over the index reads; each in-range input adds
+// its weight rows (or a 1) straight into the zeroed output.
+template <typename T, bool kWeighted>
+__global__ void __launch_bounds__(kThreads) sparse_histogram_kernel(const __grid_constant__ Args a) {
+  const size_t n = static_cast<size_t>(a.n);
+  const size_t total = static_cast<size_t>(a.rows) * n;
+  const int wrows = kWeighted ? a.wrows : 0;
+  T* out = static_cast<T*>(a.out);
+  for (size_t j = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; j < total;
+       j += static_cast<size_t>(gridDim.x) * kThreads) {
+    const int b = __ldg(a.idx + j);
+    if (static_cast<unsigned>(b) >= static_cast<unsigned>(a.num_bins)) continue;
+    T* dst = out + (a.rows == 1 ? 0 : j / n) * a.num_bins + b;
+    if constexpr (kWeighted) {
+      for (int k = 0; k < wrows; ++k) {
+        const float v = __ldg(a.w + j + k * n);
+        if (v != 0.0f) red_global(dst + static_cast<size_t>(k) * a.num_bins, v);
+      }
+    } else {
+      red_global(dst, 1);
+    }
+  }
+}
+
+template <typename T, bool kWeighted>
+cudaError_t launch_sparse(const Plan& p, const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(a.out, 0, static_cast<size_t>(a.out_rows) * a.num_bins * sizeof(T), stream);
+  if (err != cudaSuccess) return err;
+  sparse_histogram_kernel<T, kWeighted><<<p.clusters, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // Opts `kernel` in to 227 KB of dynamic shared memory and to clusters of 16.
 cudaError_t configure(void (*kernel)(Args)) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
@@ -459,6 +510,7 @@ cudaError_t launch(const Plan& p, const Args& a, cudaStream_t stream) {
 }
 
 cudaError_t dispatch(const Plan& p, const Args& a, cudaStream_t s) {
+  if (p.sparse) return a.w == nullptr ? launch_sparse<int, false>(p, a, s) : launch_sparse<float, true>(p, a, s);
   if (a.w == nullptr) return launch<int, false, 1>(p, a, s);
   // one weight row per index row (per-row indices, the 1-D entry) and two
   // (the binned curve) are the metric path's; any other count runs generic

@@ -7,6 +7,15 @@ from .average_precision import (
     multiclass_average_precision,
     multilabel_average_precision,
 )
+from .calibration_error import binary_calibration_error, calibration_error, multiclass_calibration_error
+from .cohen_kappa import binary_cohen_kappa, cohen_kappa, multiclass_cohen_kappa
+from .confusion_matrix import (
+    binary_confusion_matrix,
+    confusion_matrix,
+    multiclass_confusion_matrix,
+    multilabel_confusion_matrix,
+)
+from .dice import dice
 from .exact_match import exact_match, multiclass_exact_match, multilabel_exact_match
 from .f_beta import (
     binary_f1_score,
@@ -19,6 +28,13 @@ from .f_beta import (
     multilabel_fbeta_score,
 )
 from .hamming import binary_hamming_distance, hamming_distance, multiclass_hamming_distance, multilabel_hamming_distance
+from .jaccard import binary_jaccard_index, jaccard_index, multiclass_jaccard_index, multilabel_jaccard_index
+from .matthews_corrcoef import (
+    binary_matthews_corrcoef,
+    matthews_corrcoef,
+    multiclass_matthews_corrcoef,
+    multilabel_matthews_corrcoef,
+)
 from .precision_recall import (
     binary_precision,
     binary_recall,
@@ -46,26 +62,42 @@ __all__ = [
     "binary_accuracy",
     "binary_auroc",
     "binary_average_precision",
+    "binary_calibration_error",
+    "binary_cohen_kappa",
+    "binary_confusion_matrix",
     "binary_f1_score",
     "binary_fbeta_score",
     "binary_hamming_distance",
+    "binary_jaccard_index",
+    "binary_matthews_corrcoef",
     "binary_precision",
     "binary_precision_recall_curve",
     "binary_recall",
     "binary_roc",
     "binary_specificity",
     "binary_stat_scores",
+    "calibration_error",
+    "cohen_kappa",
+    "confusion_matrix",
+    "dice",
     "exact_match",
     "f1_score",
     "fbeta_score",
     "hamming_distance",
+    "jaccard_index",
+    "matthews_corrcoef",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
+    "multiclass_calibration_error",
+    "multiclass_cohen_kappa",
+    "multiclass_confusion_matrix",
     "multiclass_exact_match",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
     "multiclass_hamming_distance",
+    "multiclass_jaccard_index",
+    "multiclass_matthews_corrcoef",
     "multiclass_precision",
     "multiclass_precision_recall_curve",
     "multiclass_recall",
@@ -75,10 +107,13 @@ __all__ = [
     "multilabel_accuracy",
     "multilabel_auroc",
     "multilabel_average_precision",
+    "multilabel_confusion_matrix",
     "multilabel_exact_match",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
     "multilabel_hamming_distance",
+    "multilabel_jaccard_index",
+    "multilabel_matthews_corrcoef",
     "multilabel_precision",
     "multilabel_precision_recall_curve",
     "multilabel_recall",

@@ -55,6 +55,17 @@ PREFERRED_CLUSTER = 4
 # most 1024 (16 KB)
 MIN_STAGE_VECTORS = 32
 MAX_STAGE_VECTORS = 1024
+# sparse plan: when the counters do not fit one CTA and each output row gets
+# at most 1/SPARSE_BINS_PER_INPUT as many inputs as it has bins, every input
+# is added straight into the zeroed output with a global atomic.
+# bincount_ablation.py's sweep measured it faster than the cluster plans at
+# every point, from 1,000 bins per input to 16 inputs per bin (PERF.md); 2
+# is the lowest ratio that keeps every plan measured before it (the
+# past-cluster case has ratio 1)
+SPARSE_BINS_PER_INPUT = 2
+# index reads per CTA of the sparse plan before its grid reaches one CTA per
+# SM: one for each of the kernel's 512 threads
+SPARSE_INPUTS_PER_CTA = 512
 
 
 def _nvcc() -> str:
@@ -115,6 +126,7 @@ class _PlanStruct(ctypes.Structure):
         ("chv", ctypes.c_int),
         ("magic", ctypes.c_ulonglong),
         ("device", ctypes.c_int),
+        ("sparse", ctypes.c_int),
     ]
 
 
@@ -144,7 +156,9 @@ class LaunchPlan(NamedTuple):
     for each of ``tiles`` tiles of ``tile_bins`` bins; each CTA owns ``bs``
     bins of its tile in every output row and, in a cluster, brings in
     ``chv`` 16-byte vectors of each input stream per stage. More than one
-    cluster per tile adds its counters into a zeroed output."""
+    cluster per tile adds its counters into a zeroed output. A ``sparse``
+    plan is ``clusters`` CTAs that add every input straight into the zeroed
+    output with global atomics (``cluster`` 1, one tile of all bins)."""
 
     clusters: int
     cluster: int
@@ -152,6 +166,7 @@ class LaunchPlan(NamedTuple):
     tile_bins: int
     bs: int
     chv: int
+    sparse: bool = False
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -186,6 +201,11 @@ def launch_plan(n: int, rows: int, out_rows: int, num_bins: int, weighted: bool,
     ``MIN_INPUTS_PER_CTA`` inputs. Among the cluster sizes that fit, up to
     ``PREFERRED_CLUSTER`` or the smallest that fits, the plan takes the one
     with the most clusters, then the most CTAs.
+
+    Counters that do not fit one CTA, for at most ``num_bins /
+    SPARSE_BINS_PER_INPUT`` inputs per output row, take the sparse plan
+    instead: a grid of up to one CTA per SM adding each input into the
+    zeroed output with global atomics.
     """
     streams = 1 + (out_rows // rows if weighted else 0)
     hist = out_rows * num_bins
@@ -198,6 +218,8 @@ def launch_plan(n: int, rows: int, out_rows: int, num_bins: int, weighted: bool,
             return whole
         clusters = min(sm_count, merge_cap, _cdiv(inputs, MIN_INPUTS_PER_CTA))
         return whole._replace(clusters=max(1, clusters))
+    if n * SPARSE_BINS_PER_INPUT <= num_bins:
+        return whole._replace(clusters=max(1, min(sm_count, _cdiv(inputs, SPARSE_INPUTS_PER_CTA))), sparse=True)
     tiles = 1
     while True:
         tile_bins = _align4(_cdiv(num_bins, tiles))
@@ -233,7 +255,7 @@ def _kernel_plan(device_index: int, n: int, rows: int, out_rows: int, num_bins: 
     the structure alive for its address."""
     p = launch_plan(n, rows, out_rows, num_bins, weighted, _sm_count(device_index))
     st = _PlanStruct(n, rows, out_rows if rows == 1 else 1, num_bins, p.clusters, p.cluster, p.tiles, p.tile_bins,
-                     p.bs, p.chv, slice_magic(p.bs), device_index)
+                     p.bs, p.chv, slice_magic(p.bs), device_index, int(p.sparse))
     return st, ctypes.addressof(st)
 
 
