@@ -12,7 +12,8 @@ not 0 and no result line is printed:
    path's batched calls) and weighted_bincount (1-D), against the plain
    PyTorch versions on the card, at the metric path's shapes, past the
    largest cluster, at the sparse plan's shape (the ImageNet-1k confusion
-   matrix) and at edge cases; each call must launch once. Timed
+   matrix), at the group-fairness count of the Jigsaw path and at edge
+   cases; each call must launch once. Timed
    beside the plain version, torch.bincount (a yardstick only; the package
    never calls it: its device time from a profiler trace, and its host
    round trip) and the memory-bandwidth bound;
@@ -49,7 +50,31 @@ not 0 and no result line is printed:
      cells: the kernel's sparse plan) and MulticlassCalibrationError
      (n_bins=15) at C=1000, batch 1000, 50 updates; 3 launches, then 1; 1
      per pure update; and 1 per compute, where the calibration error bins
-     its cat states.
+     its cat states;
+   - imagenet1k_exact: MulticlassAUROC, MulticlassAveragePrecision and
+     MulticlassRecallAtFixedPrecision(min_precision=0.5) at their default
+     thresholds=None (exact: padded cat states of 50,000 x 1,000 scores,
+     sorted on the card at compute) and MulticlassHingeLoss, C=1000, batch
+     1000, 50 updates; no launches;
+   - jigsaw_fairness_binary: exact BinaryAUROC, BinaryAveragePrecision,
+     BinarySpecificityAtSensitivity(min_sensitivity=0.9) and
+     BinaryFairness(num_groups=9) over 97,320 comments in batches of 4,096
+     and a ragged last one of 3,112; 1 launch per update (the fairness
+     count);
+   - coco_multilabel_exact: exact MultilabelAveragePrecision (macro mAP)
+     and MultilabelPrecisionAtFixedRecall(min_recall=0.5) beside coverage
+     error, label ranking AP and ranking loss at 80 labels, batch 1,024, 40
+     updates; no launches.
+   The three exact paths also run their stateful loop under
+   list_layout="list", whose states and values must equal the padded
+   run's and the CPU run's, and compute under
+   torch.cuda.set_sync_debug_mode("error"), so a host sync fails them;
+   their values are held within 1e-6 of float64 numpy definitions (exact
+   AUROC and AP by sorting, hinge, ranking metrics, fairness rates from the
+   counts). Every path reports its peak device memory;
+5. sync_free_compute: the filled exact functions the class computes use
+   (binary AUROC, multiclass AUROC and AP) at those paths' shapes, timed,
+   under torch.cuda.set_sync_debug_mode("error").
 
 The last lines are the kernels' record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -67,9 +92,10 @@ VALUE_TOL = 1e-6
 TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve_c1000_t64",
                "curve_c1000_t64_1d", "curve_binary_pixel_t64", "curve_multilabel_l80_t64", "past_cluster",
                "unweighted_int32", "random_f32_weights", "confmat_cityscapes", "stat_scores_cityscapes",
-               "confmat_imagenet1k", "calibration_imagenet1k")
-# this slice's cases, reported beside the main one in the kernels line
-SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k")
+               "confmat_imagenet1k", "calibration_imagenet1k", "fairness_jigsaw")
+# the cases of the confusion, calibration and fairness paths, reported beside the main one in the kernels line
+SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k",
+               "fairness_jigsaw")
 
 
 def emit(obj) -> None:
@@ -188,6 +214,9 @@ def kernel_cases(device):
         # the confidences are arbitrary float32 weights
         ("calibration_imagenet1k", "batched", torch.clamp((conf * 15).to(torch.int32), 0, 14),
          torch.stack([torch.ones_like(conf), conf, mask01((50_000,))]), 15, False),
+        # group fairness over Jigsaw: one batch of 4,096 comments' tp/fp/tn/fn
+        # cells (group * 4 + stat) of 9 groups, int32 counts into 36 bins
+        ("fairness_jigsaw", "1d", ints((4096,), 0, 36), None, 36, True),
     ]
 
 
@@ -509,12 +538,252 @@ def imagenet1k_confmat_path(num_classes: int = 1000, batch: int = 1000, steps: i
             "shape": {"num_classes": num_classes, "batch": batch, "n_bins": 15}}
 
 
-def _check_value(label: str, what: str, got, want) -> None:
-    """``got`` (a tensor) against ``want`` (a tensor or a float): finite,
-    of the same shape, integer values equal and float ones within
-    ``VALUE_TOL`` elementwise."""
+def _exact_auroc_ap_f64(scores, labels) -> tuple:
+    """Exact AUROC and AP of each row of (C, N) scores against 0/1 labels, in
+    float64 numpy: AUROC as the Mann-Whitney statistic with average ranks
+    (the trapezoidal area, tied scores as diagonal segments), AP as the mean
+    over positives of the precision at the end of the positive's block of
+    tied scores (sklearn's ``average_precision_score``)."""
+    import numpy as np
+    from scipy.stats import rankdata
+
+    s = np.asarray(scores, np.float64)
+    y = np.asarray(labels, np.float64)
+    n = s.shape[1]
+    n_pos = y.sum(1)
+    n_neg = n - n_pos
+    auroc = (np.sum(rankdata(s, axis=1) * y, axis=1) - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
+    order = np.argsort(-s, axis=1, kind="stable")
+    ss, yy = np.take_along_axis(s, order, 1), np.take_along_axis(y, order, 1)
+    tps = np.cumsum(yy, axis=1)
+    end = np.ones(ss.shape, bool)
+    end[:, :-1] = ss[:, :-1] != ss[:, 1:]
+    ends = np.where(end, np.arange(n)[None, :], n)
+    block_end = np.minimum.accumulate(ends[:, ::-1], axis=1)[:, ::-1]  # the first block end at or after k
+    precision = np.take_along_axis(tps, block_end, 1) / (block_end + 1)
+    return auroc, np.sum(yy * precision, axis=1) / n_pos
+
+
+def imagenet1k_exact_path(num_classes: int = 1000, batch: int = 1000, steps: int = 50) -> dict:
+    """ImageNet-1k validation (C=1000, batch 1000, 50 updates: the
+    50,000-image set) with TorchMetrics' default AUROC: MulticlassAUROC and
+    MulticlassAveragePrecision at ``thresholds=None`` (exact: cat states of
+    50,000 x 1,000 scores in padded buffers, one sort of the (C, N) matrix at
+    compute), MulticlassRecallAtFixedPrecision(min_precision=0.5) on the same
+    states, and MulticlassHingeLoss. No bincount launches."""
+
+    def make(device, list_layout="padded"):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.classification import (MulticlassAUROC, MulticlassAveragePrecision,
+                                                           MulticlassHingeLoss, MulticlassRecallAtFixedPrecision)
+
+        kw = dict(num_classes=num_classes, validate_args=False, device=device, list_layout=list_layout)
+        return MetricCollection({
+            "auroc": MulticlassAUROC(**kw), "ap": MulticlassAveragePrecision(**kw),
+            "rfp": MulticlassRecallAtFixedPrecision(min_precision=0.5, **kw), "hinge": MulticlassHingeLoss(**kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        # softmax probabilities whose true class is raised by a uniform
+        # amount in [0, 10), as imagenet1k_confmat_path makes them
+        target = torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
+        logits = torch.randn(steps, batch, num_classes, generator=g, device=dev)
+        logits.scatter_add_(2, target.unsqueeze(2), 10.0 * torch.rand(steps, batch, 1, generator=g, device=dev))
+        return torch.softmax(logits, dim=-1), target
+
+    def direct(preds, target):
+        import numpy as np
+
+        p = preds.reshape(-1, num_classes).double().cpu().numpy()
+        t = target.reshape(-1).cpu().numpy()
+        onehot = t[None, :] == np.arange(num_classes)[:, None]
+        auroc, ap = _exact_auroc_ap_f64(p.T, onehot)
+        rows = np.arange(p.shape[0])
+        others = p.copy()
+        others[rows, t] = -np.inf
+        hinge = np.maximum(0.0, 1.0 - (p[rows, t] - others.max(1))).mean()
+        return {"auroc": float(auroc.mean()), "ap": float(ap.mean()), "hinge": float(hinge)}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps, "layouts": True,
+            "sync_free_compute": True, "groups": {0: ["ap", "auroc", "rfp"], 1: ["hinge"]},
+            "launches": (0, 0, 0, 0), "shape": {"num_classes": num_classes, "batch": batch, "thresholds": None}}
+
+
+def jigsaw_fairness_path(comments: int = 97_320, batch: int = 4096, num_groups: int = 9) -> dict:
+    """Binary toxicity scoring over the Jigsaw Unintended Bias in Toxicity
+    Classification test set's size: 97,320 comments, about 8% toxic, each
+    in one of 9 identity subgroups, in batches of 4,096 (23 full and a
+    ragged last one of 3,112). Exact BinaryAUROC and BinaryAveragePrecision
+    and BinarySpecificityAtSensitivity(min_sensitivity=0.9) share one set of
+    cat states; BinaryFairness counts tp/fp/tn/fn per group in one int32
+    bincount launch per update (4,096 inputs into 36 bins)."""
+    steps = -(-comments // batch)
+
+    def make(device, list_layout="padded"):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.classification import (BinaryAUROC, BinaryAveragePrecision, BinaryFairness,
+                                                           BinarySpecificityAtSensitivity)
+
+        kw = dict(validate_args=False, device=device, list_layout=list_layout)
+        return MetricCollection({
+            "auroc": BinaryAUROC(**kw), "ap": BinaryAveragePrecision(**kw),
+            "spec_at_sens": BinarySpecificityAtSensitivity(min_sensitivity=0.9, **kw),
+            "fairness": BinaryFairness(num_groups=num_groups, **kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        # skewed subgroup sizes, toxicity about 8%, and scores that lean
+        # toward some groups, so the rates differ between groups
+        weights = 0.8 ** torch.arange(num_groups, dtype=torch.float64, device=dev)
+        group = torch.multinomial(weights, comments, replacement=True, generator=g)
+        target = (torch.rand(comments, generator=g, device=dev) < 0.08).to(torch.int64)
+        bias = torch.linspace(-0.5, 0.5, num_groups, device=dev)[group]
+        logits = torch.randn(comments, generator=g, device=dev) + 3.0 * target - 2.5 + bias
+        split = lambda x: list(torch.split(x, batch))  # noqa: E731
+        return split(torch.sigmoid(logits)), split(target), {"groups": split(group)}
+
+    def direct(preds, target, groups):
+        import numpy as np
+        import torch
+
+        p = torch.cat(preds).double().cpu().numpy()
+        t = torch.cat(target).cpu().numpy()
+        grp = torch.cat(groups).cpu().numpy()
+        auroc, ap = _exact_auroc_ap_f64(p[None, :], (t == 1)[None, :])
+        hit = p > 0.5
+        pos_rate, tpr = [], []
+        for k in range(num_groups):
+            in_k = grp == k
+            tp, fp = np.sum(hit & (t == 1) & in_k), np.sum(hit & (t == 0) & in_k)
+            fn = np.sum(~hit & (t == 1) & in_k)
+            pos_rate.append((tp + fp) / in_k.sum())
+            tpr.append(tp / (tp + fn))
+        return {"auroc": float(auroc[0]), "ap": float(ap[0]), "DP": min(pos_rate) / max(pos_rate),
+                "EO": min(tpr) / max(tpr)}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps, "layouts": True,
+            "sync_free_compute": True, "groups": {0: ["ap", "auroc", "spec_at_sens"], 1: ["fairness"]},
+            "launches": (1, 1, 1, 0),
+            "shape": {"comments": comments, "batch": batch, "last_batch": comments - (steps - 1) * batch,
+                      "groups": num_groups}}
+
+
+def coco_multilabel_exact_path(labels: int = 80, batch: int = 1024, steps: int = 40) -> dict:
+    """COCO 80-label classification with the mAP multilabel papers report:
+    MultilabelAveragePrecision at ``thresholds=None`` and
+    MultilabelPrecisionAtFixedRecall(min_recall=0.5) on the same cat states,
+    beside the three ranking metrics (coverage error, label ranking AP,
+    ranking loss), batch 1,024, 40 updates. No bincount launches."""
+
+    def make(device, list_layout="padded"):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.classification import (MultilabelAveragePrecision, MultilabelCoverageError,
+                                                           MultilabelPrecisionAtFixedRecall,
+                                                           MultilabelRankingAveragePrecision, MultilabelRankingLoss)
+
+        kw = dict(num_labels=labels, validate_args=False, device=device, list_layout=list_layout)
+        return MetricCollection({
+            "map": MultilabelAveragePrecision(average="macro", **kw),
+            "pafr": MultilabelPrecisionAtFixedRecall(min_recall=0.5, **kw),
+            "coverage": MultilabelCoverageError(**kw), "lrap": MultilabelRankingAveragePrecision(**kw),
+            "ranking_loss": MultilabelRankingLoss(**kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        # about 2.9 labels per image, as coco_multilabel_path makes them
+        target = (torch.rand(steps, batch, labels, generator=g, device=dev) < 0.036).to(torch.int64)
+        logits = torch.randn(steps, batch, labels, generator=g, device=dev) + 4.0 * target - 2.5
+        return torch.sigmoid(logits), target
+
+    def direct(preds, target):
+        import numpy as np
+
+        p = preds.reshape(-1, labels).double().cpu().numpy()
+        y = target.reshape(-1, labels).cpu().numpy() == 1
+        _, ap = _exact_auroc_ap_f64(p.T, y.T)
+        n_rel, n_irr = y.sum(1), (~y).sum(1)
+        min_rel = np.where(y, p, np.inf).min(1)
+        coverage = np.where(n_rel > 0, (p >= min_rel[:, None]).sum(1), 0)
+        # ranks by decreasing score, ties in label order (a stable sort)
+        ranks = np.empty(p.shape, np.int64)
+        np.put_along_axis(ranks, np.argsort(-p, axis=1, kind="stable"), np.arange(1, labels + 1)[None, :], axis=1)
+        lrap, loss = [], []
+        for lo in range(0, p.shape[0], 4096):
+            r, yy, pp = ranks[lo:lo + 4096], y[lo:lo + 4096], p[lo:lo + 4096]
+            above = (r[:, None, :] <= r[:, :, None]) & yy[:, None, :]  # [i, j, k]: relevant k ranked at or above j
+            score = np.where(yy, above.sum(2) / r, 0.0).sum(1)
+            nr = yy.sum(1)
+            lrap.append(np.where(nr > 0, score / np.maximum(nr, 1), 1.0))
+            bad = ((pp[:, :, None] <= pp[:, None, :]) & yy[:, :, None] & ~yy[:, None, :]).sum((1, 2))
+            pairs = nr * (~yy).sum(1)
+            loss.append(np.where(pairs > 0, bad / np.maximum(pairs, 1), 0.0))
+        return {"map": float(ap.mean()), "coverage": float(coverage.mean()),
+                "lrap": float(np.concatenate(lrap).mean()), "ranking_loss": float(np.concatenate(loss).mean())}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps, "layouts": True,
+            "sync_free_compute": True,
+            "groups": {0: ["coverage"], 1: ["lrap"], 2: ["map", "pafr"], 3: ["ranking_loss"]},
+            "launches": (0, 0, 0, 0), "shape": {"labels": labels, "batch": batch, "thresholds": None}}
+
+
+def sync_free_exact_computes(card: str) -> dict:
+    """The filled exact functions the class computes go through, on the card
+    at the new paths' shapes, under ``torch.cuda.set_sync_debug_mode("error")``:
+    binary AUROC (97,320 scores), multiclass AUROC and AP (50,000 x 1,000).
+    A host sync raises. Each is timed (CUDA events, median of 3)."""
     import torch
 
+    from torchmetrics_tpu_torch.functional.classification import _exact_jit
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    scores = torch.rand(97_320, generator=g, device="cuda")
+    labels = (torch.rand(97_320, generator=g, device="cuda") < 0.08).to(torch.int32)
+    probs = torch.softmax(torch.randn(50_000, 1000, generator=g, device="cuda"), dim=-1)
+    classes = torch.randint(0, 1000, (50_000,), generator=g, device="cuda")
+    cases = [("binary_auroc_exact", lambda: _exact_jit.binary_auroc_exact(scores, labels)),
+             ("multiclass_auroc_exact", lambda: _exact_jit.multiclass_auroc_exact(probs, classes)),
+             ("multiclass_ap_exact", lambda: _exact_jit.multiclass_ap_exact(probs, classes))]
+    out = []
+    for name, fn in cases:
+        fn()  # warm-up, outside the sync check
+        torch.cuda.synchronize()
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                value = fn()
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        if not torch.isfinite(value).all():
+            raise AssertionError(f"{name}: {value}")
+        out.append({"name": name, "ms": statistics.median(times), "value": float(value),
+                    "peak_over_inputs_mb": (torch.cuda.max_memory_allocated() - base) / 2**20})
+    return {"phase": "sync_free_compute", "sync_debug_mode": "error", "cases": out, "card": card}
+
+
+def _check_value(label: str, what: str, got, want) -> None:
+    """``got`` (a tensor, or a tuple of them) against ``want`` (the same, or
+    floats): finite, of the same shape, integer values equal and float ones
+    within ``VALUE_TOL`` elementwise."""
+    import torch
+
+    if isinstance(got, tuple):
+        for i, (g, w) in enumerate(zip(got, want)):
+            _check_value(label, f"{what}[{i}]", g, w)
+        return
     got = got.detach().cpu()
     want = torch.as_tensor(want).detach().cpu()
     if not torch.isfinite(got.double()).all() or got.shape != want.shape:
@@ -529,22 +798,55 @@ def _check_value(label: str, what: str, got, want) -> None:
 
 
 def _summary(value):
+    if isinstance(value, tuple):
+        return [_summary(v) for v in value]
     return float(value) if value.numel() == 1 else {"shape": list(value.shape), "sum": float(value.double().sum())}
 
 
-def profile_updates(coll, preds, target, steps: int) -> dict:
+def _flat(values: dict) -> dict:
+    """A collection's pure-API results with dict-valued members spread into
+    their keys, as ``compute`` gives them."""
+    out = {}
+    for k, v in values.items():
+        out.update(v if isinstance(v, dict) else {k: v})
+    return out
+
+
+def _step_inputs(inputs) -> tuple:
+    """(preds, target, extra): per-step sequences (stacked tensors or lists
+    of tensors; a ragged last step needs a list) and a dict of further
+    per-step keyword inputs."""
+    preds, target, *rest = inputs
+    return preds, target, (rest[0] if rest else {})
+
+
+def _on_cpu(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _on_cpu(v) for k, v in x.items()}
+    return [e.cpu() for e in x]
+
+
+def _update(coll, preds, target, extra, i: int) -> None:
+    coll.update(preds[i], target[i], **{k: v[i] for k, v in extra.items()})
+
+
+def profile_updates(coll, preds, target, extra, first: int, steps: int) -> dict:
     """Where one stateful update's time goes, from a torch.profiler trace of
-    ``steps`` steady-state updates: wall time, device busy time (the union
-    of the trace's device intervals), the bincount kernels' share of it, and
-    the busiest device kernels."""
+    ``steps`` steady-state updates (steps ``first`` on): wall time, device
+    busy time (the union of the trace's device intervals), the bincount
+    kernels' share of it, and the busiest device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(steps):
-            coll.update(preds[i], target[i])
+        for i in range(first, first + steps):
+            _update(coll, preds, target, extra, i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -575,11 +877,29 @@ def profile_updates(coll, preds, target, steps: int) -> dict:
     }
 
 
+def _compare_states(label: str, how: str, got_states: dict, ref_states: dict) -> None:
+    """Every state of every member bitwise equal (a cat state, in either
+    layout, as the concatenation of its valid rows)."""
+    import numpy as np
+
+    def whole(value):
+        return np.concatenate(value) if isinstance(value, list) else value
+
+    for member, ref_state in ref_states.items():
+        for key, want in ref_state.items():
+            want, got = whole(want), whole(got_states[member][key])
+            if got.dtype != want.dtype or got.shape != want.shape or not (got == want).all():
+                raise AssertionError(f"{label}: {how} state {member}.{key} differs from the CPU run")
+
+
 def run_path(label: str, path: dict, card: str, dev) -> int:
     """Drive one path's collection through the stateful and the pure loop,
     check groups, launch counts, states against a CPU run and values against
-    it and against their direct definitions; returns the kernel launches."""
-    import numpy as np
+    it and against their direct definitions; returns the kernel launches.
+    A path with ``layouts`` runs its stateful loop again under
+    ``list_layout="list"``, whose states and values must equal the padded
+    run's and the CPU run's; one with ``sync_free_compute`` computes under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync."""
     import torch
 
     from torchmetrics_tpu_torch.interop import state_to_numpy
@@ -592,32 +912,50 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     make, steps = path["make"], path["steps"]
     first_want, later_want, pure_want, compute_want = path["launches"]
     g = torch.Generator(device=dev).manual_seed(1234)
-    preds, target = path["inputs"](g, dev)
+    preds, target, extra = _step_inputs(path["inputs"](g, dev))
     sync()
 
     # warm-up (allocator, library handles) on a throwaway collection
     warm = make(dev)
     for i in range(min(3, steps)):
-        warm.update(preds[i], target[i])
+        _update(warm, preds, target, extra, i)
     warm.compute()
-    warm.update_state(warm.init_state(), preds[0], target[0])
+    warm.update_state(warm.init_state(), preds[0], target[0], **{k: v[0] for k, v in extra.items()})
+    del warm
     sync()
 
-    # stateful update loop -> compute
+    # stateful update loop -> compute, with the device memory it peaks at
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
     coll = make(dev)
     weighted_bincount.launches = 0
-    coll.update(preds[0], target[0])
+    _update(coll, preds, target, extra, 0)
     sync()
     first = weighted_bincount.launches
     t0 = time.perf_counter()
     for i in range(1, steps):
-        coll.update(preds[i], target[i])
+        _update(coll, preds, target, extra, i)
     sync()
     loop_s = time.perf_counter() - t0
     later = weighted_bincount.launches - first
-    values = coll.compute()
+    sync_free = bool(path.get("sync_free_compute")) and dev.type == "cuda"
+    t0 = time.perf_counter()
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in compute raises
+    try:
+        values = coll.compute()
+    finally:
+        if sync_free:
+            torch.cuda.set_sync_debug_mode("default")
     sync()
+    compute_s = time.perf_counter() - t0
     computed = weighted_bincount.launches - first - later
+    memory = None
+    if dev.type == "cuda":
+        memory = {"inputs_and_resident_mb": resident / 2**20,
+                  "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
+                  "peak_over_resident_mb": (torch.cuda.max_memory_allocated() - resident) / 2**20}
     if first != first_want or later != later_want * (steps - 1) or computed != compute_want:
         raise AssertionError(f"{label}: stateful launches {first} then {later}, {computed} at compute; "
                              f"expected {first_want} then {later_want * (steps - 1)}, {compute_want}")
@@ -629,11 +967,11 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     t0 = time.perf_counter()
     state = coll.init_state()
     for i in range(steps):
-        state = coll.update_state(state, preds[i], target[i])
+        state = coll.update_state(state, preds[i], target[i], **{k: v[i] for k, v in extra.items()})
     sync()
     pure_s = time.perf_counter() - t0
     pure_launches = weighted_bincount.launches
-    pure_values = coll.compute_state(state)
+    pure_values = _flat(coll.compute_state(state))
     sync()
     pure_computed = weighted_bincount.launches - pure_launches
     if pure_launches != pure_want * steps or pure_computed != compute_want:
@@ -642,35 +980,45 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
 
     # the same run on the CPU (the kernel's plain version) over the same inputs
     ref = make("cpu")
-    preds_cpu, target_cpu = preds.cpu(), target.cpu()
+    preds_cpu, target_cpu, extra_cpu = _on_cpu(preds), _on_cpu(target), _on_cpu(extra)
     for i in range(steps):
-        ref.update(preds_cpu[i], target_cpu[i])
+        _update(ref, preds_cpu, target_cpu, extra_cpu, i)
     ref_values = ref.compute()
+    ref_states = state_to_numpy(ref)
+    del ref
 
-    def whole(value):  # a cat state is a list of arrays
-        return np.concatenate(value) if isinstance(value, list) else value
-
-    gpu_states = state_to_numpy(coll)
-    pure_states = state_to_numpy(state)
-    for member, ref_state in state_to_numpy(ref).items():
-        for key, want in ref_state.items():
-            want = whole(want)
-            for got, how in ((gpu_states[member][key], "stateful"), (pure_states[member][key], "pure")):
-                got = whole(got)
-                if got.dtype != want.dtype or got.shape != want.shape or not (got == want).all():
-                    raise AssertionError(f"{label}: {how} state {member}.{key} differs from the CPU run")
-    for key, want in ref_values.items():
-        for got, how in ((values[key], "stateful"), (pure_values[key], "pure")):
-            _check_value(label, f"{how} {key} against the CPU run", got, want)
+    runs = [(state_to_numpy(coll), values, "stateful"), (state_to_numpy(state), pure_values, "pure")]
+    list_s = list_compute_s = None
+    if path.get("layouts"):
+        listed = make(dev, list_layout="list")
+        _update(listed, preds, target, extra, 0)  # group discovery, outside the timing
+        sync()
+        t0 = time.perf_counter()
+        for i in range(1, steps):
+            _update(listed, preds, target, extra, i)
+        sync()
+        list_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        list_values = listed.compute()
+        sync()
+        list_compute_s = time.perf_counter() - t0
+        runs.append((state_to_numpy(listed), list_values, "list-layout"))
+        del listed, list_values
+    for got_states, got_values, how in runs:
+        _compare_states(label, how, got_states, ref_states)
+        for key, want in ref_values.items():
+            _check_value(label, f"{how} {key} against the CPU run", got_values[key], want)
+    del runs, state, pure_values
     # values against their definitions, computed directly in float64
-    for key, want in path["direct"](preds, target).items():
+    for key, want in path["direct"](preds, target, **extra).items():
         _check_value(label, f"{key} against its direct definition", values[key], want)
 
     breakdown = None
     if dev.type == "cuda":
         prof_coll = make(dev)
-        prof_coll.update(preds[0], target[0])  # group discovery, outside the trace
-        breakdown = profile_updates(prof_coll, preds[1:], target[1:], min(20, steps - 1))
+        _update(prof_coll, preds, target, extra, 0)  # group discovery, outside the trace
+        breakdown = profile_updates(prof_coll, preds, target, extra, 1, min(20, steps - 1))
+        del prof_coll
 
     emit({
         "phase": "slice", "path": label, **path["shape"], "steps": steps,
@@ -678,8 +1026,11 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         "launches_per_pure_update": pure_launches / steps,
         "stateful_updates_per_s": (steps - 1) / loop_s, "stateful_ms_per_update": loop_s / (steps - 1) * 1e3,
         "pure_updates_per_s": steps / pure_s, "pure_ms_per_update": pure_s / steps * 1e3,
+        "compute_ms": compute_s * 1e3, "compute_sync_free": sync_free,
+        "list_layout_ms_per_update": None if list_s is None else list_s / (steps - 1) * 1e3,
+        "list_layout_compute_ms": None if list_compute_s is None else list_compute_s * 1e3,
         "launches_per_compute": computed, "values": {k: _summary(v) for k, v in values.items()},
-        "states_equal_cpu": True, "profile": breakdown, "card": card,
+        "states_equal_cpu": True, "memory": memory, "profile": breakdown, "card": card,
     })
     return first + later + computed + pure_launches + pure_computed
 
@@ -713,8 +1064,12 @@ def main() -> int:
         ("coco_multilabel", coco_multilabel_path()),
         ("cityscapes_miou", cityscapes_miou_path()),
         ("imagenet1k_confmat", imagenet1k_confmat_path()),
+        ("imagenet1k_exact", imagenet1k_exact_path()),
+        ("jigsaw_fairness_binary", jigsaw_fairness_path()),
+        ("coco_multilabel_exact", coco_multilabel_exact_path()),
     ]
     launches = sum(run_path(label, path, card, dev) for label, path in paths)
+    emit(sync_free_exact_computes(card))
 
     main_case = next(c for c in kernel["cases"] if c["case"] == "curve_c1000_t64")
     emit({"kernels": [{

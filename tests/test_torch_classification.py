@@ -287,14 +287,19 @@ def test_multiclass_auroc_from_logits_match_jax():
 
 
 def test_curve_modes_not_ported_raise():
-    """The exact curve mode (thresholds=None) still raises, naming ROADMAP A9,
-    for every task; the binned binary and multilabel curves compute
-    (tests/test_torch_curves.py)."""
-    with pytest.raises(NotImplementedError, match="exact.*A9"):
-        P.MulticlassAUROC(num_classes=3, thresholds=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="exact.*A9"):
-        P.AUROC(task="binary", thresholds=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="exact.*A9"):
-        PF.auroc(torch.rand(4, 3), torch.zeros(4, 3), "multilabel", thresholds=None, num_labels=3)
-    with pytest.raises(NotImplementedError, match="exact.*A9"):
-        PF.multiclass_auroc(torch.rand(4, 3), torch.zeros(4, dtype=torch.long), 3)
+    """The exact curve mode (thresholds=None, ROADMAP A9) used to raise for
+    every task; it is ported now, so each of these computes the JAX
+    package's value within 1e-6 (tests/test_torch_exact_curves.py covers the
+    exact mode in full)."""
+    (p, t), = _mc_batches(29, n_batches=1, num_classes=3)
+    ml_t = (np.random.RandomState(29).rand(N, 3) < 0.4).astype(np.int32)
+    jm, pm = _run_both(J.MulticlassAUROC, P.MulticlassAUROC, dict(num_classes=3, thresholds=None), [(p, t)])
+    _assert_states_bitwise(jm, pm)
+    _assert_close(pm.compute(), jm.compute())
+    jm, pm = _run_both(lambda **kw: J.AUROC(task="binary", **kw), lambda **kw: P.AUROC(task="binary", **kw),
+                       dict(thresholds=None), [(p[:, 0], ml_t[:, 0])])
+    _assert_close(pm.compute(), jm.compute())
+    _assert_close(PF.auroc(torch.from_numpy(p), torch.from_numpy(ml_t), "multilabel", thresholds=None, num_labels=3),
+                  JF.auroc(jnp.asarray(p), jnp.asarray(ml_t), "multilabel", thresholds=None, num_labels=3))
+    _assert_close(PF.multiclass_auroc(torch.from_numpy(p), torch.from_numpy(t), 3),
+                  JF.multiclass_auroc(jnp.asarray(p), jnp.asarray(t), 3))

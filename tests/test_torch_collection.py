@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import torchmetrics_tpu as J
 import torchmetrics_tpu_torch as P
 from torchmetrics_tpu_torch.interop import state_from_numpy, state_to_numpy
+from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 
 C = 6
@@ -358,11 +359,17 @@ def test_sync_on_compute_uses_the_backend_and_restores_local_state():
     local = m.tp.clone()
     assert m.compute().tolist() == [6, 2, 14, 2, 8]  # twice the local [3, 1, 7, 1, 4]
     assert torch.equal(m.tp, local) and not m._is_synced
-    s = P.MulticlassStatScores(num_classes=3, multidim_average="samplewise", average="none", device="cpu",
-                               sync_backend=_TwoIdenticalRanks())
-    s.update(torch.tensor([[0, 1], [2, 2]]), torch.tensor([[0, 1], [1, 2]]))
-    assert s.compute().shape == (4, 3, 5)  # both ranks' 2 samples
-    assert len(s.tp) == 1 and s.tp[0].shape == (2, 3)
+    for layout in ("list", "padded"):
+        s = P.MulticlassStatScores(num_classes=3, multidim_average="samplewise", average="none", device="cpu",
+                                   sync_backend=_TwoIdenticalRanks(), list_layout=layout)
+        s.update(torch.tensor([[0, 1], [2, 2]]), torch.tensor([[0, 1], [1, 2]]))
+        local_tp = dim_zero_cat(s.tp).clone()
+        assert s.compute().shape == (4, 3, 5)  # both ranks' 2 samples
+        if layout == "list":
+            assert len(s.tp) == 1 and s.tp[0].shape == (2, 3)
+        else:  # the local buffer is back: 2 rows of 3 classes
+            assert isinstance(s.tp, P.CatBuffer) and len(s.tp) == 2 and s.tp.trailing == (3,)
+        assert torch.equal(dim_zero_cat(s.tp), local_tp) and not s._is_synced
 
 
 def test_as_state_carries_reductions():

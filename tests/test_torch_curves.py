@@ -335,20 +335,55 @@ def test_multilabel_curve_update_is_one_batched_bincount(monkeypatch, thresholds
     _assert_states_bitwise(jm, pm)
 
 
-@pytest.mark.parametrize("make", [
-    lambda: P.BinaryPrecisionRecallCurve(thresholds=None, device="cpu"),
-    lambda: P.BinaryAveragePrecision(device="cpu"),
-    lambda: P.MultilabelROC(num_labels=3, device="cpu"),
-    lambda: P.AveragePrecision(task="multilabel", num_labels=3, device="cpu"),
-    lambda: PF.binary_roc(torch.rand(4), torch.zeros(4, dtype=torch.long)),
-    lambda: PF.multilabel_precision_recall_curve(torch.rand(4, 3), torch.zeros(4, 3, dtype=torch.long), 3),
-    lambda: PF.multilabel_average_precision(torch.rand(4, 3), torch.zeros(4, 3, dtype=torch.long), 3),
-    lambda: PF.binary_auroc(torch.rand(4), torch.zeros(4, dtype=torch.long)),
+_R = np.random.RandomState(83)
+_EXACT_P = np.round(_R.rand(40, 3), 1).astype(np.float32)  # tied scores
+_EXACT_T = _R.randint(0, 2, (40, 3)).astype(np.int32)
+
+
+def _exact_class_value(make, fit):
+    m = make()
+    m.update(*fit(_EXACT_P, _EXACT_T))
+    return m.compute()
+
+
+@pytest.mark.parametrize("port,ref", [
+    (lambda: _exact_class_value(lambda: P.BinaryPrecisionRecallCurve(thresholds=None, device="cpu"),
+                                lambda p, t: (_t(p[:, 0]), _t(t[:, 0]))),
+     lambda: _exact_class_value(lambda: J.BinaryPrecisionRecallCurve(thresholds=None),
+                                lambda p, t: (jnp.asarray(p[:, 0]), jnp.asarray(t[:, 0])))),
+    (lambda: _exact_class_value(lambda: P.BinaryAveragePrecision(device="cpu"),
+                                lambda p, t: (_t(p[:, 0]), _t(t[:, 0]))),
+     lambda: _exact_class_value(J.BinaryAveragePrecision, lambda p, t: (jnp.asarray(p[:, 0]), jnp.asarray(t[:, 0])))),
+    (lambda: _exact_class_value(lambda: P.MultilabelROC(num_labels=3, device="cpu"), lambda p, t: (_t(p), _t(t))),
+     lambda: _exact_class_value(lambda: J.MultilabelROC(num_labels=3), lambda p, t: (jnp.asarray(p), jnp.asarray(t)))),
+    (lambda: _exact_class_value(lambda: P.AveragePrecision(task="multilabel", num_labels=3, device="cpu"),
+                                lambda p, t: (_t(p), _t(t))),
+     lambda: _exact_class_value(lambda: J.AveragePrecision(task="multilabel", num_labels=3),
+                                lambda p, t: (jnp.asarray(p), jnp.asarray(t)))),
+    (lambda: PF.binary_roc(_t(_EXACT_P[:, 0]), _t(_EXACT_T[:, 0])),
+     lambda: JF.binary_roc(jnp.asarray(_EXACT_P[:, 0]), jnp.asarray(_EXACT_T[:, 0]))),
+    (lambda: PF.multilabel_precision_recall_curve(_t(_EXACT_P), _t(_EXACT_T), 3),
+     lambda: JF.multilabel_precision_recall_curve(jnp.asarray(_EXACT_P), jnp.asarray(_EXACT_T), 3)),
+    (lambda: PF.multilabel_average_precision(_t(_EXACT_P), _t(_EXACT_T), 3),
+     lambda: JF.multilabel_average_precision(jnp.asarray(_EXACT_P), jnp.asarray(_EXACT_T), 3)),
+    (lambda: PF.binary_auroc(_t(_EXACT_P[:, 0]), _t(_EXACT_T[:, 0])),
+     lambda: JF.binary_auroc(jnp.asarray(_EXACT_P[:, 0]), jnp.asarray(_EXACT_T[:, 0]))),
 ], ids=["binary_prc", "binary_ap", "multilabel_roc", "ap_facade", "binary_roc_fn", "multilabel_prc_fn",
         "multilabel_ap_fn", "binary_auroc_fn"])
-def test_exact_mode_raises_naming_a9(make):
-    with pytest.raises(NotImplementedError, match="exact.*A9"):
-        make()
+def test_exact_mode_raises_naming_a9(port, ref):
+    """The exact mode (thresholds=None, ROADMAP A9) used to raise here; it is
+    ported now, and each of these calls computes what the JAX package does:
+    curves bitwise, values within 1e-6 (tests/test_torch_exact_curves.py
+    covers the exact mode in full)."""
+    got, want = port(), ref()
+    if isinstance(want, (tuple, list)):  # a curve: bitwise, element by element
+        flat_got = [g for part in got for g in (part if isinstance(part, list) else [part])]
+        flat_want = [w for part in want for w in (part if isinstance(part, list) else [part])]
+        assert len(flat_got) == len(flat_want)
+        for g, w in zip(flat_got, flat_want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    else:
+        _assert_close(got, want, TOL)
 
 
 def test_curve_facades_dispatch():

@@ -7,6 +7,7 @@ of the classification path is a hand-written CUDA weighted bincount
 (``ops.weighted_bincount``). See README.md, "PyTorch/CUDA port".
 """
 from . import functional
+from .buffers import CatBuffer, CatLayoutError
 from .classification import *  # noqa: F401,F403
 from .classification import __all__ as _classification_all
 from .collections import MetricCollection
@@ -18,6 +19,8 @@ from .state import MetricState
 
 __all__ = [
     *_classification_all,
+    "CatBuffer",
+    "CatLayoutError",
     "Metric",
     "MetricCollection",
     "MetricState",

@@ -1,11 +1,16 @@
-"""AUROC metric classes (binned mode).
+"""AUROC metric classes.
 
 Counterpart of ``torchmetrics_tpu/classification/auroc.py``. Each class
 subclasses its task's curve class and keeps its update, so a collection
-updates an AUROC and an AveragePrecision of one task and grid once.
+updates an AUROC and an AveragePrecision of one task and grid once. The
+exact mode (``thresholds=None``, the default) computes through the filled
+curves of ``_exact_jit.py`` (JAX ``auroc.py:73-77``): the whole compute
+stays on the device, without a host sync (one, to drop ignored rows, under
+``ignore_index`` for the binary and multiclass tasks).
 """
 from typing import Any, Optional
 
+from ..functional.classification import _exact_jit as _EJ
 from ..functional.classification.auroc import _binary_auroc_compute, _check_max_fpr, _reduce_auroc, _support
 from ..functional.classification.precision_recall_curve import Thresholds
 from ..functional.classification.roc import _multiclass_roc_compute, _multilabel_roc_compute
@@ -20,23 +25,48 @@ from .precision_recall_curve import (
 
 
 class BinaryAUROC(BinaryPrecisionRecallCurve):
-    """Binned binary AUROC; with ``max_fpr``, the McClish-standardised
-    partial AUC up to that false-positive rate."""
+    """Binary AUROC, exact by default or binned; with ``max_fpr``, the
+    McClish-standardised partial AUC up to that false-positive rate.
+
+    ``hist_bins`` is accepted as the JAX class accepts it (``auroc.py:55-72``):
+    there it selects a bucketed histogram over sharded cat state, and on a
+    replicated state the AUROC is exact. The port has no sharded layout
+    (ROADMAP A13), so the value is exact whatever ``hist_bins`` says; it is
+    validated as there, save that no sharded layout exists to require.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.classification import BinaryAUROC
+        >>> metric = BinaryAUROC(device="cpu")
+        >>> metric.update(torch.tensor([0.1, 0.8, 0.6, 0.3, 0.9, 0.4]), torch.tensor([0, 1, 1, 0, 1, 0]))
+        >>> round(float(metric.compute()), 4)
+        1.0
+    """
 
     higher_is_better = True
 
     def __init__(self, max_fpr: Optional[float] = None, thresholds: Thresholds = None,
-                 ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:
+                 ignore_index: Optional[int] = None, validate_args: bool = True,
+                 hist_bins: Optional[int] = None, **kwargs: Any) -> None:
         super().__init__(thresholds, ignore_index, validate_args, **kwargs)
         _check_max_fpr(max_fpr, validate_args)
+        if validate_args and hist_bins is not None:
+            if not (isinstance(hist_bins, int) and hist_bins >= 2):
+                raise ValueError(f"Argument `hist_bins` should be an int >= 2, but got: {hist_bins}")
+            if max_fpr is not None:
+                raise ValueError("`hist_bins` and `max_fpr` are mutually exclusive")
         self.max_fpr = max_fpr
+        self.hist_bins = hist_bins
 
     def compute(self):
+        if self.thresholds is None:
+            return _EJ.binary_auroc_exact(*self._exact_state(), max_fpr=self.max_fpr)
         return _binary_auroc_compute(self.confmat, self.thresholds, self.max_fpr)
 
 
 class MulticlassAUROC(MulticlassPrecisionRecallCurve):
-    """One-vs-rest AUROC over the binned curve state.
+    """One-vs-rest AUROC, exact by default (one sort of the (C, N) scores)
+    or over the binned curve state.
 
     Example:
         >>> import torch
@@ -46,6 +76,12 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
         ...                             [0.3, 0.3, 0.4], [0.1, 0.2, 0.7]]),
         ...               torch.tensor([0, 1, 2, 2]))
         >>> print(f"{float(metric.compute()):.4f}")
+        1.0000
+        >>> exact = MulticlassAUROC(num_classes=3, device="cpu")
+        >>> exact.update(torch.tensor([[0.8, 0.1, 0.1], [0.2, 0.7, 0.1],
+        ...                            [0.3, 0.3, 0.4], [0.1, 0.2, 0.7]]),
+        ...              torch.tensor([0, 1, 2, 2]))
+        >>> print(f"{float(exact.compute()):.4f}")
         1.0000
     """
 
@@ -57,13 +93,17 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
         self.average = average
 
     def compute(self):
+        if self.thresholds is None:
+            return _EJ.multiclass_auroc_exact(*self._exact_state(), self.average)
         fpr, tpr, _ = _multiclass_roc_compute(self.confmat, self.num_classes, self.thresholds)
         return _reduce_auroc(fpr, tpr, self.average, weights=_support(self.confmat))
 
 
 class MultilabelAUROC(MultilabelPrecisionRecallCurve):
-    """AUROC per label over the binned curve state, reduced by ``average``
-    (``micro`` is the functional form's only: it flattens raw inputs)."""
+    """AUROC per label, exact by default or over the binned curve state,
+    reduced by ``average``. ``micro`` is exact mode's only (the flattened
+    entries, ignored ones weighted 0); the binned class rejects it as the
+    JAX class does."""
 
     higher_is_better = True
 
@@ -73,6 +113,13 @@ class MultilabelAUROC(MultilabelPrecisionRecallCurve):
         self.average = average
 
     def compute(self):
+        if self.thresholds is None:
+            preds, target = self._exact_state()
+            if self.average == "micro":
+                preds, target = preds.reshape(-1), target.reshape(-1)
+                weights = None if self.ignore_index is None else target != self.ignore_index
+                return _EJ.binary_auroc_exact(preds, target, weights)
+            return _EJ.multilabel_auroc_exact(preds, target, self.average, self.ignore_index)
         fpr, tpr, _ = _multilabel_roc_compute(self.confmat, self.num_labels, self.thresholds)
         return _reduce_auroc(fpr, tpr, self.average, weights=_support(self.confmat))
 

@@ -1,12 +1,16 @@
-"""AveragePrecision metric classes (binned mode).
+"""AveragePrecision metric classes.
 
 Counterpart of ``torchmetrics_tpu/classification/average_precision.py``.
-Each class subclasses its task's curve class and keeps its update.
+Each class subclasses its task's curve class and keeps its update. The
+exact mode (``thresholds=None``, the default) computes through the filled
+curves of ``_exact_jit.py`` (JAX ``average_precision.py:45-47, :70-73,
+:110-123``), on the device without a host sync.
 """
 from typing import Any, Optional
 
 import torch
 
+from ..functional.classification import _exact_jit as _EJ
 from ..functional.classification.auroc import _support
 from ..functional.classification.average_precision import (
     _binary_average_precision_compute,
@@ -28,17 +32,21 @@ from .precision_recall_curve import (
 
 
 class BinaryAveragePrecision(BinaryPrecisionRecallCurve):
-    """Binned binary AP; 0 (not NaN) when no positive was seen."""
+    """Binary AP: exact by default (NaN when no positive was seen), or
+    binned (0, not NaN, then)."""
 
     higher_is_better = True
 
     def compute(self):
+        if self.thresholds is None:
+            return _EJ.binary_ap_exact(*self._exact_state())
         return _binary_average_precision_compute(self.confmat, self.thresholds)
 
 
 class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
-    """Binned one-vs-rest AP, reduced by ``average``; a class with no
-    positives has AP 0 and stays in the average."""
+    """One-vs-rest AP, reduced by ``average``: exact by default (a class
+    with no positives is NaN and left out of the average), or binned (AP 0,
+    kept in the average)."""
 
     higher_is_better = True
 
@@ -48,6 +56,8 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
         self.average = average
 
     def compute(self):
+        if self.thresholds is None:
+            return _EJ.multiclass_ap_exact(*self._exact_state(), self.average)
         precision, recall, _ = _multiclass_precision_recall_curve_compute(
             self.confmat, self.num_classes, self.thresholds
         )
@@ -55,8 +65,9 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
 
 
 class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
-    """Binned AP per label (mAP with ``average="macro"``); ``micro`` is the AP
-    of the state summed over labels."""
+    """AP per label (mAP with ``average="macro"``), exact by default or
+    binned; ``micro`` is the AP of the flattened entries (exact; ignored ones
+    weighted 0) or of the binned state summed over labels."""
 
     higher_is_better = True
 
@@ -66,6 +77,13 @@ class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
         self.average = average
 
     def compute(self):
+        if self.thresholds is None:
+            preds, target = self._exact_state()
+            if self.average == "micro":
+                preds, target = preds.reshape(-1), target.reshape(-1)
+                weights = None if self.ignore_index is None else target != self.ignore_index
+                return _EJ.binary_ap_exact(preds, target, weights)
+            return _EJ.multilabel_ap_exact(preds, target, self.average, self.ignore_index)
         if self.average == "micro":
             # per-label binary confusions add up to the flattened one; ignored
             # entries carry weight 0 in both

@@ -1,9 +1,10 @@
 """CalibrationError metric classes (binary and multiclass).
 
 Counterpart of ``torchmetrics_tpu/classification/calibration_error.py``: the
-confidences and accuracies of every update are ``cat`` list states (ignored
-samples removed by boolean indexing, as there), and the binning — one
-launch of the CUDA bincount on the card — runs at ``compute``.
+confidences and accuracies of every update are ``cat`` states (padded
+``CatBuffer``s by default; ignored samples removed by boolean indexing, as
+there), and the binning — one launch of the CUDA bincount on the card —
+runs at ``compute``.
 """
 from typing import Any, Optional
 

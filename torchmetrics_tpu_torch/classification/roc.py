@@ -17,23 +17,30 @@ from .precision_recall_curve import (
 
 
 class BinaryROC(BinaryPrecisionRecallCurve):
-    """Binned ROC of a binary task: (T,) fpr, tpr and descending thresholds."""
+    """ROC of a binary task: fpr, tpr and descending thresholds, exact (from
+    the +inf origin) by default or binned, (T,)."""
 
     def compute(self):
+        if self.thresholds is None:
+            return _binary_roc_compute(self._exact_state(), None)
         return _binary_roc_compute(self.confmat, self.thresholds)
 
 
 class MulticlassROC(MulticlassPrecisionRecallCurve):
-    """Binned one-vs-rest ROC: (C, T) fpr and tpr."""
+    """One-vs-rest ROC: per-class lists of exact curves, or (C, T) binned."""
 
     def compute(self):
+        if self.thresholds is None:
+            return _multiclass_roc_compute(self._exact_state(), self.num_classes, None)
         return _multiclass_roc_compute(self.confmat, self.num_classes, self.thresholds)
 
 
 class MultilabelROC(MultilabelPrecisionRecallCurve):
-    """Binned ROC per label: (L, T) fpr and tpr."""
+    """ROC per label: per-label lists of exact curves, or (L, T) binned."""
 
     def compute(self):
+        if self.thresholds is None:
+            return _multilabel_roc_compute(self._exact_state(), self.num_labels, None, self.ignore_index)
         return _multilabel_roc_compute(self.confmat, self.num_labels, self.thresholds)
 
 

@@ -10,8 +10,9 @@ Compute groups: the first ``update`` runs every member and merges members
 whose states came out equal; afterwards only each group's first member (its
 representative) updates, and the other members are pointed at the
 representative's state tensors. Updates rebind states and never write into
-them, so sharing tensors is safe; ``cat`` lists are copied on read (items,
-values, ``[]``) because appends do write into them. ``forward`` needs each
+them, so sharing tensors is safe; ``cat`` states are copied on read (items,
+values, ``[]``: a new list, or a copy-on-write snapshot of a ``CatBuffer``)
+because appends do write into them. ``forward`` needs each
 member's own batch value, so it ends the sharing; ``reset`` restores the
 constructor-time grouping.
 
@@ -25,6 +26,7 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from .buffers import CatBuffer
 from .metric import Metric, _filter_kwargs
 
 
@@ -41,7 +43,9 @@ def _leaf_ids(state: Mapping[str, Any]) -> tuple:
     ``id`` of each pytree leaf)."""
     ids = []
     for v in state.values():
-        if isinstance(v, (list, tuple)):
+        if isinstance(v, CatBuffer):
+            ids.append(id(v))
+        elif isinstance(v, (list, tuple)):
             ids.extend(id(e) for e in v)
         else:
             ids.append(id(v))

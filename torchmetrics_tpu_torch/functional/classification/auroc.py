@@ -1,10 +1,10 @@
-"""Area under the ROC curve (binned mode).
+"""Area under the ROC curve, binned and exact.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/auroc.py``
 (trapezoidal area, reference ``utilities/compute.py:118``; McClish partial
-AUC for ``max_fpr``).
+AUC for ``max_fpr``, in both modes, :32-56).
 """
-from typing import Optional
+from typing import List, Optional, Union
 
 import torch
 
@@ -15,7 +15,6 @@ from .precision_recall_curve import (
     _binary_precision_recall_curve_format,
     _binary_precision_recall_curve_update,
     _check_task_count,
-    _exact_mode_not_ported,
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_update,
     _multilabel_precision_recall_curve_format,
@@ -57,14 +56,20 @@ def _interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
     return torch.where(x > xp[-1], fp[-1], f)
 
 
-def _binary_auroc_compute(state: Tensor, thresholds: Optional[Tensor], max_fpr: Optional[float] = None) -> Tensor:
-    """Full or McClish-standardised partial AUC of a binned (T, 2, 2) state."""
+def _binary_auroc_compute(state, thresholds: Optional[Tensor], max_fpr: Optional[float] = None) -> Tensor:
+    """Full or McClish-standardised partial AUC of a binned (T, 2, 2) state,
+    or of ``(preds, target)`` when ``thresholds`` is None."""
     fpr, tpr, _ = _binary_roc_compute(state, thresholds)
+    return _auroc_of_curve(fpr, tpr, max_fpr)
+
+
+def _auroc_of_curve(fpr: Tensor, tpr: Tensor, max_fpr: Optional[float] = None) -> Tensor:
+    """Trapezoidal area under one ROC curve, partial up to ``max_fpr``."""
     if max_fpr is None or max_fpr == 1.0:
         return _trapz(tpr, fpr)
     # clamping fpr at max_fpr and holding tpr at its interpolated value past
     # it is the static-shape form of slicing the curve at max_fpr
-    x0 = torch.tensor(max_fpr, dtype=fpr.dtype, device=fpr.device)
+    x0 = torch.full((), max_fpr, dtype=fpr.dtype, device=fpr.device)
     y0 = _interp(x0, fpr, tpr)
     fpr_part = torch.minimum(fpr, x0)
     tpr_part = torch.where(fpr <= x0, tpr, y0)
@@ -83,7 +88,8 @@ def binary_auroc(
     preds: Tensor, target: Tensor, max_fpr: Optional[float] = None, thresholds: Thresholds = None,
     ignore_index: Optional[int] = None, validate_args: bool = True,
 ) -> Tensor:
-    """Binned binary AUROC, partial up to ``max_fpr`` when given.
+    """Binary AUROC (exact with ``thresholds=None``), partial up to
+    ``max_fpr`` when given.
 
     Example:
         >>> import torch
@@ -92,23 +98,31 @@ def binary_auroc(
         >>> target = torch.tensor([0, 1, 1, 0, 1, 0])
         >>> round(float(binary_auroc(preds, target, thresholds=5)), 4)
         1.0
+        >>> round(float(binary_auroc(preds, target, max_fpr=0.5)), 4)
+        1.0
     """
     _check_max_fpr(max_fpr, validate_args)
-    if thresholds is None:
-        raise _exact_mode_not_ported()
     preds, target, thr, mask = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
+    if thr is None:
+        if mask is not None:
+            preds, target = preds[mask], target[mask]
+        return _binary_auroc_compute((preds, target), None, max_fpr)
     state = _binary_precision_recall_curve_update(preds, target, thr, mask)
     return _binary_auroc_compute(state, thr, max_fpr)
 
 
 def _reduce_auroc(
-    fpr: Tensor,
-    tpr: Tensor,
+    fpr: Union[Tensor, List[Tensor]],
+    tpr: Union[Tensor, List[Tensor]],
     average: Optional[str] = "macro",
     weights: Optional[Tensor] = None,
 ) -> Tensor:
-    """Parity: reference ``auroc.py:53`` (_reduce_auroc), for (C, T) curves."""
-    scores = _trapz(tpr, fpr)
+    """Parity: reference ``auroc.py:53`` (_reduce_auroc), for (C, T) curves
+    or per-class lists of exact curves."""
+    if isinstance(fpr, (list, tuple)):
+        scores = torch.stack([_trapz(t, f) for f, t in zip(fpr, tpr)])
+    else:
+        scores = _trapz(tpr, fpr)
     if average in (None, "none"):
         return scores
     if average == "macro":
@@ -126,16 +140,33 @@ def _support(state: Tensor) -> Tensor:
     return (state[0, :, 1, 1] + state[0, :, 1, 0]).to(torch.float32)
 
 
+def _class_support(target: Tensor, num_classes: int) -> Tensor:
+    """Samples per class of (N,) class ids, as float32 weights."""
+    return torch.sum(target[:, None] == torch.arange(num_classes, device=target.device), dim=0).to(torch.float32)
+
+
+def _label_support(target: Tensor, ignore_index: Optional[int] = None) -> Tensor:
+    """Positives per label of raw (N, L) targets (ignore marker kept), as
+    float32 weights."""
+    positive = target == 1
+    if ignore_index is not None:
+        positive = positive & (target != ignore_index)
+    return torch.sum(positive, dim=0).to(torch.float32)
+
+
 def multiclass_auroc(
     preds: Tensor, target: Tensor, num_classes: int, average: Optional[str] = "macro",
     thresholds: Thresholds = None, ignore_index: Optional[int] = None, validate_args: bool = True,
 ) -> Tensor:
-    """Binned one-vs-rest AUROC."""
-    if thresholds is None:
-        raise _exact_mode_not_ported()
+    """One-vs-rest AUROC, binned or (``thresholds=None``) exact."""
     preds, target, thr, mask = _multiclass_precision_recall_curve_format(
         preds, target, num_classes, thresholds, ignore_index
     )
+    if thr is None:
+        if mask is not None:
+            preds, target = preds[mask], target[mask]
+        fpr, tpr, _ = _multiclass_roc_compute((preds, target), num_classes, None)
+        return _reduce_auroc(fpr, tpr, average, weights=_class_support(target, num_classes))
     state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thr, mask)
     fpr, tpr, _ = _multiclass_roc_compute(state, num_classes, thr)
     return _reduce_auroc(fpr, tpr, average, weights=_support(state))
@@ -145,15 +176,17 @@ def multilabel_auroc(
     preds: Tensor, target: Tensor, num_labels: int, average: Optional[str] = "macro",
     thresholds: Thresholds = None, ignore_index: Optional[int] = None, validate_args: bool = True,
 ) -> Tensor:
-    """Binned per-label AUROC; ``micro`` flattens the raw inputs into the
-    binary path (binary format: logits detected among kept entries)."""
+    """Per-label AUROC, binned or (``thresholds=None``) exact; ``micro``
+    flattens the raw inputs into the binary path (binary format: logits
+    detected among kept entries)."""
     if average == "micro":
         return binary_auroc(preds.reshape(-1), target.reshape(-1), None, thresholds, ignore_index, validate_args)
-    if thresholds is None:
-        raise _exact_mode_not_ported()
     preds, target, thr, mask = _multilabel_precision_recall_curve_format(
         preds, target, num_labels, thresholds, ignore_index
     )
+    if thr is None:
+        fpr, tpr, _ = _multilabel_roc_compute((preds, target), num_labels, None, ignore_index)
+        return _reduce_auroc(fpr, tpr, average, weights=_label_support(target, ignore_index))
     state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thr, mask)
     fpr, tpr, _ = _multilabel_roc_compute(state, num_labels, thr)
     return _reduce_auroc(fpr, tpr, average, weights=_support(state))

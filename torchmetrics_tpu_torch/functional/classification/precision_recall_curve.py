@@ -1,11 +1,19 @@
-"""Engine B — threshold curves (precision-recall / ROC family), binned mode.
+"""Engine B — threshold curves (precision-recall / ROC family).
 
 Counterpart of
 ``torchmetrics_tpu/functional/classification/precision_recall_curve.py``.
-The binned mode is ported for the binary, multiclass and multilabel tasks: a
-fixed-shape (T, 2, 2), (T, C, 2, 2) or (T, L, 2, 2) confusion state per
-threshold, summed over updates. The exact mode (``thresholds=None``) raises
-``NotImplementedError`` until a later slice.
+Two modes, for the binary, multiclass and multilabel tasks:
+
+- binned (``thresholds`` an int, list or tensor): a fixed-shape (T, 2, 2),
+  (T, C, 2, 2) or (T, L, 2, 2) confusion state per threshold, summed over
+  updates;
+- exact (``thresholds=None``, the default): the sklearn-equivalent curve
+  over every distinct score, from ``_binary_clf_curve``: a stable sort of
+  the scores (NaN last, then reversed, as ``jnp.argsort(x)[::-1]``),
+  cumulative counts, and the positions where the sorted score changes.
+  Its length depends on the data, so this eager form reads a ``nonzero``
+  back to the host; the class computes go through the fixed-length filled
+  form of ``_exact_jit.py`` instead.
 
 Deviations from the JAX package, both deliberate:
 
@@ -33,13 +41,6 @@ Tensor = torch.Tensor
 Thresholds = Union[int, List[float], Tensor, None]
 
 
-def _exact_mode_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "thresholds=None (the exact curve) is not ported yet; the PyTorch port covers the binned curves "
-        "(thresholds=int/list/tensor), and the exact path follows with ROADMAP A9"
-    )
-
-
 def _adjust_threshold_arg(thresholds: Thresholds, device: Union[str, torch.device] = "cpu") -> Optional[Tensor]:
     """int → ``jnp.linspace(0, 1, n)`` bitwise; list/tensor → float32 tensor;
     None → exact mode. Grids must be non-decreasing (checked on the host)."""
@@ -56,6 +57,67 @@ def _adjust_threshold_arg(thresholds: Thresholds, device: Union[str, torch.devic
     if thr.ndim != 1 or bool(torch.any(torch.diff(thr) < 0)):
         raise ValueError("Expected argument `thresholds` to be a 1d tensor of increasing values")
     return thr
+
+
+def _desc_order(preds: Tensor) -> Tensor:
+    """``jnp.argsort(preds)[::-1]`` along the last axis: a stable ascending
+    sort (NaN last, -0.0 equal to 0.0), reversed, so NaN comes first and
+    tied scores in reverse index order."""
+    return torch.flip(torch.argsort(preds, dim=-1, stable=True), [-1])
+
+
+def _binary_clf_curve(
+    preds: Tensor, target: Tensor, sample_weights: Optional[Tensor] = None
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Cumulative (fps, tps, thresholds) at each distinct score, descending
+    (JAX ``precision_recall_curve.py:48-78``).
+
+    A block end is where ``diff`` of the sorted scores is nonzero; NaN and
+    ``inf - inf`` differences count as nonzero, as in the JAX package. The
+    output length is data-dependent: ``nonzero`` syncs with the host.
+    """
+    desc = _desc_order(preds)
+    preds = preds[desc]
+    target = target[desc]
+    weight = torch.ones_like(preds) if sample_weights is None else sample_weights.to(torch.float32)[desc]
+    distinct = torch.nonzero(torch.diff(preds))[:, 0]
+    threshold_idxs = torch.cat([distinct, torch.full((1,), target.shape[0] - 1, dtype=distinct.dtype,
+                                                     device=distinct.device)])
+    tps = torch.cumsum(target * weight, dim=0)[threshold_idxs]
+    if sample_weights is not None:
+        fps = torch.cumsum((1 - target) * weight, dim=0)[threshold_idxs]
+    else:
+        fps = 1 + threshold_idxs - tps
+    return fps, tps, preds[threshold_idxs]
+
+
+def _exact_pr_curve(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The exact binary PR curve: (K+1,) precision and recall ending in the
+    (1, 0) point, (K,) ascending thresholds. With no positive, recall is 1
+    everywhere (modern sklearn)."""
+    fps, tps, thresh = _binary_clf_curve(preds, target)
+    precision = _safe_divide(tps, tps + fps)
+    no_pos = tps[-1] == 0
+    recall = torch.where(no_pos, torch.ones_like(tps), tps / torch.where(no_pos, 1.0, tps[-1]))
+    one = torch.ones(1, dtype=precision.dtype, device=precision.device)
+    precision = torch.cat([torch.flip(precision, [0]), one])
+    recall = torch.cat([torch.flip(recall, [0]), torch.zeros_like(one)])
+    return precision, recall, torch.flip(thresh, [0])
+
+
+def _per_column(curve_fn, preds: Tensor, target: Tensor, ignore_index: Optional[int] = None):
+    """``curve_fn`` of each column of (N, C) scores and 0/1 targets, as three
+    lists (the exact curves' lengths differ per column). With
+    ``ignore_index`` the multilabel rule: drop the column's ignored entries,
+    then clip its targets to {0, 1}."""
+    outs = []
+    for c in range(preds.shape[1]):
+        p, t = preds[:, c], target[:, c]
+        if ignore_index is not None:
+            keep = t != ignore_index
+            p, t = p[keep], torch.clamp(t[keep], 0, 1)
+        outs.append(curve_fn(p, t))
+    return tuple(list(v) for v in zip(*outs))
 
 
 def _binned_confusion_from_bins(weights: Tensor, bin_idx: Tensor, len_t: int) -> Tensor:
@@ -113,11 +175,9 @@ def _curve_weights(target: Tensor, mask: Optional[Tensor]) -> Tensor:
     return weights
 
 
-def _pr_from_confmat(state: Tensor, thresholds: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+def _pr_from_confmat(state: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Per-column (C, T+1) precision and recall from a (T, C, 2, 2) state, each
     ending in the (1, 0) point."""
-    if thresholds is None:
-        raise _exact_mode_not_ported()
     tps = state[:, :, 1, 1]
     fps = state[:, :, 0, 1]
     fns = state[:, :, 1, 0]
@@ -153,15 +213,17 @@ def _binary_precision_recall_curve_update(
 ) -> Tensor:
     """Binned state (T, 2, 2) int32: the one-column case of the multiclass
     engine, one batched bincount of two weight rows."""
-    if thresholds is None:
-        raise _exact_mode_not_ported()
     weights = _curve_weights(target[:, None], None if mask is None else mask[:, None])
     return _binned_confusion_from_bins(weights, _bins_of(preds, thresholds)[:, None], thresholds.shape[0])[:, 0]
 
 
 def _binary_precision_recall_curve_compute(
-    state: Tensor, thresholds: Optional[Tensor]
+    state: Union[Tensor, Tuple[Tensor, Tensor]], thresholds: Optional[Tensor]
 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """From the binned state, or from ``(preds, target)`` (ignored entries
+    already dropped) when ``thresholds`` is None."""
+    if thresholds is None:
+        return _exact_pr_curve(*state)
     precision, recall, thresholds = _pr_from_confmat(state[:, None], thresholds)
     return precision[0], recall[0], thresholds
 
@@ -173,7 +235,8 @@ def binary_precision_recall_curve(
     ignore_index: Optional[int] = None,
     validate_args: bool = True,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Binned precision-recall curve: (T+1,) precision and recall, (T,) thresholds.
+    """Precision-recall curve: (T+1,) precision and recall, (T,) thresholds;
+    over every distinct score with ``thresholds=None``.
 
     Example:
         >>> import torch
@@ -182,10 +245,14 @@ def binary_precision_recall_curve(
         >>> target = torch.tensor([0, 1, 1, 0, 1, 0])
         >>> [[round(float(x), 4) for x in v] for v in binary_precision_recall_curve(preds, target, thresholds=5)]
         [[0.5, 0.6, 1.0, 1.0, 0.0, 1.0], [1.0, 1.0, 1.0, 0.6667, 0.0, 0.0], [0.0, 0.25, 0.5, 0.75, 1.0]]
+        >>> [[round(float(x), 4) for x in v] for v in binary_precision_recall_curve(preds, target)]
+        [[0.5, 0.6, 0.75, 1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 1.0, 1.0, 0.6667, 0.3333, 0.0], [0.1, 0.3, 0.4, 0.6, 0.8, 0.9]]
     """
-    if thresholds is None:
-        raise _exact_mode_not_ported()
     preds, target, thr, mask = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
+    if thr is None:
+        if mask is not None:
+            preds, target = preds[mask], target[mask]
+        return _binary_precision_recall_curve_compute((preds, target), None)
     state = _binary_precision_recall_curve_update(preds, target, thr, mask)
     return _binary_precision_recall_curve_compute(state, thr)
 
@@ -217,18 +284,22 @@ def _multiclass_precision_recall_curve_update(
     preds: Tensor, target: Tensor, num_classes: int, thresholds: Optional[Tensor], mask: Optional[Tensor] = None
 ) -> Tensor:
     """Binned state (T, C, 2, 2) int32."""
-    if thresholds is None:
-        raise _exact_mode_not_ported()
     onehot = target[:, None] == torch.arange(num_classes, device=target.device)
     weights = _curve_weights(onehot, None if mask is None else mask[:, None])
     return _binned_confusion_from_bins(weights, _bins_of(preds, thresholds), thresholds.shape[0])
 
 
 def _multiclass_precision_recall_curve_compute(
-    state: Tensor,
+    state: Union[Tensor, Tuple[Tensor, Tensor]],
     num_classes: int,
     thresholds: Optional[Tensor],
-) -> Tuple[Tensor, Tensor, Tensor]:
+):
+    """(C, T+1) binned curves, or per-class lists of exact curves from
+    ``(preds, target)`` when ``thresholds`` is None."""
+    if thresholds is None:
+        preds, target = state
+        onehot = (target[:, None] == torch.arange(num_classes, device=target.device)).to(torch.int32)
+        return _per_column(_exact_pr_curve, preds, onehot)
     return _pr_from_confmat(state, thresholds)
 
 
@@ -240,12 +311,15 @@ def multiclass_precision_recall_curve(
     ignore_index: Optional[int] = None,
     validate_args: bool = True,
 ):
-    """Binned one-vs-rest precision-recall curve per class."""
-    if thresholds is None:
-        raise _exact_mode_not_ported()
+    """One-vs-rest precision-recall curve per class: (C, T+1) binned, or
+    lists of per-class exact curves with ``thresholds=None``."""
     preds, target, thr, mask = _multiclass_precision_recall_curve_format(
         preds, target, num_classes, thresholds, ignore_index
     )
+    if thr is None:
+        if mask is not None:
+            preds, target = preds[mask], target[mask]
+        return _multiclass_precision_recall_curve_compute((preds, target), num_classes, None)
     state = _multiclass_precision_recall_curve_update(preds, target, num_classes, thr, mask)
     return _multiclass_precision_recall_curve_compute(state, num_classes, thr)
 
@@ -281,17 +355,21 @@ def _multilabel_precision_recall_curve_update(
 ) -> Tensor:
     """Binned state (T, L, 2, 2) int32: per-element weights ``target * w`` and
     ``w`` over the (N, L) bins, no one-hot."""
-    if thresholds is None:
-        raise _exact_mode_not_ported()
     weights = _curve_weights(target, mask)
     return _binned_confusion_from_bins(weights, _bins_of(preds, thresholds), thresholds.shape[0])
 
 
 def _multilabel_precision_recall_curve_compute(
-    state: Tensor,
+    state: Union[Tensor, Tuple[Tensor, Tensor]],
     num_labels: int,
     thresholds: Optional[Tensor],
-) -> Tuple[Tensor, Tensor, Tensor]:
+    ignore_index: Optional[int] = None,
+):
+    """(L, T+1) binned curves, or per-label lists of exact curves from
+    ``(preds, target)`` when ``thresholds`` is None; there the targets keep
+    the ignore marker and each label drops its ignored entries."""
+    if thresholds is None:
+        return _per_column(_exact_pr_curve, *state, ignore_index)
     return _pr_from_confmat(state, thresholds)
 
 
@@ -303,12 +381,13 @@ def multilabel_precision_recall_curve(
     ignore_index: Optional[int] = None,
     validate_args: bool = True,
 ):
-    """Binned precision-recall curve per label: (L, T+1) precision and recall."""
-    if thresholds is None:
-        raise _exact_mode_not_ported()
+    """Precision-recall curve per label: (L, T+1) binned, or lists of
+    per-label exact curves with ``thresholds=None``."""
     preds, target, thr, mask = _multilabel_precision_recall_curve_format(
         preds, target, num_labels, thresholds, ignore_index
     )
+    if thr is None:
+        return _multilabel_precision_recall_curve_compute((preds, target), num_labels, None, ignore_index)
     state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thr, mask)
     return _multilabel_precision_recall_curve_compute(state, num_labels, thr)
 

@@ -8,13 +8,15 @@ This module imports neither JAX nor the JAX package: the exchange format is
 numpy alone.
 
 Mappings are ``{state: array}`` for a metric and ``{member: {state: array}}``
-for a collection; a list (``cat``) state is a sequence of arrays.
+for a collection; a list (``cat``) state is a sequence of arrays, in either
+layout.
 """
 from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
 
+from .buffers import CatBuffer
 from .collections import MetricCollection
 from .metric import Metric
 
@@ -68,10 +70,14 @@ def state_from_numpy(target: Target, mapping: Mapping[str, Any]) -> Dict[str, An
 
 
 def _metric_state_to_numpy(state: Mapping[str, Any]) -> Dict[str, Any]:
-    return {
-        k: [e.detach().cpu().numpy() for e in v] if isinstance(v, (list, tuple)) else v.detach().cpu().numpy()
-        for k, v in state.items()
-    }
+    """A padded cat state gives one array of its valid rows (none when
+    empty), as the JAX package's ``state_dict`` gives a ``CatBuffer``."""
+    out: Dict[str, Any] = {}
+    for k, v in state.items():
+        if isinstance(v, CatBuffer):
+            v = [v.materialize()] if len(v) else []
+        out[k] = [e.detach().cpu().numpy() for e in v] if isinstance(v, (list, tuple)) else v.detach().cpu().numpy()
+    return out
 
 
 def state_to_numpy(source: Union[Target, Mapping[str, Any]]) -> Dict[str, Any]:

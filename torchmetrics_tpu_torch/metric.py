@@ -4,17 +4,23 @@ Counterpart of ``torchmetrics_tpu/metric.py`` ``Metric`` (:348). A metric is
 ``(init() -> state, update(state, batch) -> state, compute(state) -> result)``
 over a dict of state tensors, each carrying a :class:`Reduction` tag. The
 class is a ``torch.nn.Module``: tensor states are registered buffers, as in
-the upstream TorchMetrics design, and ``cat`` states are Python lists of
-tensors. Subclasses write the familiar ``self.tp = self.tp + tp`` update
+the upstream TorchMetrics design. A ``cat`` state is, by default
+(``list_layout="padded"``), a :class:`~torchmetrics_tpu_torch.buffers.CatBuffer`
+that each update appends to with one ``copy_`` and that compute reads as a
+view; ``list_layout="list"`` keeps a Python list of tensors, the oracle the
+padded layout equals bitwise (JAX ``metric.py:1003-1100``). An update body
+appends to a plain list either way; the runtime folds the appends into the
+state. Subclasses write the familiar ``self.tp = self.tp + tp`` update
 bodies; updates rebind states and never write into a state tensor in place,
-so a state tensor may be shared (compute groups, the pure API) safely.
+so a state tensor may be shared (compute groups, the pure API) safely. The
+pure API keeps cat states as tuples of increments in both layouts.
 
 Device: a metric lives on ``torch.device("cuda")`` unless the caller passes
 ``device=``; with no card and no ``device=`` the constructor raises. Inputs
 on another device raise: the port makes no hidden copies.
 
 Not ported in this slice: the XLA executable cache and ``_global_jit``
-(:133-345), ``buffered``/``windowed``/``decayed``, ``CatBuffer`` layouts,
+(:133-345), ``buffered``/``windowed``/``decayed``, the sharded cat layout,
 quantized sync, spans/ledger/registry, ``plot`` and ``CompositionalMetric``.
 """
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Unio
 
 import torch
 
+from .buffers import CatBuffer, CatLayoutError
 from .parallel.reduction import Reduction, resolve_reduction
 from .parallel.sync import SyncBackend, default_sync_backend
 from .state import MetricState
@@ -105,6 +112,10 @@ class Metric(torch.nn.Module):
         sync_on_compute: sync before ``compute`` (default True).
         compute_with_cache: cache ``compute`` until the next update.
         sync_backend: a :class:`SyncBackend`; default ``NoSync`` in one process.
+        list_layout: storage of ``cat`` states: ``"padded"`` (default) keeps
+            each in a power-of-two :class:`CatBuffer`; ``"list"`` keeps one
+            tensor per update, the bitwise-equal oracle. A state whose
+            increments change their trailing shape falls back to the list.
 
     Example (defining a custom metric):
         >>> import torch
@@ -154,12 +165,17 @@ class Metric(torch.nn.Module):
         sync_on_compute: bool = True,
         compute_with_cache: bool = True,
         sync_backend: Optional[SyncBackend] = None,
+        list_layout: str = "padded",
         **kwargs: Any,
     ) -> None:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
+        if list_layout not in ("padded", "list"):
+            raise ValueError(f"list_layout must be 'padded' or 'list', got {list_layout!r}")
         super().__init__()
         self._device = resolve_device(device)
+        self._list_layout = list_layout
+        self._layout_fallback: set = set()
         self._defaults: Dict[str, Any] = {}
         self._reductions: Dict[str, Union[Reduction, Callable]] = {}
         self._persistent: Dict[str, bool] = {}
@@ -258,8 +274,8 @@ class Metric(torch.nn.Module):
         self._restore_defaults()
         self.update(*args, **kwargs)  # batch-only state
         with self.sync_context(should_sync=self.dist_sync_on_step):
-            batch_val = _squeeze_if_scalar(self._compute_impl())
-        self._install_state(cache)
+            batch_val = _squeeze_if_scalar(self._compute_on_views(type(self)._compute_impl))
+        self._install_state(cache, copy_lists=False)
         self._update_count = count
         self._computed = None
         return batch_val
@@ -309,6 +325,20 @@ class Metric(torch.nn.Module):
         finally:
             self._swap_state(*old)
 
+    def _compute_on_views(self, compute_fn: Callable, *args: Any, **kwargs: Any) -> Any:
+        """Run a compute body with each padded cat state shown as a list of
+        one view of its valid rows (none when empty), so bodies written for
+        lists (``torch.cat``, ``dim_zero_cat``) read it without a copy."""
+        views = {k: [v.materialize()] if len(v) else [] for k in self._list_states
+                 if isinstance(v := self.__dict__[k], CatBuffer)}
+        if not views:
+            return compute_fn(self, *args, **kwargs)
+        old = self._swap_state({}, views)
+        try:
+            return compute_fn(self, *args, **kwargs)
+        finally:
+            self._swap_state(*old)
+
     def _merge_tensor_states(self, global_state: StateDict, batch_state: StateDict, n_prev: int) -> StateDict:
         """Merge a batch-local state into the running global state.
 
@@ -344,7 +374,7 @@ class Metric(torch.nn.Module):
         new_tensors, appends = self._pure_update(tensors, args, kwargs)
         out = dict(new_tensors)
         for k in self._list_states:
-            out[k] = tuple(state.get(k, ())) + appends[k]
+            out[k] = _increments(state.get(k, ())) + appends[k]
         return out
 
     def update_state_batched(
@@ -407,7 +437,7 @@ class Metric(torch.nn.Module):
     def compute_state(self, state: StateDict) -> Any:
         """Pure compute over an explicit state dict."""
         tensors = {k: v for k, v in state.items() if k not in self._list_states}
-        lists = {k: tuple(state.get(k, ())) for k in self._list_states}
+        lists = {k: _increments(state.get(k, ())) for k in self._list_states}
         return _squeeze_if_scalar(self._pure_compute(tensors, lists))
 
     def merge_states(self, states: Sequence[StateDict]) -> StateDict:
@@ -417,7 +447,7 @@ class Metric(torch.nn.Module):
             red = self._reductions[name]
             vals = [s[name] for s in states]
             if name in self._list_states:
-                out[name] = tuple(e for v in vals for e in v)
+                out[name] = tuple(e for v in vals for e in _increments(v))
                 continue
             if red == Reduction.CAT:
                 out[name] = torch.cat([torch.as_tensor(v) for v in vals], dim=0)
@@ -444,17 +474,26 @@ class Metric(torch.nn.Module):
         return {k: self._buffers[k] for k in self._defaults if k not in self._list_states}
 
     def _snapshot_state(self) -> StateDict:
-        return {
-            k: list(self.__dict__[k]) if k in self._list_states else self._buffers[k]
-            for k in self._defaults
-        }
+        """The states, to restore after a forward or a sync: nothing appends
+        to a cached ``CatBuffer`` meanwhile (the forward updates fresh
+        defaults; a synced metric refuses updates), so it is kept as it is
+        and reinstalled without a copy."""
+        out: StateDict = {}
+        for k in self._defaults:
+            if k in self._list_states:
+                v = self.__dict__[k]
+                out[k] = list(v) if isinstance(v, list) else v
+            else:
+                out[k] = self._buffers[k]
+        return out
 
     def _install_state(self, mapping: Mapping[str, Any], copy_lists: bool = True) -> None:
-        """Rebind states from ``mapping``; list states are copied unless
+        """Rebind states from ``mapping``; cat states are copied (a list) or
+        snapshotted (a :class:`CatBuffer`, copy-on-write) unless
         ``copy_lists=False`` (compute groups share them)."""
         for k, v in mapping.items():
             if k in self._list_states:
-                self.__dict__[k] = list(v) if copy_lists else v
+                self.__dict__[k] = _copy_cat(v) if copy_lists else v
             else:
                 self._buffers[k] = v
 
@@ -467,9 +506,37 @@ class Metric(torch.nn.Module):
             else:
                 self._buffers[name] = default.clone()
 
+    def _uses_padded(self, name: str) -> bool:
+        return (
+            self._list_layout == "padded"
+            and name not in self._layout_fallback
+            and self._reductions.get(name) == Reduction.CAT
+        )
+
+    def _append_cat_increment(self, name: str, inc: Tensor) -> None:
+        """Append one increment to a cat state in its layout. Under the
+        padded layout a state still held as a list (empty, or loaded from a
+        ``state_dict``) becomes a :class:`CatBuffer` at this append; an
+        increment of another trailing shape moves the state to the list
+        layout for good (JAX ``metric.py:1038-1060``)."""
+        target = self.__dict__[name]
+        if self._uses_padded(name):
+            try:
+                if isinstance(target, CatBuffer):
+                    target.append(inc)
+                else:
+                    self.__dict__[name] = CatBuffer.from_increments([*target, inc])
+                return
+            except CatLayoutError:
+                self._layout_fallback.add(name)
+                target = [target.materialize()] if isinstance(target, CatBuffer) and len(target) else list(target)
+                self.__dict__[name] = target
+        target.append(inc)
+
     def _extend_list_states(self, appends: Mapping[str, Sequence]) -> None:
         for k, vs in appends.items():
-            self.__dict__[k].extend(vs)
+            for v in vs:
+                self._append_cat_increment(k, v)
 
     def as_state(self) -> MetricState:
         """Current state as a :class:`MetricState` (leaves shared, not copied)."""
@@ -541,7 +608,7 @@ class Metric(torch.nn.Module):
             return
         if self._cache is None:
             raise TorchMetricsUserError("The Metric has no cache to restore from.")
-        self._install_state(self._cache)
+        self._install_state(self._cache, copy_lists=False)
         self._cache = None
         self._is_synced = False
 
@@ -583,7 +650,9 @@ class Metric(torch.nn.Module):
         super()._save_to_state_dict(destination, prefix, keep_vars)
         for name in sorted(self._list_states):
             if self._persistent[name]:
-                destination[prefix + name] = list(self.__dict__[name])
+                # a padded state saves as one increment: the buffer keeps no
+                # increment boundaries, and the list loads back concat-equal
+                destination[prefix + name] = list(_increments(self.__dict__[name]))
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict, missing_keys,
                               unexpected_keys, error_msgs):
@@ -609,9 +678,9 @@ class Metric(torch.nn.Module):
         super()._apply(fn, recurse)
         self._defaults = {k: v if isinstance(v, list) else fn(v) for k, v in self._defaults.items()}
         for k in self._list_states:
-            self.__dict__[k] = [fn(e) for e in self.__dict__[k]]
+            self.__dict__[k] = _apply_cat(self.__dict__[k], fn)
         if self._cache is not None:
-            self._cache = {k: [fn(e) for e in v] if isinstance(v, list) else fn(v) for k, v in self._cache.items()}
+            self._cache = {k: _apply_cat(v, fn) if k in self._list_states else fn(v) for k, v in self._cache.items()}
         self._device = fn(torch.zeros(1, device=self._device)).device
         self._computed = None
         return self
@@ -626,6 +695,25 @@ class Metric(torch.nn.Module):
             else:
                 items.append((k, tuple(v.shape), str(v.dtype), str(self._reductions[k])))
         return tuple(items)
+
+
+def _increments(value: Any) -> tuple:
+    """A cat state as a tuple of increments: a :class:`CatBuffer` is one
+    increment, its valid rows (none when empty)."""
+    if isinstance(value, CatBuffer):
+        return (value.materialize(),) if len(value) else ()
+    return tuple(value)
+
+
+def _copy_cat(value: Any) -> Any:
+    """An independent handle on a cat state: a copy-on-write snapshot of a
+    :class:`CatBuffer`, a new list of the same tensors otherwise."""
+    return value.snapshot() if isinstance(value, CatBuffer) else list(value)
+
+
+def _apply_cat(value: Any, fn: Callable) -> Any:
+    """A cat state with ``fn`` (a device or dtype move) applied to its tensors."""
+    return value.apply(fn) if isinstance(value, CatBuffer) else [fn(e) for e in value]
 
 
 def _wrap_update(update_fn: Callable) -> Callable:
@@ -664,7 +752,7 @@ def _wrap_compute(compute_fn: Callable) -> Callable:
         if self.compute_with_cache and self._computed is not None:
             return self._computed
         with self.sync_context(should_sync=self.sync_on_compute):
-            value = _squeeze_if_scalar(compute_fn(self, *args, **kwargs))
+            value = _squeeze_if_scalar(self._compute_on_views(compute_fn, *args, **kwargs))
         if self.compute_with_cache:
             self._computed = value
         return value

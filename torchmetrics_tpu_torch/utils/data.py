@@ -1,8 +1,9 @@
 """Data-manipulation utilities shared by all layers.
 
 Counterpart of ``torchmetrics_tpu/utils/data.py`` (reference
-``src/torchmetrics/utilities/data.py``). Cat states are plain Python lists of
-tensors in this package; the padded ``CatBuffer`` layout is not ported yet.
+``src/torchmetrics/utilities/data.py``). A cat state is a padded
+:class:`~torchmetrics_tpu_torch.buffers.CatBuffer` (the default layout) or
+a Python list of tensors (``list_layout="list"``).
 
 Integer results keep the JAX package's int32 (torch would default to int64),
 so states compare bitwise across the two packages.
@@ -11,17 +12,26 @@ from typing import List, Sequence, Union
 
 import torch
 
+from ..buffers import CatBuffer, cat_rows
+
 Tensor = torch.Tensor
 
 
-def dim_zero_cat(x: Union[Tensor, List[Tensor], tuple]) -> Tensor:
-    """Concatenate a (possibly list-valued) state along dim 0."""
+def dim_zero_cat(x: Union[Tensor, List[Tensor], tuple, CatBuffer]) -> Tensor:
+    """Concatenate a (possibly list-valued) state along dim 0.
+
+    A :class:`CatBuffer` gives its valid rows and a one-element list its
+    element, both without a copy (states are never written in place)."""
     if isinstance(x, torch.Tensor):
         return x
+    if isinstance(x, CatBuffer):
+        if len(x) == 0:
+            raise ValueError("No samples to concatenate")
+        return x.materialize()
     if isinstance(x, (list, tuple)):
         if len(x) == 0:
             raise ValueError("No samples to concatenate")
-        return torch.cat([torch.atleast_1d(torch.as_tensor(e)) for e in x], dim=0)
+        return cat_rows(x)
     return torch.as_tensor(x)
 
 
