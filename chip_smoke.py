@@ -74,7 +74,24 @@ not 0 and no result line is printed:
    counts). Every path reports its peak device memory;
 5. sync_free_compute: the filled exact functions the class computes use
    (binary AUROC, multiclass AUROC and AP) at those paths' shapes, timed,
-   under torch.cuda.set_sync_debug_mode("error").
+   under torch.cuda.set_sync_debug_mode("error");
+6. dist_sync: state sync over torch.distributed, in two parts.
+   (a) NCCL at world size 1 in this process: MetricCollection.reduce_state
+   and Metric.reduce_state (the pure route) on bench_config2's collection
+   (C=100, batch 1,024, 200 updates) and on imagenet1k_exact's states,
+   under torch.cuda.set_sync_debug_mode("error"), and HostSync.sync_tensor
+   and sync_cat_padded called directly: every result bitwise equal to the
+   unsynced state. (b) Two ranks on the one card, spawned, over gloo with
+   CUDA tensors (NCCL refuses two ranks on one GPU): each rank updates half
+   of bench_config2 (100 of 200 updates), of imagenet1k_exact (25,000 of
+   50,000 rows at C=1000) and of a collection of the five aggregators
+   (rank 1 gives CatMetric no rows), then syncs every member through
+   HostSync (timed, with the wire ledger), computes, and syncs the pure
+   states with MetricCollection.reduce_state; rank 0 compares with one
+   process over all the data (cat and integer states bitwise, float states
+   and values within 1e-6) and both ranks' synced states must hash alike.
+   Each timed sync starts at a barrier, after one untimed sync of the same
+   states (the first collectives of a group set up its connections).
 
 The last lines are the kernels' record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -1035,6 +1052,334 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     return first + later + computed + pure_launches + pure_computed
 
 
+# ---------------------------------------------------------------------------
+# phase dist_sync: state sync over torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 60  # every process group's collective timeout
+DIST_DEADLINE_S = 480  # the two ranks of part (b) must have ended by then
+
+
+def aggregation_path(steps: int = 8, batch: int = 4096) -> dict:
+    """The five aggregators in one collection, over multiples of 1/8 (values
+    in [-8, 8), weights in [1/8, 2)), so every float sum is exact in any
+    order and a synced state equals the single-process one bitwise. In a
+    two-rank run, rank 1 gives CatMetric no rows (``cat_rank0_only``)."""
+    def make(device):
+        from torchmetrics_tpu_torch import CatMetric, MaxMetric, MeanMetric, MetricCollection, MinMetric, SumMetric
+        return MetricCollection({"sum": SumMetric(device=device), "mean": MeanMetric(device=device),
+                                 "max": MaxMetric(device=device), "min": MinMetric(device=device),
+                                 "cat": CatMetric(device=device)})
+
+    def inputs(g, dev):
+        import torch
+        values = torch.randint(-64, 64, (steps, batch), generator=g, device=dev).to(torch.float32) / 8
+        weights = torch.randint(1, 16, (steps, batch), generator=g, device=dev).to(torch.float32) / 8
+        return values, {"weight": weights}
+
+    return {"make": make, "inputs": inputs, "steps": steps, "cat_rank0_only": True}
+
+
+def _dist_paths() -> list:
+    return [("bench_config2", multiclass_path(num_classes=100, batch=1024, steps=200)),
+            ("imagenet1k_exact", imagenet1k_exact_path()),
+            ("aggregation", aggregation_path())]
+
+
+def _drive(coll, path: dict, inputs, steps, pure: bool, cat_steps=()):
+    """Update ``coll`` (or its pure state) with ``steps``; the aggregation
+    path's CatMetric takes only those also in ``cat_steps``."""
+    if path.get("cat_rank0_only"):
+        values, extra = inputs
+        state = coll.init_state() if pure else None
+        for i in steps:
+            for name, m in coll.items(keep_base=True, copy_state=False):
+                if name == "cat" and i not in cat_steps:
+                    continue
+                args = (values[i], extra["weight"][i]) if name == "mean" else (values[i],)
+                if pure:
+                    state[name] = m.update_state(state[name], *args)
+                else:
+                    m.update(*args)
+        return state
+    preds, target, extra = _step_inputs(inputs)
+    state = coll.init_state() if pure else None
+    for i in steps:
+        kw = {k: v[i] for k, v in extra.items()}
+        if pure:
+            state = coll.update_state(state, preds[i], target[i], **kw)
+        else:
+            coll.update(preds[i], target[i], **kw)
+    return state
+
+
+def _rows_equal(got, want) -> bool:
+    import numpy as np
+    got = np.concatenate(got) if isinstance(got, list) and got else got
+    want = np.concatenate(want) if isinstance(want, list) and want else want
+    if isinstance(got, list) or isinstance(want, list):
+        return isinstance(got, list) and isinstance(want, list)  # both empty
+    return got.dtype == want.dtype and got.shape == want.shape and bool((got == want).all())
+
+
+def _check_synced(label: str, how: str, got: dict, want: dict, cat_states: set) -> dict:
+    """``got`` against ``want`` ({member: {state: numpy}}): cat and integer
+    states bitwise; float states within 1e-6, relative to the value above 1
+    (each rank sums its half, then the halves are added: another order than
+    one process's)."""
+    import numpy as np
+    worst = 0.0
+    for member, states in want.items():
+        for key, w in states.items():
+            g = got[member][key]
+            if (member, key) in cat_states or isinstance(w, list) or not np.issubdtype(w.dtype, np.floating):
+                if not _rows_equal(g, w):
+                    raise AssertionError(f"dist_sync {label}: {how} state {member}.{key} differs bitwise")
+                continue
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"dist_sync {label}: {how} state {member}.{key} dtype or shape differs")
+            err = float(np.max(np.abs(g.astype(np.float64) - w) / np.maximum(1.0, np.abs(w)))) if w.size else 0.0
+            worst = max(worst, err)
+            if not err <= VALUE_TOL:
+                raise AssertionError(f"dist_sync {label}: {how} state {member}.{key} differs by {err}")
+    return {"float_state_max_rel_err": worst}
+
+
+def _digest(states: dict) -> str:
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for member in sorted(states):
+        for key in sorted(states[member]):
+            v = states[member][key]
+            for part in (v if isinstance(v, list) else [v]):
+                h.update(f"{member}.{key}{part.dtype}{part.shape}".encode())
+                h.update(np.ascontiguousarray(part).tobytes())
+    return h.hexdigest()
+
+
+def _timed(fn):
+    """(result, host ms) of ``fn()`` between two synchronisations of the card."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dist_rank(rank: int, world: int, init_file: str, out_dir: str, device: str = "cuda") -> None:
+    """One rank of part (b): join the gloo group, update this rank's half of
+    each path, sync (``Metric.sync`` through ``HostSync`` and
+    ``MetricCollection.reduce_state``) and compute; rank 0 then runs each
+    path in one process over all the data and compares. Writes
+    ``rank{r}.json``, or ``rank{r}.err`` with the traceback. ``device``
+    other than ``cuda`` is for a rehearsal on the CPU."""
+    import datetime
+    import pathlib
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    out = pathlib.Path(out_dir)
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        from torchmetrics_tpu_torch.interop import state_to_numpy
+        from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+        from torchmetrics_tpu_torch.parallel import HostSync, NoSync, reset_wire_stats, wire_stats
+        dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+        report = {"rank": rank, "paths": {}}
+        for label, path in _dist_paths():
+            g = torch.Generator(device=dev).manual_seed(1234)
+            inputs = path["inputs"](g, dev)
+            half = -(-path["steps"] // world)
+            mine = range(rank * half, min((rank + 1) * half, path["steps"]))
+            cat_steps = range(0, half)  # rank 0's: rank 1 gives CatMetric no rows
+            coll = path["make"](dev)
+            weighted_bincount.launches = 0
+            _drive(coll, path, inputs, mine, False, cat_steps)
+            torch.cuda.synchronize()
+            launches = weighted_bincount.launches
+            members = list(coll.items(keep_base=True))
+            backends = {type(m.sync_backend).__name__ for _, m in members}
+            synced = {}
+            for name, m in members:
+                m.sync()
+                synced[name] = state_to_numpy(m)
+                m.unsync()
+            # the sync of every member, timed from a barrier, with its wire ledger
+            dist.barrier()
+            reset_wire_stats()
+            _, sync_ms = _timed(lambda: [(m.sync(), m.unsync()) for _, m in members])
+            stats = wire_stats()
+            dist.barrier()
+            values, compute_ms = _timed(coll.compute)
+            state = _drive(coll, path, inputs, mine, True, cat_steps)
+            reduced_np = state_to_numpy(coll.reduce_state(state))
+            dist.barrier()
+            reset_wire_stats()
+            _, reduce_ms = _timed(lambda: coll.reduce_state(state))
+            reduce_stats = wire_stats()
+            wire = ("collectives_issued", "bytes_reduced", "bytes_gathered")
+            row = {"launches": launches, "backends": sorted(backends), "steps": len(mine),
+                   "sync_ms": sync_ms, "sync_wire": {k: stats[k] for k in wire},
+                   "compute_ms": compute_ms, "reduce_state_ms": reduce_ms,
+                   "reduce_state_wire": {k: reduce_stats[k] for k in wire},
+                   "synced_digest": _digest(synced), "reduced_digest": _digest(reduced_np)}
+            if rank == 0:
+                ref = path["make"](dev)
+                for _, m in ref.items(keep_base=True, copy_state=False):
+                    m._sync_backend = NoSync()
+                everything = range(path["steps"])
+                _drive(ref, path, inputs, everything, False, cat_steps)
+                ref_states = state_to_numpy(ref)
+                cat_states = {(n, k) for n, m in members for k in m._list_states}
+                row["stateful"] = _check_synced(label, "synced", synced, ref_states, cat_states)
+                ref_values = ref.compute()
+                for key, want in ref_values.items():
+                    _check_value(f"dist_sync {label}", f"{key} against one process", values[key], want)
+                ref_pure = state_to_numpy(_drive(ref, path, inputs, everything, True, cat_steps))
+                row["pure"] = _check_synced(label, "reduced", reduced_np, ref_pure, cat_states)
+                row["values"] = {k: _summary(v) for k, v in values.items()}
+            report["paths"][label] = row
+            del coll, inputs, state, reduced_np, synced
+        dist.barrier()
+        (out / f"rank{rank}.json").write_text(json.dumps(report))
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def dist_sync_one_rank_nccl(tmpdir: str, device: str = "cuda") -> tuple:
+    """Part (a): NCCL at world size 1, in this process. The pure route
+    (``MetricCollection.reduce_state``, ``Metric.reduce_state``) on
+    bench_config2's collection and imagenet1k_exact's states, each timed
+    once under ``torch.cuda.set_sync_debug_mode("error")`` (a host read
+    raises), and ``HostSync.sync_tensor`` / ``sync_cat_padded`` called
+    directly; every result bitwise equal to the unsynced state. Returns the
+    phase's record and the bincount launches. ``device`` other than ``cuda``
+    (a rehearsal on the CPU) runs the same over gloo."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torchmetrics_tpu_torch.buffers import CatBuffer
+    from torchmetrics_tpu_torch.interop import state_to_numpy
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+    from torchmetrics_tpu_torch.parallel import HostSync, Reduction
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", init_method=f"file://{tmpdir}/nccl_init",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    out, launches = {"backend": dist.get_backend()}, 0
+    try:
+        for label, path in _dist_paths()[:2]:
+            g = torch.Generator(device=dev).manual_seed(1234)
+            inputs = path["inputs"](g, dev)
+            coll = path["make"](dev)
+            weighted_bincount.launches = 0
+            state = _drive(coll, path, inputs, range(path["steps"]), True)
+            _drive(coll, path, inputs, range(path["steps"]), False)
+            torch.cuda.synchronize()
+            launches += weighted_bincount.launches
+            coll.reduce_state(state)  # NCCL sets its communicator up at the first collective
+            member = next(m for _, m in coll.items(keep_base=True, copy_state=False))
+            as_state = member.as_state()
+            member.reduce_state(as_state)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                reduced, ms = _timed(lambda: coll.reduce_state(state))
+                member_reduced = member.reduce_state(as_state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            _compare_states(f"dist_sync {label}", "NCCL world-1 reduce_state", state_to_numpy(reduced),
+                            state_to_numpy(state))
+            _compare_states(f"dist_sync {label}", "NCCL world-1 Metric.reduce_state",
+                            {"m": state_to_numpy(dict(member_reduced))}, {"m": state_to_numpy(dict(as_state))})
+            if type(member_reduced).__name__ != "MetricState":
+                raise AssertionError(f"dist_sync {label}: a MetricState came back as {type(member_reduced)}")
+            out[label] = {"reduce_state_ms": ms, "sync_debug_mode": "error"}
+            del state, reduced, coll, member, as_state, member_reduced, inputs
+        hs = HostSync()
+        x = torch.randn(1000, 100, device=dev)
+        buf = CatBuffer.allocate(torch.randn(700, 1000, device=dev))
+        for name, got, want in (
+                ("sync_tensor sum", hs.sync_tensor(x, Reduction.SUM), x),
+                ("sync_tensor cat", hs.sync_tensor(x, Reduction.CAT), x),
+                ("sync_cat_padded", hs.sync_cat_padded(buf.buffer, buf.count), buf.materialize())):
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"dist_sync: HostSync {name} at world size 1 is not the identity")
+        out["hostsync_direct"] = "identity, bitwise"
+    finally:
+        dist.destroy_process_group()
+    if not launches:
+        raise AssertionError("dist_sync: the NCCL part launched the bincount kernel no time")
+    return out, launches
+
+
+def dist_sync_two_ranks_gloo(tmpdir: str, world: int = 2, device: str = "cuda") -> tuple:
+    """Part (b): ``world`` ranks on the one card, spawned with
+    ``torch.multiprocessing``, over gloo with CUDA tensors (NCCL refuses two
+    ranks on one GPU). Joined with a deadline; ranks still running then are
+    killed and the phase fails. Returns the phase's record and the ranks'
+    bincount launches."""
+    import pathlib
+
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(r, world, f"{tmpdir}/gloo_init", tmpdir, device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    errors = [f.read_text() for f in sorted(pathlib.Path(tmpdir).glob("rank*.err"))]
+    if errors or hung or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"dist_sync: ranks failed (hung: {len(hung)}, exit codes "
+                             f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    reports = [json.loads((pathlib.Path(tmpdir) / f"rank{r}.json").read_text()) for r in range(world)]
+    out, launches = {}, 0
+    for label in reports[0]["paths"]:
+        rows = [rep["paths"][label] for rep in reports]
+        for key in ("synced_digest", "reduced_digest"):
+            if len({row[key] for row in rows}) != 1:
+                raise AssertionError(f"dist_sync {label}: the ranks' {key.split('_')[0]} states differ")
+        if any(row["backends"] != ["HostSync"] for row in rows):
+            raise AssertionError(f"dist_sync {label}: backends {[row['backends'] for row in rows]}")
+        launches += sum(row["launches"] for row in rows)
+        out[label] = {"launches_per_rank": [row["launches"] for row in rows],
+                      "steps_per_rank": [row["steps"] for row in rows],
+                      **{k: [row[k] for row in rows] for k in ("sync_ms", "compute_ms", "reduce_state_ms")},
+                      "sync_wire": rows[0]["sync_wire"], "reduce_state_wire": rows[0]["reduce_state_wire"],
+                      "stateful": rows[0]["stateful"], "pure": rows[0]["pure"], "values": rows[0]["values"]}
+    if not any(row["launches"] for rep in reports for row in rep["paths"].values()):
+        raise AssertionError("dist_sync: no rank launched the bincount kernel")
+    return out, launches
+
+
+def dist_sync(card: str) -> tuple:
+    """Phase dist_sync: part (a), then part (b); any failure raises."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        one_rank, launches_a = dist_sync_one_rank_nccl(tmpdir)
+        two_ranks, launches_b = dist_sync_two_ranks_gloo(tmpdir)
+    return {"phase": "dist_sync", "card": card, "nccl_world_1": one_rank,
+            "gloo_two_ranks_one_card": two_ranks}, launches_a + launches_b
+
+
 def main() -> int:
     import torch
 
@@ -1070,6 +1415,9 @@ def main() -> int:
     ]
     launches = sum(run_path(label, path, card, dev) for label, path in paths)
     emit(sync_free_exact_computes(card))
+    record, dist_launches = dist_sync(card)
+    emit(record)
+    launches += dist_launches
 
     main_case = next(c for c in kernel["cases"] if c["case"] == "curve_c1000_t64")
     emit({"kernels": [{

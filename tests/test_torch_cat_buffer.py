@@ -383,3 +383,42 @@ def test_full_state_forward_and_sync_restore_the_buffer_without_a_copy():
     assert moved.seen.buffer.data_ptr() == storage  # a no-op move shares the tensor, copy-on-write
     moved.update(torch.ones(1))
     assert len(moved.seen) == 7
+
+
+@pytest.mark.parametrize("list_layout", ["padded", "list"])
+def test_empty_cat_state_keeps_its_dtype_and_trailing_shape_after_reset(list_layout):
+    """An emptied cat state concatenates to 0 rows in the dtype and trailing
+    shape its appends had, as the JAX package's ``_empty_cat`` gives them:
+    a rank with no rows must send its group the state's real layout."""
+    rng = np.random.RandomState(3)
+    p = rng.rand(8, 3).astype(np.float32)
+    t = rng.randint(0, 3, 8).astype(np.int32)
+    jm = J.MulticlassAUROC(num_classes=3, thresholds=None, list_layout=list_layout)
+    pm = P.MulticlassAUROC(num_classes=3, thresholds=None, list_layout=list_layout, device="cpu")
+    jm.update(jnp.asarray(p), jnp.asarray(t))
+    pm.update(_t(p), _t(t))
+    jm.reset()
+    pm.reset()
+    for name in ("preds", "target"):
+        want, got = np.asarray(jm._precat(name)), pm._precat(name)
+        assert tuple(got.shape) == want.shape and str(got.dtype).split(".")[-1] == want.dtype.name, name
+    assert tuple(pm._precat("preds").shape) == (0, 3) and pm._precat("preds").dtype == torch.float32
+    assert tuple(pm._precat("target").shape) == (0,) and pm._precat("target").dtype == torch.int32
+
+
+def test_declared_cat_dtype_holds_before_the_first_append():
+    class Indexes(P.Metric):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.add_state("idx", [], dist_reduce_fx="cat", dtype=torch.int32)
+
+        def update(self, x):
+            self.idx.append(x)
+
+        def compute(self):
+            return dim_zero_cat(self.idx)
+
+    m = Indexes(device="cpu")
+    assert m._precat("idx").dtype == torch.int32 and tuple(m._precat("idx").shape) == (0,)
+    with pytest.raises(ValueError, match="only supported for list states"):
+        m.add_state("total", torch.tensor(0), dtype=torch.int32)

@@ -1,0 +1,314 @@
+"""The port's sync over a real ``torch.distributed`` group: two processes on
+the CPU over gloo, the reference library's own test-pool design.
+
+Each case spawns two ranks that join one gloo group (``file://`` init under
+the test's ``tmp_path``, a 60 s collective timeout), update their share of
+the data, sync, and write what they got to ``tmp_path``; the test joins them
+with a deadline and kills what is left. The parent then runs the same
+metrics in one process over all the data and requires the synced states
+bitwise equal to it (ranks hold different row counts, and one rank holds
+none of some states): through ``HostSync`` (``Metric.sync``, ``compute``)
+and through the pure route (``MetricCollection.reduce_state``). The
+aggregators' inputs are multiples of 1/8, so their float sums are exact in
+any order and compare bitwise too.
+"""
+import datetime
+import time
+import traceback
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+import torchmetrics_tpu_torch as P
+from torchmetrics_tpu_torch.interop import state_to_numpy
+from torchmetrics_tpu_torch.parallel import (HostSync, Reduction, SyncPolicy, default_sync_backend,
+                                             reduce_state_in_graph, reduce_tensor_in_graph, reset_wire_stats,
+                                             use_policy, wire_stats)
+
+WORLD = 2
+C = 5
+DEADLINE_S = 120
+ROWS = ([16, 16, 11], [9, 7])  # rank 0's and rank 1's batch sizes: uneven counts
+
+
+def _classification_batches(rank):
+    rng = np.random.RandomState(100 + rank)
+    out = []
+    for n in ROWS[rank]:
+        x = rng.randn(n, C).astype(np.float32)
+        e = np.exp(x - x.max(1, keepdims=True))
+        out.append((torch.from_numpy((e / e.sum(1, keepdims=True)).astype(np.float32)),
+                    torch.from_numpy(rng.randint(0, C, n).astype(np.int32)),
+                    torch.from_numpy(rng.randint(0, 3, n).astype(np.int32))))
+    return out
+
+
+def _value_batches(rank):
+    rng = np.random.RandomState(200 + rank)
+    return [(torch.from_numpy((rng.randint(-64, 64, n) / 8).astype(np.float32)),
+             torch.from_numpy((rng.randint(1, 16, n) / 8).astype(np.float32))) for n in ROWS[rank]]
+
+
+def _classification(list_layout="padded"):
+    kw = dict(device="cpu")
+    return P.MetricCollection({
+        "acc": P.MulticlassAccuracy(num_classes=C, average="micro", **kw),
+        "f1": P.MulticlassF1Score(num_classes=C, average="macro", **kw),
+        "auroc": P.MulticlassAUROC(num_classes=C, thresholds=16, **kw),
+        "exact": P.MulticlassAUROC(num_classes=C, list_layout=list_layout, **kw),
+    })
+
+
+def _aggregation():
+    return P.MetricCollection({"sum": P.SumMetric(device="cpu"), "mean": P.MeanMetric(device="cpu"),
+                               "max": P.MaxMetric(device="cpu"), "min": P.MinMetric(device="cpu"),
+                               "cat": P.CatMetric(device="cpu")})
+
+
+def _feed(rank, cls_metrics, agg, fairness, rank0_only):
+    """Rank ``rank``'s updates; ``rank0_only`` metrics get rows on rank 0
+    alone, and the aggregators' CatMetric none on rank 1."""
+    for p, t, g in _classification_batches(rank):
+        for m in cls_metrics:
+            m.update(p, t)
+        fairness.update(p[:, 1], (t == 1).to(torch.int32), g)
+        if rank == 0:
+            rank0_only.update(p, t)
+    for v, w in _value_batches(rank):
+        for name, m in agg.items(keep_base=True):
+            if name == "mean":
+                m.update(v, w)
+            elif name != "cat" or rank == 0:
+                m.update(v)
+
+
+def _reference_metric_run():
+    cls_metrics = [_classification(), _classification("list")]
+    agg, fairness = _aggregation(), P.BinaryFairness(num_groups=3, device="cpu")
+    rank0_only = P.MulticlassAUROC(num_classes=C, device="cpu")
+    for r in range(WORLD):
+        _feed(r, cls_metrics, agg, fairness, rank0_only)
+    return cls_metrics, agg, fairness, rank0_only
+
+
+# ---------------------------------------------------------------------------
+# the cases each rank runs
+# ---------------------------------------------------------------------------
+
+def _case_metric_sync(rank):
+    """Metric.sync and compute through the default backend (HostSync)."""
+    cls_metrics = [_classification(), _classification("list")]
+    agg, fairness = _aggregation(), P.BinaryFairness(num_groups=3, device="cpu")
+    rank0_only = P.MulticlassAUROC(num_classes=C, device="cpu")
+    _feed(rank, cls_metrics, agg, fairness, rank0_only)
+    members = {f"cls{i}.{k}": m for i, coll in enumerate(cls_metrics) for k, m in coll.items(keep_base=True)}
+    members.update({f"agg.{k}": m for k, m in agg.items(keep_base=True)})
+    members.update({"fairness": fairness, "rank0_only": rank0_only})
+    out = {"backend": type(default_sync_backend()).__name__,
+           "metric_backend": type(fairness.sync_backend).__name__, "states": {}, "values": {}, "collectives": {}}
+    for name, m in members.items():
+        reset_wire_stats()
+        m.sync()
+        out["collectives"][name] = wire_stats()["last_sync"]["collectives_issued"]
+        out["states"][name] = state_to_numpy(m)
+        m.unsync()
+        value = m.compute()
+        out["values"][name] = {k: v.numpy() for k, v in value.items()} if isinstance(value, dict) else value.numpy()
+    return out
+
+
+def _case_reduce_state(rank):
+    """The pure route: MetricCollection.reduce_state under both gather modes."""
+    cls, agg = _classification(), _aggregation()
+    cls_state, agg_state = cls.init_state(), agg.init_state()
+    for p, t, _ in _classification_batches(rank):
+        cls_state = cls.update_state(cls_state, p, t)
+    for v, w in _value_batches(rank):
+        agg_state = {k: (agg[k].update_state(s, v, w) if k == "mean" else
+                         s if (k == "cat" and rank == 1) else agg[k].update_state(s, v))
+                     for k, s in agg_state.items()}
+    out = {}
+    for gather in ("all_gather", "psum"):
+        with use_policy(SyncPolicy(gather=gather)):
+            reset_wire_stats()
+            reduced_cls = cls.reduce_state(cls_state)
+            cls_collectives = wire_stats()["last_sync"]["collectives_issued"]
+            reset_wire_stats()
+            reduced_agg = agg.reduce_state(agg_state)
+            agg_collectives = wire_stats()["last_sync"]["collectives_issued"]
+        out[gather] = {"cls": state_to_numpy(reduced_cls), "agg": state_to_numpy(reduced_agg),
+                       "cls_values": {k: v.numpy() for k, v in cls.compute_state(reduced_cls).items()},
+                       "shared": reduced_cls["acc"] is reduced_cls["f1"],
+                       "collectives": (cls_collectives, agg_collectives)}
+    # one member's pure state, and a MetricState in, MetricState out
+    exact = cls["exact"]
+    exact.load_state({k: list(v) for k, v in cls_state["exact"].items()})
+    synced = reduce_state_in_graph(exact.as_state())
+    out["metric_state"] = (type(synced).__name__, state_to_numpy(dict(synced)))
+    return out
+
+
+def _case_options(rank):
+    """dist_sync_on_step, all_gather_object, the watchdog thread, NONE and
+    MEAN/MAX/MIN leaves, the list layout's cat gather, -0.0 and bool bytes,
+    and the quantized policy's refusal."""
+    out = {}
+    step = P.SumMetric(dist_sync_on_step=True, device="cpu")
+    out["step"] = float(step(torch.tensor([1.0, 2.0]) * (10 ** rank)))
+    out["step_local"] = float(step.compute_state(step.metric_state))
+    backend = HostSync(timeout_s=30.0)
+    out["objects"] = backend.all_gather_object([{"rank": rank}] * (rank + 1))
+    backend.recovery_barrier()
+    out["poisoned"] = backend.poisoned
+    x = torch.tensor([-0.0, float("nan"), 1.5, -2.0] if rank == 0 else [0.0, float("nan"), -1.5, 2.0])
+    flags = torch.tensor([True, rank == 0, False])
+    state = {"none": x, "mean": x[2:], "max": x[2:], "min": x[2:], "flags": flags, "ints": torch.arange(3) + rank}
+    reds = {"none": Reduction.NONE, "mean": Reduction.MEAN, "max": Reduction.MAX, "min": Reduction.MIN,
+            "flags": Reduction.NONE, "ints": Reduction.MEAN}
+    out["reduced"] = {g: {k: v.numpy() for k, v in reduce_state_in_graph(state, reds, policy=SyncPolicy(gather=g)).items()}
+                      for g in ("all_gather", "psum")}
+    out["scatter"] = reduce_tensor_in_graph(torch.arange(10, dtype=torch.int32) * (rank + 1), Reduction.SUM,
+                                            policy=SyncPolicy(reduce_scatter_threshold=4)).numpy()
+    out["cat_tensor"] = backend.sync_tensor(torch.arange(3 * rank, dtype=torch.int64).reshape(rank, 3), Reduction.CAT)
+    listed = P.CatMetric(list_layout="list", device="cpu")
+    if rank == 1:
+        listed.update(torch.tensor([0.5, 1.5]))
+        listed.update(torch.tensor([2.5]))
+    out["listed"] = listed.compute().numpy()
+    quantized = P.SumMetric(device="cpu", sync_policy=SyncPolicy(quantize_bits=8))
+    quantized.update(torch.tensor([1.0]))
+    try:
+        quantized.compute()
+    except NotImplementedError as e:
+        out["quantized"] = str(e)
+    try:
+        reduce_state_in_graph({"a": torch.ones(2)}, {"a": Reduction.SUM}, policy=SyncPolicy(quantize_bits=16))
+    except NotImplementedError as e:
+        out["quantized_pure"] = str(e)
+    dist.barrier()
+    return out
+
+
+CASES = {"metric_sync": _case_metric_sync, "reduce_state": _case_reduce_state, "options": _case_options}
+
+
+def _worker(rank, case, init_file, out_dir):
+    import pathlib
+
+    out_dir = pathlib.Path(out_dir)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=WORLD, rank=rank,
+                                timeout=datetime.timedelta(seconds=60))
+        torch.save(CASES[case](rank), out_dir / f"rank{rank}.pt")
+    except BaseException:
+        (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(case, tmp_path):
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_worker, args=(r, case, str(tmp_path / "init"), str(tmp_path)), daemon=True)
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    errors = [f.read_text() for f in sorted(tmp_path.glob("rank*.err"))]
+    assert not errors, "\n".join(errors)
+    assert not hung, f"{len(hung)} rank(s) still running after {DEADLINE_S} s"
+    assert [p.exitcode for p in procs] == [0] * WORLD
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+
+
+def _assert_tree_equal(got, want, where=""):
+    if isinstance(want, dict):
+        assert set(got) == set(want), where
+        for k in want:
+            _assert_tree_equal(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        got_rows = np.concatenate(got) if len(got) else np.zeros(0)
+        want_rows = np.concatenate(want) if len(want) else np.zeros(0)
+        _assert_tree_equal(got_rows, want_rows, where)
+    else:
+        got, want = np.asarray(got), np.asarray(want)
+        assert got.dtype == want.dtype and got.shape == want.shape, (where, got.dtype, want.dtype, got.shape)
+        np.testing.assert_array_equal(got, want, err_msg=where)
+
+
+def test_metric_sync_through_hostsync_equals_one_process(tmp_path):
+    ranks = _run("metric_sync", tmp_path)
+    cls_metrics, agg, fairness, rank0_only = _reference_metric_run()
+    members = {f"cls{i}.{k}": m for i, coll in enumerate(cls_metrics) for k, m in coll.items(keep_base=True)}
+    members.update({f"agg.{k}": m for k, m in agg.items(keep_base=True)})
+    members.update({"fairness": fairness, "rank0_only": rank0_only})
+    for got in ranks:
+        assert got["backend"] == "HostSync" and got["metric_backend"] == "HostSync"
+        for name, m in members.items():
+            _assert_tree_equal(got["states"][name], state_to_numpy(m), name)
+            value = m.compute()
+            want = {k: v.numpy() for k, v in value.items()} if isinstance(value, dict) else value.numpy()
+            _assert_tree_equal(got["values"][name], want, name)
+            # one collective per (Reduction, dtype) bucket of fixed-shape
+            # states and one per cat state
+            buckets = {(m._reductions[k], m._defaults[k].dtype) for k in m._defaults if k not in m._list_states}
+            assert got["collectives"][name] == len(buckets) + len(m._list_states), name
+
+
+def test_collection_reduce_state_equals_one_process(tmp_path):
+    ranks = _run("reduce_state", tmp_path)
+    cls, agg = _classification(), _aggregation()
+    cls_state, agg_state = cls.init_state(), agg.init_state()
+    for r in range(WORLD):
+        for p, t, _ in _classification_batches(r):
+            cls_state = cls.update_state(cls_state, p, t)
+        for v, w in _value_batches(r):
+            agg_state = {k: (agg[k].update_state(s, v, w) if k == "mean" else
+                             s if (k == "cat" and r == 1) else agg[k].update_state(s, v))
+                         for k, s in agg_state.items()}
+    want_values = {k: v.numpy() for k, v in cls.compute_state(cls_state).items()}
+    for got in ranks:
+        for gather in ("all_gather", "psum"):
+            run = got[gather]
+            _assert_tree_equal(run["cls"], state_to_numpy(cls_state), f"{gather} cls")
+            _assert_tree_equal(run["agg"], state_to_numpy(agg_state), f"{gather} agg")
+            _assert_tree_equal(run["cls_values"], want_values, f"{gather} values")
+            assert run["shared"]
+            # cls: (SUM, int32) for the stat scores and the binned curve, one
+            # exchange of cat row counts, one gather each for float32 preds
+            # and int32 targets; agg: (SUM, f32), (MAX, f32), (MIN, f32), one
+            # exchange and one float32 gather
+            assert run["collectives"] == (4, 5)
+        assert got["metric_state"][0] == "MetricState"
+        _assert_tree_equal(got["metric_state"][1], state_to_numpy(cls_state["exact"]), "metric_state")
+
+
+def test_sync_options_over_two_processes(tmp_path):
+    r0, r1 = _run("options", tmp_path)
+    for got in (r0, r1):
+        assert got["step"] == 33.0
+        assert got["objects"] == [[{"rank": 0}], [{"rank": 1}, {"rank": 1}]] and not got["poisoned"]
+        want = {"none": np.array([[-0.0, np.nan, 1.5, -2.0], [0.0, np.nan, -1.5, 2.0]], np.float32), "mean": np.array([0.0, 0.0], np.float32),
+                "max": np.array([1.5, 2.0], np.float32), "min": np.array([-1.5, -2.0], np.float32),
+                "flags": np.array([[True, True, False], [True, False, False]]),
+                "ints": np.array([0.5, 1.5, 2.5], np.float32)}
+        for gather in ("all_gather", "psum"):
+            reduced = got["reduced"][gather]
+            for k, v in want.items():
+                assert reduced[k].dtype == v.dtype, k
+                np.testing.assert_array_equal(reduced[k].view(np.uint8), v.view(np.uint8), err_msg=k)  # bitwise
+        np.testing.assert_array_equal(got["scatter"], np.arange(10, dtype=np.int32) * 3)
+        assert torch.equal(got["cat_tensor"], torch.arange(3, dtype=torch.int64).reshape(1, 3))
+        np.testing.assert_array_equal(got["listed"], np.array([0.5, 1.5, 2.5], np.float32))
+        assert "A13" in got["quantized"] and "A13" in got["quantized_pure"]
+    assert (r0["step_local"], r1["step_local"]) == (3.0, 30.0)

@@ -127,6 +127,46 @@ def test_multiclass_stat_consumers_top_k_match_jax(metric, average):
     _assert_close(pm.compute(), jm.compute())
 
 
+def _tied_batches(seed):
+    """Scores from {0, .25, .5, .75} with NaN and both signed zeros: most rows
+    hold ties, so the top-k picks depend on the tie order."""
+    rng = np.random.default_rng(seed)
+    values = np.array([0.0, 0.25, 0.5, 0.75, np.nan, -0.0, 0.0], np.float32)
+    return [(rng.choice(values, size=(N, C)).astype(np.float32), rng.integers(0, C, N).astype(np.int32))
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("metric", [*METRICS, "stat_scores", "accuracy", "f1"])
+@pytest.mark.parametrize("top_k", [2, 3])
+@pytest.mark.parametrize("average", ["micro", "macro", "none"])
+def test_multiclass_top_k_ties_match_jax_bitwise(metric, top_k, average):
+    """``select_topk`` orders as ``lax.top_k``: the lower index first on ties,
+    -0.0 below +0.0, NaN above everything."""
+    name = {"stat_scores": "StatScores", "accuracy": "Accuracy", "f1": "F1Score"}.get(metric) or CLASS_NAMES[metric]
+    classes = getattr(J, "Multiclass" + name), getattr(P, "Multiclass" + name)
+    batches = _tied_batches(1)
+    jm, pm = _run_both(*classes, dict(num_classes=C, average=average, top_k=top_k), batches)
+    _assert_states_bitwise(jm, pm)
+    np.testing.assert_array_equal(np.asarray(pm.compute()), np.asarray(jm.compute()))
+
+
+@pytest.mark.parametrize("top_k", [2, 3])
+def test_top_k_ties_at_the_recorded_fault_input_match_jax(top_k):
+    """(256, 10) scores from {0, .25, .5, .75} drawn with ``default_rng(1)``:
+    the JAX package gives accuracy 0.20110 at top_k=2 and 0.30236 at 3;
+    ``torch.topk`` gave 0.20596 and 0.31244."""
+    rng = np.random.default_rng(1)
+    p = rng.choice(np.array([0, 0.25, 0.5, 0.75], np.float32), size=(256, 10)).astype(np.float32)
+    t = rng.integers(0, 10, 256).astype(np.int32)
+    want = np.asarray(JF.multiclass_stat_scores(jnp.asarray(p), jnp.asarray(t), 10, top_k=top_k, average=None))
+    got = PF.multiclass_stat_scores(_t(p), _t(t), 10, top_k=top_k, average=None).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)  # the (class, stat) counts, bitwise
+    accuracy = PF.multiclass_accuracy(_t(p), _t(t), 10, top_k=top_k)
+    _assert_close(accuracy, JF.multiclass_accuracy(jnp.asarray(p), jnp.asarray(t), 10, top_k=top_k))
+    assert round(float(accuracy), 5) == {2: 0.2011, 3: 0.30236}[top_k]
+
+
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("average", ["micro", "macro", "weighted", "none"])
 @pytest.mark.parametrize("ignore_index", [None, -1])

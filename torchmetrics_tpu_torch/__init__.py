@@ -7,6 +7,7 @@ of the classification path is a hand-written CUDA weighted bincount
 (``ops.weighted_bincount``). See README.md, "PyTorch/CUDA port".
 """
 from . import functional
+from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from .buffers import CatBuffer, CatLayoutError
 from .classification import *  # noqa: F401,F403
 from .classification import __all__ as _classification_all
@@ -21,11 +22,16 @@ __all__ = [
     *_classification_all,
     "CatBuffer",
     "CatLayoutError",
+    "CatMetric",
+    "MaxMetric",
+    "MeanMetric",
     "Metric",
     "MetricCollection",
     "MetricState",
+    "MinMetric",
     "NoSync",
     "Reduction",
+    "SumMetric",
     "SyncBackend",
     "functional",
     "state_from_numpy",

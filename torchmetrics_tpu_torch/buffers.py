@@ -17,8 +17,9 @@ Snapshots are copy-on-write: ``snapshot()`` aliases the tensor and marks
 both sides unowned; the next append on either side copies first, so a
 cached snapshot (a forward's full-state restore, a collection member that
 left its group) never sees the other's later rows overwrite its garbage
-region. Not ported: ``ShardedCatBuffer`` and the mesh helpers (a multi-card
-layout waits for ``torch.distributed`` sync).
+region. A sync ships ``buffer`` and ``count`` (``HostSync.sync_cat_padded``)
+and takes the gathered rows back with :meth:`CatBuffer.from_rows`. Not
+ported: ``ShardedCatBuffer`` and the mesh helpers (ROADMAP A13).
 """
 from typing import Any, Optional, Sequence, Tuple
 
@@ -98,6 +99,14 @@ class CatBuffer:
             buf.append(r)
         return buf
 
+    @classmethod
+    def from_rows(cls, rows: Tensor) -> "CatBuffer":
+        """A buffer over gathered rows (a sync's result), without a copy: its
+        capacity is the row count, and the first append copies (the rows
+        are not its own) into a power-of-two buffer."""
+        rows = _row_form(rows)
+        return cls(rows, rows.shape[0], owns=False)
+
     # ------------------------------------------------------------ properties
 
     @property
@@ -153,6 +162,11 @@ class CatBuffer:
     def materialize(self) -> Tensor:
         """The valid rows ``buffer[:count]``, a view (never the raw buffer)."""
         return self.buffer[: self.count]
+
+    def rows(self, start: int, stop: int) -> Tensor:
+        """Rows ``[start, stop)`` of the valid region; ``stop`` is clamped to
+        ``count``, so no padding row reaches a sync."""
+        return self.buffer[start : min(stop, self.count)]
 
     def snapshot(self) -> "CatBuffer":
         """An O(1) copy sharing the tensor; the next append on either side

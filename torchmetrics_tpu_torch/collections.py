@@ -28,6 +28,9 @@ import torch
 
 from .buffers import CatBuffer
 from .metric import Metric, _filter_kwargs
+from .parallel.reduction import Reduction
+from .parallel.strategies import SyncPolicy
+from .parallel.sync import reduce_state_in_graph
 
 
 def _tree_equal(a: Any, b: Any) -> bool:
@@ -246,7 +249,9 @@ class MetricCollection(torch.nn.Module):
         self._groups_checked = True
 
     def compute(self) -> Dict[str, Any]:
-        """Parity: reference ``collections.py:314-359``."""
+        """Parity: reference ``collections.py:314-359``. Each member syncs
+        on its own compute (JAX ``_compute_and_reduce``), so every rank
+        issues the members' collectives in the collection's order."""
         out: Dict[str, Any] = {}
         for name, m in self._metrics.items():
             value = m.compute()
@@ -380,3 +385,46 @@ class MetricCollection(torch.nn.Module):
 
     def compute_state(self, states: Dict[str, Any]) -> Dict[str, Any]:
         return {self._set_name(name): m.compute_state(states[name]) for name, m in self._metrics.items()}
+
+    def reduce_state(self, states: Dict[str, Any], group: Any = None,
+                     policy: Optional[SyncPolicy] = None) -> Dict[str, Any]:
+        """Sync the pure-API states of every member across ``group`` (the
+        default process group when None), bucketed across the whole
+        collection (JAX ``collections.py:660-709``).
+
+        Every distinct member state goes into one flat dict under
+        index-prefixed keys (member names may collide once prefixed) for a
+        single :func:`reduce_state_in_graph` call: one collective per
+        ``(Reduction, dtype)`` bucket for the whole collection. Members of
+        one signature group (equal ``update_signature`` and the same state
+        tensors, as in :meth:`_grouped_apply`) send one state and share the
+        result.
+        """
+        flat_state: Dict[str, Any] = {}
+        flat_reds: Dict[str, Any] = {}
+        owners: Dict[str, str] = {}  # member -> member whose result it shares
+        flat_keys: Dict[str, List[Tuple[str, str]]] = {}
+        shared: Dict[Any, Tuple[tuple, str]] = {}
+        for idx, (name, m) in enumerate(self._metrics.items()):
+            sig = m.update_signature
+            if sig is not None:
+                leaf_ids = _leaf_ids(states[name])
+                cached = shared.get(sig)
+                if cached is not None and cached[0] == leaf_ids:
+                    owners[name] = cached[1]
+                    continue
+                shared[sig] = (leaf_ids, name)
+            owners[name] = name
+            keys = []
+            for k, v in states[name].items():
+                fk = f"{idx}~{k}"
+                flat_state[fk] = v
+                flat_reds[fk] = m._reductions.get(k, Reduction.NONE)
+                keys.append((k, fk))
+            flat_keys[name] = keys
+        reduced = reduce_state_in_graph(flat_state, flat_reds, group, policy)
+        out: Dict[str, Any] = {}
+        for name in self._metrics:
+            owner = owners[name]
+            out[name] = out[owner] if owner != name else {k: reduced[fk] for k, fk in flat_keys[name]}
+        return out

@@ -19,9 +19,13 @@ Device: a metric lives on ``torch.device("cuda")`` unless the caller passes
 ``device=``; with no card and no ``device=`` the constructor raises. Inputs
 on another device raise: the port makes no hidden copies.
 
-Not ported in this slice: the XLA executable cache and ``_global_jit``
-(:133-345), ``buffered``/``windowed``/``decayed``, the sharded cat layout,
-quantized sync, spans/ledger/registry, ``plot`` and ``CompositionalMetric``.
+Sync: ``sync``/``compute`` gather through the metric's ``SyncBackend``
+(``HostSync`` over ``torch.distributed`` when the default group has more
+than one rank), and :meth:`Metric.reduce_state` syncs a pure-API state.
+
+Not ported yet: the XLA executable cache and ``_global_jit`` (:133-345),
+``buffered``/``windowed``/``decayed``, the sharded cat layout, quantized
+and elastic sync, spans/ledger/registry, ``plot`` and ``CompositionalMetric``.
 """
 from __future__ import annotations
 
@@ -34,8 +38,9 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Unio
 import torch
 
 from .buffers import CatBuffer, CatLayoutError
-from .parallel.reduction import Reduction, resolve_reduction
-from .parallel.sync import SyncBackend, default_sync_backend
+from .parallel.reduction import ELEMENTWISE_REDUCTIONS, Reduction, resolve_reduction
+from .parallel.strategies import SyncPolicy, begin_sync, default_policy, refuse_quantized
+from .parallel.sync import SyncBackend, default_sync_backend, reduce_state_in_graph
 from .state import MetricState
 from .utils.data import dim_zero_cat
 from .utils.exceptions import TorchMetricsUserError
@@ -111,7 +116,10 @@ class Metric(torch.nn.Module):
         dist_sync_on_step: sync state every ``forward``.
         sync_on_compute: sync before ``compute`` (default True).
         compute_with_cache: cache ``compute`` until the next update.
-        sync_backend: a :class:`SyncBackend`; default ``NoSync`` in one process.
+        sync_backend: a :class:`SyncBackend`; by default ``HostSync`` when the
+            default process group has more than one rank, else ``NoSync``.
+        sync_policy: the :class:`SyncPolicy` of this metric's syncs (the
+            process default when None).
         list_layout: storage of ``cat`` states: ``"padded"`` (default) keeps
             each in a power-of-two :class:`CatBuffer`; ``"list"`` keeps one
             tensor per update, the bitwise-equal oracle. A state whose
@@ -165,6 +173,7 @@ class Metric(torch.nn.Module):
         sync_on_compute: bool = True,
         compute_with_cache: bool = True,
         sync_backend: Optional[SyncBackend] = None,
+        sync_policy: Optional[SyncPolicy] = None,
         list_layout: str = "padded",
         **kwargs: Any,
     ) -> None:
@@ -180,11 +189,13 @@ class Metric(torch.nn.Module):
         self._reductions: Dict[str, Union[Reduction, Callable]] = {}
         self._persistent: Dict[str, bool] = {}
         self._list_states: set = set()
+        self._cat_meta: Dict[str, Tuple[Optional[torch.dtype], Optional[Tuple[int, ...]]]] = {}
 
         self.dist_sync_on_step = dist_sync_on_step
         self.sync_on_compute = sync_on_compute
         self.compute_with_cache = compute_with_cache
         self._sync_backend = sync_backend
+        self._sync_policy = sync_policy
 
         self._update_count = 0
         self._computed: Any = None
@@ -213,10 +224,17 @@ class Metric(torch.nn.Module):
         default: Union[Tensor, list, float, int],
         dist_reduce_fx: Union[str, Callable, None] = None,
         persistent: bool = False,
+        dtype: Optional[torch.dtype] = None,
     ) -> None:
         """Register a state: a tensor (a buffer) or an empty list (a ``cat``
         state whose tensors concatenate along dim 0). Parity: reference
-        ``metric.py:195-272``."""
+        ``metric.py:195-272``.
+
+        ``dtype`` declares a list state's element dtype up front, so the
+        state concatenates to a 0-row tensor of that dtype while it is
+        empty; the first append also records it, with the trailing shape
+        (JAX ``metric.py:516-540``).
+        """
         if not name.isidentifier():
             raise ValueError(f"state name must be a valid identifier, got {name!r}")
         red = resolve_reduction(dist_reduce_fx)
@@ -224,9 +242,13 @@ class Metric(torch.nn.Module):
             if default:
                 raise ValueError("list state default must be an empty list")
             self._list_states.add(name)
+            if dtype is not None:
+                self._cat_meta[name] = (dtype, None)
             self._defaults[name] = []
             setattr(self, name, [])
         else:
+            if dtype is not None:
+                raise ValueError("dtype declaration is only supported for list states")
             value = _as_state_tensor(default, self._device)
             self._defaults[name] = value
             self.register_buffer(name, value.clone(), persistent=persistent)
@@ -440,6 +462,12 @@ class Metric(torch.nn.Module):
         lists = {k: _increments(state.get(k, ())) for k in self._list_states}
         return _squeeze_if_scalar(self._pure_compute(tensors, lists))
 
+    def reduce_state(self, state: StateDict, group: Any = None, policy: Optional[SyncPolicy] = None) -> StateDict:
+        """Sync a pure-API state across ``group`` (the default process group
+        when None) with ``torch.distributed`` collectives; ``policy`` (or the
+        ``sync_policy`` constructor kwarg) selects the wire strategy."""
+        return reduce_state_in_graph(state, self._reductions, group, policy or self._sync_policy)
+
     def merge_states(self, states: Sequence[StateDict]) -> StateDict:
         """Merge per-rank state dicts by reduction tag (host-side DDP emulation)."""
         out: StateDict = {}
@@ -518,7 +546,11 @@ class Metric(torch.nn.Module):
         padded layout a state still held as a list (empty, or loaded from a
         ``state_dict``) becomes a :class:`CatBuffer` at this append; an
         increment of another trailing shape moves the state to the list
-        layout for good (JAX ``metric.py:1038-1060``)."""
+        layout for good (JAX ``metric.py:1038-1060``). Each tensor append
+        records the state's dtype and trailing shape for :meth:`_precat`
+        (an object list state holds other things)."""
+        if isinstance(inc, torch.Tensor):
+            self._cat_meta[name] = (inc.dtype, tuple(inc.shape[1:]))
         target = self.__dict__[name]
         if self._uses_padded(name):
             try:
@@ -579,28 +611,93 @@ class Metric(torch.nn.Module):
 
     def sync(self, should_sync: bool = True, sync_backend: Optional[SyncBackend] = None) -> None:
         """Replace local states with group-reduced states, caching the local
-        ones. Parity: reference ``metric.py:490-532``; list states are
-        concatenated first so one gather happens per state."""
+        ones. Parity: reference ``metric.py:490-532``, JAX
+        ``metric.py:1203-1255``. The gathers fill a scratch dict that is
+        installed only when all of them succeeded, so a failed one (a
+        ``HostSync`` timeout) leaves the local state as it was."""
         if self._is_synced:
             raise TorchMetricsUserError("The Metric has already been synced.")
         backend = sync_backend or self.sync_backend
         if not should_sync or not backend.is_available():
             return
         cache = self._snapshot_state()
-        synced = {name: backend.sync_tensor(self._precat(name), self._reductions[name]) for name in self._defaults}
+        begin_sync()
+        synced = self._gather_synced(backend)
         self._cache = cache
         for name, value in synced.items():
             if name in self._list_states:
-                self.__dict__[name] = [value]
+                self.__dict__[name] = value
             else:
                 self._buffers[name] = value
         self._is_synced = True
 
+    def _gather_synced(self, backend: SyncBackend) -> StateDict:
+        """Every state gathered through ``backend``, into a new dict (JAX
+        ``metric.py:1293-1394``):
+
+        - object list states (``dist_reduce_fx=None``): each rank's list
+          through ``all_gather_object``, extended in rank order;
+        - fixed-shape elementwise states: bucketed by ``(Reduction, dtype)``,
+          one ``sync_tensor`` per bucket on the flattened concatenation;
+        - padded cat states: ``sync_cat_padded(buffer, count)`` when the
+          backend has it (the branch follows the layout, not the value, so
+          a rank with no rows issues the same collectives);
+        - every other state: one ``sync_tensor`` of its concatenation.
+
+        States are visited in sorted name order, the same on every rank.
+        """
+        refuse_quantized(self._sync_policy or default_policy())
+        synced: StateDict = {}
+        addressed = hasattr(backend, "set_current")  # FakeSync's group addressing
+        buckets: Dict[Tuple[Any, torch.dtype], list] = {}
+        for name in sorted(self._defaults):
+            red = self._reductions[name]
+            value = self.__dict__[name] if name in self._list_states else self._buffers[name]
+            if name in self._list_states and red == Reduction.NONE:
+                if addressed:
+                    backend.set_current(name)
+                synced[name] = [e for rank_list in backend.all_gather_object(list(value)) for e in rank_list]
+            elif name not in self._list_states and red in ELEMENTWISE_REDUCTIONS:
+                buckets.setdefault((red, value.dtype), []).append(name)
+            elif red == Reduction.CAT and name in self._list_states and self._uses_padded(name) \
+                    and hasattr(backend, "sync_cat_padded"):
+                if addressed:
+                    backend.set_current(name)
+                if not isinstance(value, CatBuffer):  # still a list: empty, or loaded from a state_dict
+                    value = CatBuffer.from_rows(self._precat(name))
+                synced[name] = CatBuffer.from_rows(backend.sync_cat_padded(value.buffer, value.count))
+            else:
+                if addressed:
+                    backend.set_current(name)
+                rows = backend.sync_tensor(self._precat(name), red)
+                synced[name] = ([rows] if len(rows) else []) if name in self._list_states else rows
+        for (red, _), names in buckets.items():
+            values = [self._buffers[n] for n in names]
+            if addressed:
+                backend.set_current(names[0] if len(names) == 1 else tuple(names))
+            if len(values) == 1:
+                synced[names[0]] = backend.sync_tensor(values[0], red)
+                continue
+            reduced = backend.sync_tensor(torch.cat([v.reshape(-1) for v in values]), red)
+            offset = 0
+            for n, v in zip(names, values):
+                synced[n] = reduced[offset : offset + v.numel()].reshape(v.shape)
+                offset += v.numel()
+        return synced
+
     def _precat(self, name: str) -> Tensor:
         if name in self._list_states:
             value = self.__dict__[name]
-            return dim_zero_cat(value) if value else torch.zeros(0, device=self._device)
+            return dim_zero_cat(value) if len(value) else self._empty_cat(name)
         return self._buffers[name]
+
+    def _empty_cat(self, name: str) -> Tensor:
+        """The 0-row concatenation of an empty cat state in the dtype and
+        trailing shape recorded for it (float32 and no trailing dims when
+        none is), so a rank with no rows sends the group its real layout
+        (JAX ``metric.py:1404-1411``). The record survives ``reset``."""
+        dtype, trailing = self._cat_meta.get(name, (None, None))
+        return torch.zeros((0, *(trailing or ())), dtype=dtype or torch.float32, device=self._device)
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore cached local states. Parity: reference ``metric.py:534-553``."""
@@ -677,6 +774,8 @@ class Metric(torch.nn.Module):
         """Device/dtype moves reach the defaults and list states too."""
         super()._apply(fn, recurse)
         self._defaults = {k: v if isinstance(v, list) else fn(v) for k, v in self._defaults.items()}
+        self._cat_meta = {k: (dtype if dtype is None else fn(torch.zeros(0, dtype=dtype)).dtype, trailing)
+                          for k, (dtype, trailing) in self._cat_meta.items()}
         for k in self._list_states:
             self.__dict__[k] = _apply_cat(self.__dict__[k], fn)
         if self._cache is not None:

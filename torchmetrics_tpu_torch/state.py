@@ -4,7 +4,9 @@ Counterpart of ``torchmetrics_tpu/state.py`` ``MetricState``. The JAX class
 is also a pytree so that a state travels through ``jit``; PyTorch runs
 eagerly, so here it is only a ``MutableMapping`` over the leaf dict that
 carries, beside the leaves, each leaf's :class:`Reduction` tag and the set
-of list (``cat``) states, for layers that read a state without its metric.
+of list (``cat``) states, for layers that read a state without its metric:
+``reduce_state_in_graph(state)`` syncs one with no ``reductions`` mapping and
+gives a MetricState back.
 """
 from collections.abc import MutableMapping
 from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Union

@@ -80,15 +80,35 @@ def to_onehot(label_tensor: Tensor, num_classes: int) -> Tensor:
     return torch.movedim(oh, -1, 1) if label_tensor.ndim >= 1 else oh
 
 
+_SAME_WIDTH_INT = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                   torch.float64: torch.int64}
+
+
+def _total_order_key(x: Tensor) -> Tensor:
+    """Integers that order as IEEE 754's total order orders ``x``:
+    -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN. A float's bits,
+    read as a same-width integer, order the non-negative floats already;
+    flipping every bit but the sign reverses the negative ones."""
+    if not x.is_floating_point():
+        return x
+    int_type = _SAME_WIDTH_INT[x.dtype]
+    bits = x.view(int_type)
+    return torch.where(bits < 0, bits ^ torch.iinfo(int_type).max, bits)
+
+
 def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     """int32 mask of the top-k entries along ``dim``.
 
-    Ties go to the lowest index for ``topk=1`` in both packages; for
-    ``topk > 1`` ``torch.topk`` and ``lax.top_k`` may break ties differently.
+    The order is ``lax.top_k``'s, so both packages pick the same entries: the
+    total order of the floats (NaN above +inf, -0.0 below +0.0, a NaN with
+    its sign bit set below -inf), and on ties the lower index first (a
+    stable descending sort). ``topk=1`` is an argmax, which already picks
+    the lower index of tied maxima in both packages.
     """
     if topk == 1:
         idx = torch.argmax(prob_tensor, dim=dim, keepdim=True)
     else:
-        idx = torch.topk(prob_tensor, topk, dim=dim).indices
+        order = torch.argsort(_total_order_key(prob_tensor), dim=dim, descending=True, stable=True)
+        idx = order.narrow(dim, 0, topk)
     mask = torch.zeros(prob_tensor.shape, dtype=torch.int32, device=prob_tensor.device)
     return mask.scatter_(dim, idx, 1)
