@@ -12,9 +12,9 @@ not 0 and no result line is printed:
    path's batched calls) and weighted_bincount (1-D), against the plain
    PyTorch versions on the card, at the metric path's shapes, past the
    largest cluster, at the sparse plan's shape (the ImageNet-1k confusion
-   matrix), at the group-fairness count of the Jigsaw path and at edge
-   cases; each call must launch once. Timed
-   beside the plain version, torch.bincount (a yardstick only; the package
+   matrix), at the group-fairness count of the Jigsaw path, at the
+   BootStrapper's 3 x 10 rows of the composition path and at edge
+   cases; each call must launch once. Timed beside the plain version, torch.bincount (a yardstick only; the package
    never calls it: its device time from a profiler trace, and its host
    round trip) and the memory-bandwidth bound;
 4. paths: each a MetricCollection driven through update -> compute and
@@ -72,6 +72,18 @@ not 0 and no result line is printed:
    their values are held within 1e-6 of float64 numpy definitions (exact
    AUROC and AP by sorting, hinge, ranking metrics, fairness rates from the
    counts). Every path reports its peak device memory;
+   composition: the wrappers, the composition and the online
+   metrics at bench config 2's width (C=100, batch 1,024, float32 logits),
+   200 updates as 4 epochs of 50 (see CompositionStep): a MetricTracker of
+   Accuracy + F1 + binned AUROC, a poisson and a multinomial BootStrapper
+   of 10 replicas, ClasswiseWrapper, MinMaxMetric, Running,
+   (Accuracy + F1) / 2, a MultitaskWrapper and RunningMean, WindowedMean and
+   DecayedMean of the loss; each wrapper's launches per update (1 per
+   BootStrapper update for all 10 replicas, 1 per wrapped stat-score
+   update), every state against a device="cpu" run (integer states, the
+   BootStrapper's stacked ones included, bitwise), the online updates and
+   computes under set_sync_debug_mode("error"), the profiler breakdown and
+   the peak device memory;
 5. sync_free_compute: the filled exact functions the class computes use
    (binary AUROC, multiclass AUROC and AP) at those paths' shapes, timed,
    under torch.cuda.set_sync_debug_mode("error");
@@ -96,6 +108,7 @@ not 0 and no result line is printed:
 The last lines are the kernels' record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -109,10 +122,11 @@ VALUE_TOL = 1e-6
 TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve_c1000_t64",
                "curve_c1000_t64_1d", "curve_binary_pixel_t64", "curve_multilabel_l80_t64", "past_cluster",
                "unweighted_int32", "random_f32_weights", "confmat_cityscapes", "stat_scores_cityscapes",
-               "confmat_imagenet1k", "calibration_imagenet1k", "fairness_jigsaw")
-# the cases of the confusion, calibration and fairness paths, reported beside the main one in the kernels line
+               "confmat_imagenet1k", "calibration_imagenet1k", "fairness_jigsaw", "bootstrap_c100_b10")
+# the cases of the confusion, calibration, fairness and bootstrap paths, reported beside the main one in the
+# kernels line
 SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k",
-               "fairness_jigsaw")
+               "fairness_jigsaw", "bootstrap_c100_b10")
 
 
 def emit(obj) -> None:
@@ -234,6 +248,12 @@ def kernel_cases(device):
         # group fairness over Jigsaw: one batch of 4,096 comments' tp/fp/tn/fn
         # cells (group * 4 + stat) of 9 groups, int32 counts into 36 bins
         ("fairness_jigsaw", "1d", ints((4096,), 0, 36), None, 36, True),
+        # BootStrapper's 10 replicas at bench config 2 (C=100, batch 1,024):
+        # 3 x 10 rows [correct, valid, valid] x per-sample counts over a
+        # per-row index [tgt, tgt, prd] x 10, in one call; the counts are
+        # small integers (Poisson draws), so the sums are exact
+        ("bootstrap_c100_b10", "batched", ints((3, 1024), 0, 100).repeat(10, 1),
+         mask01((30, 1024)) * torch.randint(0, 4, (30, 1024), generator=g, device=device), 100, True),
     ]
 
 
@@ -1053,6 +1073,271 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
 
 
 # ---------------------------------------------------------------------------
+# path composition: the wrappers, the composition and the online metrics
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _host_sync_raises(device):
+    """On the card, a host sync inside the block raises."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+
+
+class CompositionStep:
+    """One evaluation step of a training loop as Lightning users write it,
+    at bench config 2's width: a MetricTracker over Accuracy (micro), F1
+    (macro) and binned AUROC (T=64); a poisson and a multinomial
+    BootStrapper (10 replicas) of Accuracy and macro F1; Accuracy per class
+    (ClasswiseWrapper), its min and max (MinMaxMetric) and over the last 5
+    updates (Running); (Accuracy + F1) / 2; a MultitaskWrapper of Accuracy
+    and the mean per-sample loss; and RunningMean (window 50), WindowedMean
+    (horizon 64, 8 slots) and DecayedMean (half-life 50) of the per-step
+    loss, ``nan_strategy="ignore"`` (a NaN step is skipped), updated under
+    ``torch.cuda.set_sync_debug_mode("error")`` on the card. ``launches``
+    counts each wrapper's bincount launches."""
+
+    def __init__(self, device, num_classes: int, bootstraps: int):
+        import torch
+
+        from torchmetrics_tpu_torch import (BootStrapper, ClasswiseWrapper, DecayedMean, MeanMetric, MetricCollection,
+                                            MetricTracker, MinMaxMetric, MultitaskWrapper, Running, RunningMean,
+                                            WindowedMean)
+        from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
+
+        kw = dict(num_classes=num_classes, validate_args=False, device=device)
+        dev = dict(device=device)
+        self.device = torch.device(device)
+        self.wrappers = {
+            "tracker": MetricTracker(MetricCollection({
+                "acc": MulticlassAccuracy(average="micro", **kw), "f1": MulticlassF1Score(average="macro", **kw),
+                "auroc": MulticlassAUROC(thresholds=64, **kw)}), **dev),
+            "boot_poisson": BootStrapper(MulticlassAccuracy(**kw), num_bootstraps=bootstraps, quantile=[0.025, 0.975],
+                                         raw=True, **dev),
+            "boot_multinomial": BootStrapper(MulticlassF1Score(average="macro", **kw), num_bootstraps=bootstraps,
+                                             sampling_strategy="multinomial", quantile=[0.025, 0.975], raw=True, **dev),
+            "classwise": ClasswiseWrapper(MulticlassAccuracy(average=None, **kw), **dev),
+            "minmax": MinMaxMetric(MulticlassAccuracy(**kw), **dev),
+            "running": Running(MulticlassAccuracy(**kw), window=5, **dev),
+            "composition": (MulticlassAccuracy(**kw) + MulticlassF1Score(**kw)) / 2,
+            "multitask": MultitaskWrapper({"cls": MulticlassAccuracy(**kw), "loss": MeanMetric(**dev)}, **dev),
+        }
+        self.online = {"running_mean": RunningMean(window=50, nan_strategy="ignore", **dev),
+                       "windowed_mean": WindowedMean(horizon=64, slots=8, nan_strategy="ignore", **dev),
+                       "decayed_mean": DecayedMean(halflife=50.0, nan_strategy="ignore", **dev)}
+        self.launches = dict.fromkeys(self.wrappers, 0)
+        # host seconds in each wrapper's update (no sync: the device idles
+        # through most of an update, so this is mostly the host's own cost)
+        self.host_s = dict.fromkeys([*self.wrappers, "online"], 0.0)
+        self.wrappers["tracker"].increment()
+
+    def update(self, preds, target, loss, step_loss) -> None:
+        from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+
+        for name, m in self.wrappers.items():
+            before, t0 = weighted_bincount.launches, time.perf_counter()
+            if name == "multitask":
+                m.update({"cls": preds, "loss": loss}, {"cls": target, "loss": 1.0})
+            else:
+                m.update(preds, target)
+            self.host_s[name] += time.perf_counter() - t0
+            self.launches[name] += weighted_bincount.launches - before
+        t0 = time.perf_counter()
+        with _host_sync_raises(self.device):
+            for m in self.online.values():
+                m.update(step_loss)
+        self.host_s["online"] += time.perf_counter() - t0
+
+    def compute(self) -> dict:
+        """Every result as a flat {name: tensor} dict; the online computes
+        run under the sync check too."""
+        import torch
+
+        out = {}
+
+        def add(prefix, value):
+            if isinstance(value, dict):
+                for k, v in value.items():
+                    add(f"{prefix}.{k}", v)
+            else:
+                out[prefix] = torch.as_tensor(value)
+
+        for name, m in self.wrappers.items():
+            add(name, m.compute())
+        add("tracker_all", self.wrappers["tracker"].compute_all())
+        best, step = self.wrappers["tracker"].best_metric(return_step=True)
+        add("tracker_best", best)
+        add("tracker_best_step", step)
+        with _host_sync_raises(self.device):
+            for name, m in self.online.items():
+                add(name, m.compute())
+        return out
+
+    def states(self) -> dict:
+        from torchmetrics_tpu_torch.interop import state_to_numpy
+
+        return {name: state_to_numpy(m) for name, m in {**self.wrappers, **self.online}.items()}
+
+
+def _compare_nested(label: str, got, want, where: str = "") -> int:
+    """``got`` against ``want`` (nested numpy states): integer leaves
+    bitwise, float leaves within ``VALUE_TOL`` relative to the value above 1
+    (the card sums in another order than the CPU). Returns the number of
+    integer leaves compared."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: {where} keys {sorted(got)} differ from the CPU run's {sorted(want)}")
+        return sum(_compare_nested(label, got[k], want[k], f"{where}.{k}") for k in want)
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: {where} has {len(got)} entries, the CPU run {len(want)}")
+        return sum(_compare_nested(label, g, w, f"{where}[{i}]") for i, (g, w) in enumerate(zip(got, want)))
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: {where} is {got.dtype}{got.shape}, the CPU run's {want.dtype}{want.shape}")
+    if not np.issubdtype(want.dtype, np.floating):
+        if not (got == want).all():
+            raise AssertionError(f"{label}: integer state {where} differs from the CPU run")
+        return 1
+    err = float(np.max(np.abs(got.astype(np.float64) - want) / np.maximum(1.0, np.abs(want)))) if want.size else 0.0
+    if not err <= VALUE_TOL:
+        raise AssertionError(f"{label}: float state {where} differs from the CPU run by {err}")
+    return 0
+
+
+def _composition_inputs(g, dev, num_classes: int, batch: int, steps: int) -> tuple:
+    """Float32 logits, labels, per-sample cross-entropy and its per-step mean."""
+    import torch
+
+    logits = torch.randn(steps, batch, num_classes, generator=g, device=dev)
+    target = torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
+    loss = torch.nn.functional.cross_entropy(logits.reshape(-1, num_classes), target.reshape(-1),
+                                             reduction="none").reshape(steps, batch)
+    return logits, target, {"loss": loss, "step_loss": loss.mean(1)}
+
+
+def _drive_composition(step: CompositionStep, preds, target, extra, epochs: int, per_epoch: int) -> None:
+    for e in range(epochs):
+        if e:
+            step.wrappers["tracker"].increment()
+        for i in range(e * per_epoch, (e + 1) * per_epoch):
+            _update(step, preds, target, extra, i)
+
+
+def run_composition(card: str, dev, num_classes: int = 100, batch: int = 1024, epochs: int = 4,
+                    per_epoch: int = 50, bootstraps: int = 10) -> int:
+    """Path ``composition`` at bench config 2's width (C=100, batch 1,024,
+    float32 logits), 200 updates as 4 epochs of 50: every wrapper's
+    bincount launches per update (1 per BootStrapper update for all its
+    replicas, 1 per wrapped stat-score update, the tracker's collection 3
+    on an epoch's first update and 2 after), every state (the BootStrapper's
+    stacked int32 ones included) and value against a device="cpu" run on the
+    same inputs (integer states bitwise, floats within 1e-6 relative above
+    1), a few values against their direct definitions, the windowed and
+    decayed updates and computes under set_sync_debug_mode("error"), a
+    torch.profiler breakdown and the peak device memory. Returns the
+    launches of the driven run."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    steps = epochs * per_epoch
+    g = torch.Generator(device=dev).manual_seed(4321)
+    preds, target, extra = _composition_inputs(g, dev, num_classes, batch, steps)
+    sync()
+    warm = CompositionStep(dev, num_classes, bootstraps)  # allocator, library handles
+    for i in range(3):
+        _update(warm, preds, target, extra, i)
+    warm.compute()
+    del warm
+    sync()
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    step = CompositionStep(dev, num_classes, bootstraps)
+    weighted_bincount.launches = 0
+    t0 = time.perf_counter()
+    _drive_composition(step, preds, target, extra, epochs, per_epoch)
+    sync()
+    loop_s = time.perf_counter() - t0
+    launches = weighted_bincount.launches
+    t0 = time.perf_counter()
+    values = step.compute()
+    sync()
+    compute_s = time.perf_counter() - t0
+    computed = weighted_bincount.launches - launches
+    memory = None
+    if dev.type == "cuda":
+        memory = {"inputs_and_resident_mb": resident / 2**20, "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
+                  "peak_over_resident_mb": (torch.cuda.max_memory_allocated() - resident) / 2**20}
+    want = {name: steps for name in step.launches}
+    want["tracker"] = epochs * 3 + (steps - epochs) * 2
+    want["composition"] = 2 * steps
+    if step.launches != want or computed or launches != sum(want.values()):
+        raise AssertionError(f"composition: launches {step.launches} ({launches} in all), {computed} at compute; "
+                             f"expected {want}, none at compute")
+
+    ref = CompositionStep(torch.device("cpu"), num_classes, bootstraps)
+    preds_cpu, target_cpu, extra_cpu = _on_cpu(preds), _on_cpu(target), _on_cpu(extra)
+    _drive_composition(ref, preds_cpu, target_cpu, extra_cpu, epochs, per_epoch)
+    int_states = _compare_nested("composition", step.states(), ref.states())
+    ref_values = ref.compute()
+    if set(values) != set(ref_values):
+        raise AssertionError(f"composition: results {sorted(set(values) ^ set(ref_values))} differ in name")
+    for key, want_value in ref_values.items():
+        _check_value("composition", f"{key} against the CPU run", values[key], want_value)
+    stacked = step.wrappers["boot_poisson"].tp
+    if stacked.dtype != torch.int32 or tuple(stacked.shape) != (bootstraps, num_classes):
+        raise AssertionError(f"composition: stacked BootStrapper state {stacked.dtype}{tuple(stacked.shape)}")
+    del ref
+
+    # values against their definitions, in float64
+    last = slice((epochs - 1) * per_epoch, steps)
+    direct = {
+        "tracker.acc": (preds[last].argmax(-1) == target[last]).double().mean().item(),
+        "multitask.loss": extra["loss"].double().mean().item(),
+        "running_mean": extra["step_loss"][-50:].double().mean().item(),
+    }
+    for key, want_value in direct.items():
+        got = values[key].double().item()
+        if not abs(got - want_value) <= VALUE_TOL * max(1.0, abs(want_value)):
+            raise AssertionError(f"composition: {key} = {got}, its definition {want_value}")
+
+    breakdown = None
+    if dev.type == "cuda":
+        prof_step = CompositionStep(dev, num_classes, bootstraps)
+        _update(prof_step, preds, target, extra, 0)  # group discovery, outside the trace
+        breakdown = profile_updates(prof_step, preds, target, extra, 1, min(20, steps - 1))
+        del prof_step
+
+    emit({
+        "phase": "slice", "path": "composition", "num_classes": num_classes, "batch": batch, "epochs": epochs,
+        "steps": steps, "bootstraps": bootstraps,
+        "launches_per_update": {k: v / steps for k, v in step.launches.items()},
+        "host_ms_per_update": {k: v / steps * 1e3 for k, v in step.host_s.items()},
+        "launches": launches, "launches_per_compute": computed,
+        "stateful_updates_per_s": steps / loop_s, "stateful_ms_per_update": loop_s / steps * 1e3,
+        "compute_ms": compute_s * 1e3, "online_sync_debug_mode": "error" if dev.type == "cuda" else None,
+        "integer_states_equal_cpu": int_states, "values": {k: _summary(v) for k, v in values.items()
+                                                           if v.numel() <= 16},
+        "memory": memory, "profile": breakdown, "card": card,
+    })
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase dist_sync: state sync over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -1414,6 +1699,7 @@ def main() -> int:
         ("coco_multilabel_exact", coco_multilabel_exact_path()),
     ]
     launches = sum(run_path(label, path, card, dev) for label, path in paths)
+    launches += run_composition(card, dev)
     emit(sync_free_exact_computes(card))
     record, dist_launches = dist_sync(card)
     emit(record)

@@ -192,7 +192,33 @@ def _case_options(rank):
     return out
 
 
-CASES = {"metric_sync": _case_metric_sync, "reduce_state": _case_reduce_state, "options": _case_options}
+def _online(rank):
+    """A windowed mean, a running mean and a bootstrapped accuracy (its own
+    seed per rank: the ranks resample independently)."""
+    return {"windowed": P.WindowedMean(horizon=4, slots=2, device="cpu"),
+            "running": P.RunningMean(window=3, device="cpu"),
+            "boot": P.BootStrapper(P.MulticlassAccuracy(num_classes=C, device="cpu"), num_bootstraps=4,
+                                   seed=rank, device="cpu")}
+
+
+def _case_online(rank):
+    """Each online metric's local and synced (HostSync) states."""
+    metrics = _online(rank)
+    for (p, t, _), (v, w) in zip(_classification_batches(rank), _value_batches(rank)):
+        metrics["windowed"].update(v, w)
+        metrics["running"].update(v)
+        metrics["boot"].update(p, t)
+    out = {"local": {}, "synced": {}}
+    for name, m in metrics.items():
+        out["local"][name] = state_to_numpy(m)
+        m.sync()
+        out["synced"][name] = state_to_numpy(m)
+        m.unsync()
+    return out
+
+
+CASES = {"metric_sync": _case_metric_sync, "reduce_state": _case_reduce_state, "options": _case_options,
+         "online": _case_online}
 
 
 def _worker(rank, case, init_file, out_dir):
@@ -312,3 +338,20 @@ def test_sync_options_over_two_processes(tmp_path):
         np.testing.assert_array_equal(got["listed"], np.array([0.5, 1.5, 2.5], np.float32))
         assert "A13" in got["quantized"] and "A13" in got["quantized_pure"]
     assert (r0["step_local"], r1["step_local"]) == (3.0, 30.0)
+
+
+def test_online_states_sync_elementwise_over_two_processes(tmp_path):
+    """The windowed slots and counts (SUM) and cursor (MAX), RunningMean's
+    ring (SUM) and cursor (MAX) and BootStrapper's stacked int32 states
+    (SUM) sync elementwise through HostSync: every rank gets the reduction
+    of the ranks' local states, bitwise (the values are multiples of 1/8)."""
+    ranks = _run("online", tmp_path)
+    reducers = {Reduction.SUM: lambda xs: xs[0] + xs[1], Reduction.MAX: lambda xs: np.maximum(xs[0], xs[1])}
+    for name, m in _online(0).items():
+        for key, red in m._reductions.items():
+            want = reducers[red]([r["local"][name][key] for r in ranks])
+            for got in ranks:
+                _assert_tree_equal(got["synced"][name][key], want, f"{name}.{key}")
+    boot = ranks[0]["synced"]["boot"]
+    assert boot["tp"].shape == (4, C) and boot["tp"].dtype == np.int32
+    assert int(ranks[0]["synced"]["windowed"]["_win_count"].sum()) == len(ROWS[0]) + len(ROWS[1])

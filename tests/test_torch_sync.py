@@ -25,6 +25,8 @@ import jax.numpy as jnp
 import torchmetrics_tpu as J
 import torchmetrics_tpu.classification  # noqa: F401  (J.classification)
 import torchmetrics_tpu_torch as P
+from torchmetrics_tpu import online as jax_online
+from torchmetrics_tpu_torch import online as port_online
 from torchmetrics_tpu.parallel import sync as jax_sync
 from torchmetrics_tpu.parallel import strategies as jax_strategies
 from torchmetrics_tpu_torch.interop import state_to_numpy
@@ -84,7 +86,20 @@ FAMILIES = {
                                        "max": pkg.MaxMetric(**kw), "min": pkg.MinMetric(**kw),
                                        "cat": pkg.CatMetric(**kw)},
                     lambda k, m, b, w: m.update(w(b[3]), w(b[4])) if k == "mean" else m.update(w(b[3]))),
+    # the online metrics' slots (the base's tags), cursor (MAX) and counts
+    # (SUM), and RunningMean's ring (SUM) and cursor (MAX), JAX
+    # tests/test_online.py:223
+    "online": (lambda pkg, **kw: _online_family(pkg, **kw),
+               lambda k, m, b, w: m.update(w(b[3]), w(b[4])) if k == "windowed_mean" else m.update(w(b[3]))),
 }
+
+
+def _online_family(pkg, **kw):
+    online, base_kw = (jax_online, {}) if pkg is J else (port_online, kw)
+    return {"windowed_sum": online.WindowedMetric(pkg.SumMetric(**base_kw), horizon=4, slots=2, **kw),
+            "windowed_mean": online.WindowedMetric(pkg.MeanMetric(**base_kw), horizon=6, slots=3, **kw),
+            "windowed_max": online.WindowedMetric(pkg.MaxMetric(**base_kw), horizon=2, slots=2, **kw),
+            "running_mean": pkg.RunningMean(window=3, **kw)}
 
 
 def _both(family, world, seed):
@@ -458,3 +473,40 @@ def _assert_tree_rows_equal(got, want):
         w = np.concatenate(v) if isinstance(v, list) else v
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+@pytest.mark.parametrize("strategy", ["poisson", "multinomial"])
+@pytest.mark.parametrize("world", [2, 3])
+def test_bootstrapper_stacked_states_sync_elementwise_like_jax(strategy, world):
+    """Each rank's stacked (B, C) int32 states, synced through ``FakeSync``,
+    equal the JAX package's synced ``_stacked`` bitwise (and the elementwise
+    sum over ranks); the values computed from them agree within 1e-6."""
+    b = 5
+    ranks_j = [J.BootStrapper(J.classification.MulticlassF1Score(num_classes=C, average="macro"), num_bootstraps=b,
+                              sampling_strategy=strategy, seed=10 + r, quantile=0.5) for r in range(world)]
+    ranks_p = [P.BootStrapper(P.MulticlassF1Score(num_classes=C, average="macro", device="cpu"), num_bootstraps=b,
+                              sampling_strategy=strategy, seed=10 + r, quantile=0.5, device="cpu")
+               for r in range(world)]
+    for r, batches in enumerate(_rank_batches(world, seed=7)):
+        for probs, labels, *_ in batches:
+            ranks_j[r].update(jnp.asarray(probs), jnp.asarray(labels))
+            ranks_p[r].update(_t(probs), _t(labels))
+    stacked_j = [m._stacked or m._init_stacked() for m in ranks_j]
+    local_p = [state_to_numpy(m) for m in ranks_p]
+    group_p = [m.metric_state for m in ranks_p]
+    for r in range(world):
+        jm, pm = ranks_j[r], ranks_p[r]
+        jm._stacked = stacked_j[r]
+        jm.base_metric._sync_backend = jax_sync.FakeSync(stacked_j, r)
+        want = {k: np.asarray(v) for k, v in jm._sync_stacked(jm._stacked).items()}
+        pm._sync_backend = FakeSync(group_p, r)
+        pm.sync()
+        got = state_to_numpy(pm)
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype == np.int32 and got[k].shape == (b, C), k
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+            np.testing.assert_array_equal(got[k], sum(local[k] for local in local_p), err_msg=k)
+        pm.unsync()
+        values_j, values_p = jm.compute(), pm.compute()
+        for k in values_j:
+            _assert_close(values_p[k], values_j[k], TOL)

@@ -7,33 +7,57 @@ of the classification path is a hand-written CUDA weighted bincount
 (``ops.weighted_bincount``). See README.md, "PyTorch/CUDA port".
 """
 from . import functional
-from .aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
+from .aggregation import (CatMetric, DecayedMean, DecayedSum, MaxMetric, MeanMetric, MinMetric, RunningMean,
+                          RunningSum, SumMetric, WindowedMax, WindowedMean, WindowedMin, WindowedSum)
 from .buffers import CatBuffer, CatLayoutError
 from .classification import *  # noqa: F401,F403
 from .classification import __all__ as _classification_all
 from .collections import MetricCollection
 from .interop import state_from_numpy, state_to_numpy
-from .metric import Metric
+from .metric import CompositionalMetric, Metric
+from .online import DecayedMetric, WindowedMetric
 from .ops import weighted_bincount
 from .parallel import NoSync, Reduction, SyncBackend
 from .state import MetricState
+from .utils.data import label_results
+from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetric, MultioutputWrapper,
+                       MultitaskWrapper, Running)
 
 __all__ = [
     *_classification_all,
+    "BootStrapper",
     "CatBuffer",
     "CatLayoutError",
     "CatMetric",
+    "ClasswiseWrapper",
+    "CompositionalMetric",
+    "DecayedMean",
+    "DecayedMetric",
+    "DecayedSum",
     "MaxMetric",
     "MeanMetric",
     "Metric",
     "MetricCollection",
     "MetricState",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultioutputWrapper",
+    "MultitaskWrapper",
     "NoSync",
     "Reduction",
+    "Running",
+    "RunningMean",
+    "RunningSum",
     "SumMetric",
     "SyncBackend",
+    "WindowedMax",
+    "WindowedMean",
+    "WindowedMetric",
+    "WindowedMin",
+    "WindowedSum",
     "functional",
+    "label_results",
     "state_from_numpy",
     "state_to_numpy",
     "weighted_bincount",

@@ -146,6 +146,21 @@ class MulticlassStatScores(_AbstractStatScores):
     def _engine_signature(self):
         return ("multiclass_stat_scores", self.num_classes, self.top_k, self.multidim_average, self.ignore_index)
 
+    def _supports_sample_counts(self) -> bool:
+        """Whether :meth:`_resampled_update` gives this metric's update for
+        resampled batches: the engine's own update, global, top-1."""
+        return self.update_signature is not None and self.top_k == 1 and self.multidim_average == "global"
+
+    def _resampled_update(self, sample_counts: Tensor, preds: Tensor, target: Tensor) -> dict:
+        """The (B, C) tp/fp/tn/fn increments of B resamples of this batch,
+        ``sample_counts`` (B, N) giving how often each sample is drawn: one
+        bincount launch for all B (the BootStrapper's replicas)."""
+        preds, target = _multiclass_stat_scores_format(preds, target, self.top_k)
+        tp, fp, tn, fn = _multiclass_stat_scores_update(
+            preds, target, self.num_classes, 1, "global", self.ignore_index, sample_counts=sample_counts
+        )
+        return {"tp": tp, "fp": fp, "tn": tn, "fn": fn}
+
     def compute(self) -> Tensor:
         tp, fp, tn, fn = self._final_state()
         return _multiclass_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)

@@ -241,8 +241,20 @@ def _multiclass_stat_scores_update(
     top_k: int = 1,
     multidim_average: str = "global",
     ignore_index: Optional[int] = None,
+    sample_counts: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Per-class int32 tp/fp/tn/fn of shape (C,) (global) or (N, C) (samplewise)."""
+    """Per-class int32 tp/fp/tn/fn of shape (C,) (global) or (N, C) (samplewise).
+
+    ``sample_counts`` (global, ``top_k == 1``), a (B, N) float32 matrix of
+    how many times each of the N samples is repeated in each of B
+    resamples, gives (B, C) counters of the B resampled batches from one
+    bincount launch of 3·B weight rows over a per-row index (the
+    BootStrapper's replicas): the counters are sums over samples, so
+    repeating sample i p times adds p times its share, exactly, while every
+    bin's total stays below 2^24.
+    """
+    if sample_counts is not None and (top_k != 1 or multidim_average != "global"):
+        raise ValueError("sample_counts needs top_k=1 and multidim_average='global'")
     if ignore_index is not None:
         mask = target != ignore_index
         target = torch.clamp(target, 0, num_classes - 1)
@@ -273,12 +285,21 @@ def _multiclass_stat_scores_update(
         # JAX package
         wf = w.reshape(-1) * ((tgt >= 0) & (tgt < num_classes))
         correct = wf * (prd == tgt)
-        counts = weighted_bincount_batched(torch.stack([tgt, tgt, prd]), torch.stack([correct, wf, wf]),
-                                           num_classes)
+        idx, rows = torch.stack([tgt, tgt, prd]), torch.stack([correct, wf, wf])
+        if sample_counts is None:
+            counts = weighted_bincount_batched(idx, rows, num_classes)
+            total = torch.sum(wf)
+        else:
+            # each sample's count repeated over its trailing positions: (B, N*S)
+            c = sample_counts.repeat_interleave(tgt.shape[0] // sample_counts.shape[1], dim=1)
+            b = c.shape[0]
+            counts = weighted_bincount_batched(idx.repeat(b, 1), (rows[None] * c[:, None]).reshape(3 * b, -1),
+                                               num_classes).reshape(b, 3, num_classes).transpose(0, 1)
+            total = torch.sum(wf * c, dim=1, keepdim=True)
         tp, tgt_cnt, prd_cnt = counts[0], counts[1], counts[2]
         fn = tgt_cnt - tp
         fp = prd_cnt - tp
-        tn = torch.sum(wf) - tp - fp - fn
+        tn = total - tp - fp - fn
     else:
         # samplewise: a (C*C) confusion row per sample by scatter-add; an
         # out-of-range flattened index adds nothing, as JAX's scatter drops it

@@ -23,9 +23,17 @@ Sync: ``sync``/``compute`` gather through the metric's ``SyncBackend``
 (``HostSync`` over ``torch.distributed`` when the default group has more
 than one rank), and :meth:`Metric.reduce_state` syncs a pure-API state.
 
+Composition: the arithmetic, bitwise and comparison operators (and
+``abs``, ``-``, ``~``, ``[]``) build a :class:`CompositionalMetric` (JAX
+``metric.py:1655-1918``); :meth:`Metric.windowed` and :meth:`Metric.decayed`
+build the online views of :mod:`~torchmetrics_tpu_torch.online`. Because
+``==`` builds a metric, a metric hashes as TorchMetrics' does, by its class,
+its identity and the identity of its state tensors, never by their values
+(see :meth:`Metric.__hash__`).
+
 Not ported yet: the XLA executable cache and ``_global_jit`` (:133-345),
-``buffered``/``windowed``/``decayed``, the sharded cat layout, quantized
-and elastic sync, spans/ledger/registry, ``plot`` and ``CompositionalMetric``.
+``buffered``, the sharded cat layout, quantized and elastic sync,
+spans/ledger/registry and ``plot``.
 """
 from __future__ import annotations
 
@@ -361,10 +369,13 @@ class Metric(torch.nn.Module):
         finally:
             self._swap_state(*old)
 
-    def _merge_tensor_states(self, global_state: StateDict, batch_state: StateDict, n_prev: int) -> StateDict:
+    def _merge_tensor_states(self, global_state: StateDict, batch_state: StateDict,
+                             n_prev: Union[int, Tensor]) -> StateDict:
         """Merge a batch-local state into the running global state.
 
         Parity: reference ``Metric._reduce_states`` (``metric.py:393-425``).
+        ``n_prev`` may be a tensor on the metric's device, so that a merge
+        whose count lives on the card reads nothing back to the host.
         """
         merged = {}
         for name, batch in batch_state.items():
@@ -373,8 +384,12 @@ class Metric(torch.nn.Module):
             if red == Reduction.SUM:
                 merged[name] = glob + batch
             elif red == Reduction.MEAN:
-                n = float(n_prev)
-                merged[name] = batch if n_prev == 0 else (glob * n + batch) / (n + 1.0)
+                if isinstance(n_prev, torch.Tensor):  # a count on the device (the windowed ring)
+                    n = n_prev.to(torch.float32)
+                    merged[name] = torch.where(n == 0, batch, (glob * n + batch) / (n + 1.0))
+                else:
+                    n = float(n_prev)
+                    merged[name] = batch if n_prev == 0 else (glob * n + batch) / (n + 1.0)
             elif red == Reduction.MAX:
                 merged[name] = torch.maximum(glob, batch)
             elif red == Reduction.MIN:
@@ -795,6 +810,155 @@ class Metric(torch.nn.Module):
                 items.append((k, tuple(v.shape), str(v.dtype), str(self._reductions[k])))
         return tuple(items)
 
+    # ------------------------------------------------------------------
+    # online views (JAX metric.py:615-633)
+    # ------------------------------------------------------------------
+    def windowed(self, horizon: int, slots: int = 8) -> "Metric":
+        """A :class:`~torchmetrics_tpu_torch.online.WindowedMetric` over this
+        metric's last ``horizon`` updates, as a ring of ``slots`` sub-epoch
+        states rotated on the device."""
+        from .online import WindowedMetric
+
+        return WindowedMetric(self, horizon=horizon, slots=slots)
+
+    def decayed(self, halflife: float) -> "Metric":
+        """A :class:`~torchmetrics_tpu_torch.online.DecayedMetric`: each
+        update scales the state by ``0.5 ** (1 / halflife)`` first."""
+        from .online import DecayedMetric
+
+        return DecayedMetric(self, halflife=halflife)
+
+    def _state_children(self) -> Dict[str, Any]:
+        """The metrics (or collections, or lists of them) whose states make
+        up this one's beside its own: what :mod:`~torchmetrics_tpu_torch.interop`
+        carries for a wrapper. A plain metric has none."""
+        return {}
+
+    # ------------------------------------------------------------------
+    # hashing and composition (JAX metric.py:1609-1753)
+    # ------------------------------------------------------------------
+    def __hash__(self) -> int:
+        """The class, the metric's identity and its state tensors' identities.
+
+        Deviation from the JAX package, whose hash digests the state values:
+        ``nn.Module`` walks (``modules()``, ``state_dict()``, ``.to()``) keep
+        memo sets of modules, and ``==`` builds a (truthy)
+        :class:`CompositionalMetric`, so two members with equal values
+        would hash alike, compare "equal" and the walk would skip one; a
+        value digest would also copy every CUDA state to the host on each
+        walk. TorchMetrics hashes this way too.
+        """
+        ids = [id(self._buffers[k]) for k in sorted(self._defaults) if k not in self._list_states]
+        for k in sorted(self._list_states):
+            value = self.__dict__[k]
+            ids += [id(value)] if isinstance(value, CatBuffer) else [id(e) for e in value]
+        return hash((type(self).__name__, id(self), *ids))
+
+    def __iter__(self):
+        # ``__getitem__`` builds a metric for any index, so the sequence
+        # protocol would never end (TorchMetrics refuses iteration too)
+        raise TypeError(f"{type(self).__name__} does not support iteration")
+
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.ge, self, other)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        # abs, as in the JAX package and the reference
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.logical_not, self, None)
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
 
 def _increments(value: Any) -> tuple:
     """A cat state as a tuple of increments: a :class:`CatBuffer` is one
@@ -858,3 +1022,94 @@ def _wrap_compute(compute_fn: Callable) -> Callable:
 
     wrapped._tm_wrapped = True
     return wrapped
+
+
+def _operand_device(operands: Sequence[Any]) -> torch.device:
+    """The one device of a composition's metric operands."""
+    devices = {op.device for op in operands if isinstance(op, Metric)}
+    if len(devices) != 1:
+        raise ValueError(f"a CompositionalMetric needs its metrics on one device, got {sorted(map(str, devices))}")
+    return devices.pop()
+
+
+class CompositionalMetric(Metric):
+    """Lazy arithmetic composition of two metrics (or a metric and a scalar).
+
+    Counterpart of JAX ``metric.py:1836`` (reference ``metric.py:1088-1211``):
+    ``update``, ``reset`` and ``persistent`` fan out to the metric operands;
+    ``sync`` is a no-op, because the operands sync themselves in their own
+    compute; ``compute`` applies the operator to their results and
+    ``forward`` to their batch values. The composition lives on its
+    operands' device; a scalar or tensor operand becomes a tensor there in
+    the JAX package's dtypes (int32, float32).
+
+    Example (built with the operators, not directly):
+        >>> import torch
+        >>> from torchmetrics_tpu_torch import MeanMetric, SumMetric
+        >>> combined = SumMetric(device="cpu") + MeanMetric(device="cpu")
+        >>> type(combined).__name__
+        'CompositionalMetric'
+        >>> combined.update(torch.tensor([1.0, 2.0, 3.0]))
+        >>> float(combined.compute())  # sum (6.0) + mean (2.0)
+        8.0
+    """
+
+    full_state_update = True
+
+    def __init__(self, operator: Callable, metric_a: Any, metric_b: Any) -> None:
+        device = _operand_device((metric_a, metric_b))
+        super().__init__(device=device)
+        self.op = operator
+        for name, operand in (("metric_a", metric_a), ("metric_b", metric_b)):
+            if isinstance(operand, Metric) or operand is None:
+                setattr(self, name, operand)
+                continue
+            if isinstance(operand, Tensor) and operand.device != device:
+                raise ValueError(f"a CompositionalMetric operand lies on {operand.device}, its metrics on {device}")
+            # a buffer, so that .to() moves it with the metrics
+            self.register_buffer(name, _as_state_tensor(operand, device), persistent=False)
+
+    def _metric_operands(self) -> Tuple[Metric, ...]:
+        return tuple(m for m in (self.metric_a, self.metric_b) if isinstance(m, Metric))
+
+    def _state_children(self) -> Dict[str, Any]:
+        return {name: m for name in ("metric_a", "metric_b") if isinstance(m := getattr(self, name), Metric)}
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        for m in self._metric_operands():
+            m.update(*args, **_filter_kwargs(m._update_impl, **kwargs))
+
+    def _apply_op(self, a: Any, b: Any) -> Any:
+        return _squeeze_if_scalar(self.op(a) if self.metric_b is None else self.op(a, b))
+
+    def compute(self) -> Any:
+        a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        return self._apply_op(a, b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        a, b = (m(*args, **_filter_kwargs(m._update_impl, **kwargs)) if isinstance(m, Metric) else m
+                for m in (self.metric_a, self.metric_b))
+        self._update_count += 1
+        self._computed = None
+        if a is None or (b is None and self.metric_b is not None):
+            return None
+        return self._apply_op(a, b)
+
+    def reset(self) -> None:
+        for m in self._metric_operands():
+            m.reset()
+        super().reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        for m in self._metric_operands():
+            m.persistent(mode)
+
+    def sync(self, *args: Any, **kwargs: Any) -> None:  # the operands sync themselves
+        self._is_synced = True
+
+    def unsync(self, *args: Any, **kwargs: Any) -> None:
+        self._is_synced = False
+
+    def extra_repr(self) -> str:
+        return f"op={getattr(self.op, '__name__', self.op)}"

@@ -8,7 +8,7 @@ a Python list of tensors (``list_layout="list"``).
 Integer results keep the JAX package's int32 (torch would default to int64),
 so states compare bitwise across the two packages.
 """
-from typing import List, Sequence, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -112,3 +112,43 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
         idx = order.narrow(dim, 0, topk)
     mask = torch.zeros(prob_tensor.shape, dtype=torch.int32, device=prob_tensor.device)
     return mask.scatter_(dim, idx, 1)
+
+
+def _take(values: Any, i: int) -> Any:
+    if isinstance(values, Mapping):
+        return {k: _take(v, i) for k, v in values.items()}
+    if isinstance(values, (list, tuple)):
+        return type(values)(_take(v, i) for v in values)
+    return values[i]
+
+
+def _first_leaf(values: Any) -> Optional[Tensor]:
+    if isinstance(values, Mapping):
+        values = list(values.values())
+    if isinstance(values, (list, tuple)):
+        return next((leaf for v in values if (leaf := _first_leaf(v)) is not None), None)
+    return values
+
+
+def label_results(values: Any, labels: Optional[Sequence[Any]] = None, prefix: str = "",
+                  postfix: str = "") -> Dict[str, Any]:
+    """Label a leading stacked axis into a ``{name: value}`` dict.
+
+    Counterpart of ``torchmetrics_tpu/multitenant.py:57``: ``values`` is a
+    tensor (or a dict, list or tuple of tensors) whose leading axis is the
+    stacked one; ``labels`` default to positions. Indexing by a Python
+    position reads nothing back from the device.
+
+    Example:
+        >>> import torch
+        >>> label_results(torch.tensor([0.5, 0.25]), labels=["cat", "dog"], prefix="acc_")
+        {'acc_cat': tensor(0.5000), 'acc_dog': tensor(0.2500)}
+    """
+    leaf = _first_leaf(values)
+    if leaf is None:
+        return {}
+    n = leaf.shape[0]
+    keys = list(labels) if labels is not None else list(range(n))
+    if len(keys) != n:
+        raise ValueError(f"got {len(keys)} labels for a stacked axis of {n}")
+    return {f"{prefix}{key}{postfix}": _take(values, i) for i, key in enumerate(keys)}
