@@ -83,11 +83,32 @@ not 0 and no result line is printed:
    update), every state against a device="cpu" run (integer states, the
    BootStrapper's stacked ones included, bitwise), the online updates and
    computes under set_sync_debug_mode("error"), the profiler breakdown and
-   the peak device memory;
-5. sync_free_compute: the filled exact functions the class computes use
+   the peak device memory.
+   The collection paths' slice runs update every member eagerly
+   (jit=False). Phase fused then runs each path's default route, where
+   after group discovery the captured members run as one CUDA graph replay
+   per update: captured and eager members, states against the eager loop
+   (int32 and cat bitwise, floats within 1e-6 relative; the calibration
+   error's value, whose compute adds float32 rows with atomics, 1e-5),
+   launches per update equal to the eager route's, one replay per update,
+   states handed out before a fused update unchanged after it, host ms per
+   update beside the eager loop's and the profiler breakdown; a member
+   whose update reads the host (capture_refusal) must raise CaptureError;
+5. streaming: bench config 2 through MetricCollection.buffered(window=K),
+   K in 1, 8, 32, 200 updates (a short last window at K=32): states against
+   the eager loop, one replay per flush, ms per step, ring memory;
+6. config1: bench.py's config 1 (MulticlassAccuracy, C=100, 1,000 steps of
+   batch 1,024) through update_state_batched, the stateful loop and
+   buffered(window=32): updates/s of each, int32 states equal;
+7. step_overhead: bench.py's step-overhead MLP (bf16, 2048 -> 8192 x 4 ->
+   100, batch 512, SGD) in eager PyTorch, with bench config 2's collection
+   updated per step eagerly, fused, and buffered at K in 1, 8, 32: each
+   variant's cost as the median of paired (on - off) epoch times, and its
+   share of the metrics-off step;
+8. sync_free_compute: the filled exact functions the class computes use
    (binary AUROC, multiclass AUROC and AP) at those paths' shapes, timed,
    under torch.cuda.set_sync_debug_mode("error");
-6. dist_sync: state sync over torch.distributed, in two parts.
+9. dist_sync: state sync over torch.distributed, in two parts.
    (a) NCCL at world size 1 in this process: MetricCollection.reduce_state
    and Metric.reduce_state (the pure route) on bench_config2's collection
    (C=100, batch 1,024, 200 updates) and on imagenet1k_exact's states,
@@ -360,14 +381,15 @@ def check_kernel(device) -> dict:
 def multiclass_path(num_classes: int, batch: int, steps: int) -> dict:
     """The main path: Accuracy (micro) + F1 (macro) + binned AUROC over C classes."""
 
-    def make(device):
+    def make(device, jit=True):
         from torchmetrics_tpu_torch import MetricCollection
         from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
 
+        kw = dict(num_classes=num_classes, validate_args=False, device=device, jit=jit)
         return MetricCollection({
-            "acc": MulticlassAccuracy(num_classes=num_classes, average="micro", validate_args=False, device=device),
-            "f1": MulticlassF1Score(num_classes=num_classes, average="macro", validate_args=False, device=device),
-            "auroc": MulticlassAUROC(num_classes=num_classes, thresholds=64, validate_args=False, device=device),
+            "acc": MulticlassAccuracy(average="micro", **kw),
+            "f1": MulticlassF1Score(average="macro", **kw),
+            "auroc": MulticlassAUROC(thresholds=64, **kw),
         })
 
     def inputs(g, dev):
@@ -392,12 +414,12 @@ def pixel_binary_path(masks: int = 32, side: int = 256, steps: int = 8) -> dict:
     precision, recall, specificity and F1 (one stat-scores group, counted
     without the kernel)."""
 
-    def make(device):
+    def make(device, jit=True):
         from torchmetrics_tpu_torch import MetricCollection
         from torchmetrics_tpu_torch.classification import (BinaryAUROC, BinaryAveragePrecision, BinaryF1Score,
                                                            BinaryPrecision, BinaryRecall, BinarySpecificity)
 
-        kw = dict(validate_args=False, device=device)
+        kw = dict(validate_args=False, device=device, jit=jit)
         return MetricCollection({
             "auroc": BinaryAUROC(thresholds=64, **kw), "ap": BinaryAveragePrecision(thresholds=64, **kw),
             "precision": BinaryPrecision(**kw), "recall": BinaryRecall(**kw),
@@ -428,14 +450,14 @@ def coco_multilabel_path(labels: int = 80, batch: int = 1024, steps: int = 40) -
     Binned mAP and AUROC (one curve group, one launch per update) beside F1,
     precision, recall and Hamming (one stat-scores group) and exact match."""
 
-    def make(device):
+    def make(device, jit=True):
         from torchmetrics_tpu_torch import MetricCollection
         from torchmetrics_tpu_torch.classification import (MultilabelAUROC, MultilabelAveragePrecision,
                                                            MultilabelExactMatch, MultilabelF1Score,
                                                            MultilabelHammingDistance, MultilabelPrecision,
                                                            MultilabelRecall)
 
-        kw = dict(num_labels=labels, validate_args=False, device=device)
+        kw = dict(num_labels=labels, validate_args=False, device=device, jit=jit)
         return MetricCollection({
             "map": MultilabelAveragePrecision(average="macro", thresholds=64, **kw),
             "auroc": MultilabelAUROC(average="macro", thresholds=64, **kw),
@@ -469,12 +491,12 @@ def cityscapes_miou_path(num_classes: int = 19, height: int = 1024, width: int =
     int32 launch per update, 361 cells), pixel accuracy and Dice (macro)
     one stat-scores group (one launch of 3 rows)."""
 
-    def make(device):
+    def make(device, jit=True):
         from torchmetrics_tpu_torch import Dice, MetricCollection
         from torchmetrics_tpu_torch.classification import (MulticlassAccuracy, MulticlassConfusionMatrix,
                                                            MulticlassJaccardIndex)
 
-        kw = dict(num_classes=num_classes, ignore_index=255, validate_args=False, device=device)
+        kw = dict(num_classes=num_classes, ignore_index=255, validate_args=False, device=device, jit=jit)
         return MetricCollection({
             "miou": MulticlassJaccardIndex(**kw),
             "confmat": MulticlassConfusionMatrix(normalize="true", **kw),
@@ -525,12 +547,12 @@ def imagenet1k_confmat_path(num_classes: int = 1000, batch: int = 1000, steps: i
     group over 1,000,000 int32 cells, one sparse-plan launch per update)
     and the expected calibration error (15 bins; one launch at compute)."""
 
-    def make(device):
+    def make(device, jit=True):
         from torchmetrics_tpu_torch import MetricCollection
         from torchmetrics_tpu_torch.classification import (MulticlassCalibrationError, MulticlassCohenKappa,
                                                            MulticlassConfusionMatrix, MulticlassMatthewsCorrCoef)
 
-        kw = dict(num_classes=num_classes, validate_args=False, device=device)
+        kw = dict(num_classes=num_classes, validate_args=False, device=device, jit=jit)
         return MetricCollection({
             "confmat": MulticlassConfusionMatrix(**kw), "kappa": MulticlassCohenKappa(**kw),
             "mcc": MulticlassMatthewsCorrCoef(**kw), "ece": MulticlassCalibrationError(n_bins=15, **kw),
@@ -609,12 +631,12 @@ def imagenet1k_exact_path(num_classes: int = 1000, batch: int = 1000, steps: int
     compute), MulticlassRecallAtFixedPrecision(min_precision=0.5) on the same
     states, and MulticlassHingeLoss. No bincount launches."""
 
-    def make(device, list_layout="padded"):
+    def make(device, list_layout="padded", jit=True):
         from torchmetrics_tpu_torch import MetricCollection
         from torchmetrics_tpu_torch.classification import (MulticlassAUROC, MulticlassAveragePrecision,
                                                            MulticlassHingeLoss, MulticlassRecallAtFixedPrecision)
 
-        kw = dict(num_classes=num_classes, validate_args=False, device=device, list_layout=list_layout)
+        kw = dict(num_classes=num_classes, validate_args=False, device=device, list_layout=list_layout, jit=jit)
         return MetricCollection({
             "auroc": MulticlassAUROC(**kw), "ap": MulticlassAveragePrecision(**kw),
             "rfp": MulticlassRecallAtFixedPrecision(min_precision=0.5, **kw), "hinge": MulticlassHingeLoss(**kw),
@@ -658,12 +680,12 @@ def jigsaw_fairness_path(comments: int = 97_320, batch: int = 4096, num_groups: 
     bincount launch per update (4,096 inputs into 36 bins)."""
     steps = -(-comments // batch)
 
-    def make(device, list_layout="padded"):
+    def make(device, list_layout="padded", jit=True):
         from torchmetrics_tpu_torch import MetricCollection
         from torchmetrics_tpu_torch.classification import (BinaryAUROC, BinaryAveragePrecision, BinaryFairness,
                                                            BinarySpecificityAtSensitivity)
 
-        kw = dict(validate_args=False, device=device, list_layout=list_layout)
+        kw = dict(validate_args=False, device=device, list_layout=list_layout, jit=jit)
         return MetricCollection({
             "auroc": BinaryAUROC(**kw), "ap": BinaryAveragePrecision(**kw),
             "spec_at_sens": BinarySpecificityAtSensitivity(min_sensitivity=0.9, **kw),
@@ -716,13 +738,13 @@ def coco_multilabel_exact_path(labels: int = 80, batch: int = 1024, steps: int =
     beside the three ranking metrics (coverage error, label ranking AP,
     ranking loss), batch 1,024, 40 updates. No bincount launches."""
 
-    def make(device, list_layout="padded"):
+    def make(device, list_layout="padded", jit=True):
         from torchmetrics_tpu_torch import MetricCollection
         from torchmetrics_tpu_torch.classification import (MultilabelAveragePrecision, MultilabelCoverageError,
                                                            MultilabelPrecisionAtFixedRecall,
                                                            MultilabelRankingAveragePrecision, MultilabelRankingLoss)
 
-        kw = dict(num_labels=labels, validate_args=False, device=device, list_layout=list_layout)
+        kw = dict(num_labels=labels, validate_args=False, device=device, list_layout=list_layout, jit=jit)
         return MetricCollection({
             "map": MultilabelAveragePrecision(average="macro", **kw),
             "pafr": MultilabelPrecisionAtFixedRecall(min_recall=0.5, **kw),
@@ -811,15 +833,15 @@ def sync_free_exact_computes(card: str) -> dict:
     return {"phase": "sync_free_compute", "sync_debug_mode": "error", "cases": out, "card": card}
 
 
-def _check_value(label: str, what: str, got, want) -> None:
+def _check_value(label: str, what: str, got, want, tol: float = VALUE_TOL) -> None:
     """``got`` (a tensor, or a tuple of them) against ``want`` (the same, or
     floats): finite, of the same shape, integer values equal and float ones
-    within ``VALUE_TOL`` elementwise."""
+    within ``tol`` elementwise."""
     import torch
 
     if isinstance(got, tuple):
         for i, (g, w) in enumerate(zip(got, want)):
-            _check_value(label, f"{what}[{i}]", g, w)
+            _check_value(label, f"{what}[{i}]", g, w, tol)
         return
     got = got.detach().cpu()
     want = torch.as_tensor(want).detach().cpu()
@@ -830,8 +852,8 @@ def _check_value(label: str, what: str, got, want) -> None:
             raise AssertionError(f"{label}: {what} integer values differ")
         return
     err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
-    if err > VALUE_TOL:
-        raise AssertionError(f"{label}: {what} differs by {err} (tolerance {VALUE_TOL})")
+    if err > tol:
+        raise AssertionError(f"{label}: {what} differs by {err} (tolerance {tol})")
 
 
 def _summary(value):
@@ -952,8 +974,10 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     preds, target, extra = _step_inputs(path["inputs"](g, dev))
     sync()
 
-    # warm-up (allocator, library handles) on a throwaway collection
-    warm = make(dev)
+    # warm-up (allocator, library handles) on a throwaway collection; the
+    # stateful loop of this phase runs every member eagerly (jit=False), the
+    # fused phase below runs the default route
+    warm = make(dev, jit=False)
     for i in range(min(3, steps)):
         _update(warm, preds, target, extra, i)
     warm.compute()
@@ -965,7 +989,7 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
-    coll = make(dev)
+    coll = make(dev, jit=False)
     weighted_bincount.launches = 0
     _update(coll, preds, target, extra, 0)
     sync()
@@ -1016,7 +1040,7 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
                              f"expected {pure_want * steps}, {compute_want}")
 
     # the same run on the CPU (the kernel's plain version) over the same inputs
-    ref = make("cpu")
+    ref = make("cpu", jit=False)
     preds_cpu, target_cpu, extra_cpu = _on_cpu(preds), _on_cpu(target), _on_cpu(extra)
     for i in range(steps):
         _update(ref, preds_cpu, target_cpu, extra_cpu, i)
@@ -1027,7 +1051,7 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     runs = [(state_to_numpy(coll), values, "stateful"), (state_to_numpy(state), pure_values, "pure")]
     list_s = list_compute_s = None
     if path.get("layouts"):
-        listed = make(dev, list_layout="list")
+        listed = make(dev, list_layout="list", jit=False)
         _update(listed, preds, target, extra, 0)  # group discovery, outside the timing
         sync()
         t0 = time.perf_counter()
@@ -1052,7 +1076,7 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
 
     breakdown = None
     if dev.type == "cuda":
-        prof_coll = make(dev)
+        prof_coll = make(dev, jit=False)
         _update(prof_coll, preds, target, extra, 0)  # group discovery, outside the trace
         breakdown = profile_updates(prof_coll, preds, target, extra, 1, min(20, steps - 1))
         del prof_coll
@@ -1069,7 +1093,190 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         "launches_per_compute": computed, "values": {k: _summary(v) for k, v in values.items()},
         "states_equal_cpu": True, "memory": memory, "profile": breakdown, "card": card,
     })
-    return first + later + computed + pure_launches + pure_computed
+    fused = run_fused(label, path, card, dev, coll, values, (preds, target, extra), loop_s / (steps - 1) * 1e3,
+                      breakdown)
+    return first + later + computed + pure_launches + pure_computed + fused
+
+
+def _held_states(coll, names) -> tuple:
+    """Each named member's ``metric_state`` as handed out, a state read as an
+    attribute, and host copies of both, to check after an update."""
+    held = {}
+    for name in names:
+        m = coll[name]
+        state = m.metric_state
+        for k in m._defaults:
+            if k in m._list_states:
+                continue
+            held[(name, k)] = state[k]
+            held[(name, k, "attr")] = getattr(m, k)
+    copies = {key: v.detach().cpu().clone() for key, v in held.items()}
+    return held, copies
+
+
+def run_fused(label: str, path: dict, card: str, dev, eager, eager_values: dict, inputs: tuple, eager_ms: float,
+              eager_profile) -> int:
+    """Phase ``fused``: the path's stateful loop through the default route,
+    where a collection runs its captured representatives as one CUDA graph
+    replay per update after group discovery (update 0); update 1 captures.
+    Against the eager loop ``eager`` (jit=False) of the same inputs: int32
+    and cat states bitwise, float states within 1e-6 relative (values too;
+    the calibration error, whose compute adds float32 rows with atomics,
+    within 1e-5), the same kernel launches per update, one replay per
+    update; states handed out before a fused update (``metric_state`` of a
+    representative and of a grouped member, a state read as an attribute)
+    unchanged after it. Returns the phase's launches."""
+    import torch
+
+    from torchmetrics_tpu_torch import _capture
+    from torchmetrics_tpu_torch.interop import state_to_numpy
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    preds, target, extra = inputs
+    make, steps, later_want = path["make"], path["steps"], path["launches"][1]
+    coll = make(dev)
+    weighted_bincount.launches = 0
+    _update(coll, preds, target, extra, 0)  # group discovery, every member eagerly
+    captured, eager_reps = coll._fused_update_plan()
+    if not captured:
+        emit({"phase": "fused", "path": label, "captured": [], "eager": [n for n, _ in eager_reps], "card": card})
+        return weighted_bincount.launches
+    stats = _capture.graph_stats()
+    before = weighted_bincount.launches
+    _update(coll, preds, target, extra, 1)  # warm-up, capture and the first replay
+    sync()
+    build_launches = weighted_bincount.launches - before
+    captures = _capture.graph_stats()["captures"] - stats["captures"]
+
+    # states handed out before a fused update keep their values after it
+    groups = coll.compute_groups
+    grouped = next((g for g in groups.values() if len(g) > 1), None)
+    names = [grouped[0], grouped[1]] if grouped else [next(iter(groups.values()))[0]]
+    held, copies = _held_states(coll, names)
+    _update(coll, preds, target, extra, 2)
+    sync()
+    for key, value in held.items():
+        if _capture.is_graph_slot(value) or not torch.equal(value.detach().cpu(), copies[key]):
+            raise AssertionError(f"fused {label}: state {key} handed out before a fused update changed after it")
+    rep = coll._metrics[names[0]]
+    tensor_states = [k for k in rep._defaults if k not in rep._list_states]
+    if dev.type == "cuda" and tensor_states and not any(_capture.is_graph_slot(rep._buffers[k]) for k in tensor_states):
+        raise AssertionError(f"fused {label}: the representative {names[0]} holds no graph slot after a replay")
+    del held, copies
+
+    launches0, stats = weighted_bincount.launches, _capture.graph_stats()
+
+    def new_shape(i):
+        return any(x[i].shape != x[i - 1].shape for x in (preds, target, *extra.values()))
+
+    # an update whose inputs change shape (Jigsaw's ragged last batch) warms
+    # up and captures a graph of its own: timed apart, between two syncs
+    loop_s = new_shape_s = 0.0
+    new_shapes = 0
+    t0 = time.perf_counter()
+    for i in range(3, steps):
+        if new_shape(i):
+            new_shapes += 1
+            sync()
+            t1 = time.perf_counter()
+            loop_s += t1 - t0
+            _update(coll, preds, target, extra, i)
+            sync()
+            t0 = time.perf_counter()
+            new_shape_s += t0 - t1
+        else:
+            _update(coll, preds, target, extra, i)
+    sync()
+    loop_s += time.perf_counter() - t0
+    n = steps - 3
+    later = weighted_bincount.launches - launches0
+    replays = _capture.graph_stats()["replays"] - stats["replays"]
+    # a new input signature (Jigsaw's ragged last batch) captures a graph of
+    # its own, whose warm-up runs the step once more
+    new_graphs = _capture.graph_stats()["captures"] - stats["captures"]
+    if later != later_want * (n + new_graphs) or replays != (n if dev.type == "cuda" else 0):
+        raise AssertionError(f"fused {label}: {later} launches and {replays} replays over {n} updates, {new_graphs} "
+                             f"graphs captured; expected {later_want} launches per update (the eager route's) and "
+                             f"per warm-up, and {n} replays")
+    captures += new_graphs
+    int_states = _compare_nested(f"fused {label}", state_to_numpy(coll), state_to_numpy(eager))
+    values = coll.compute()
+    for key, want in eager_values.items():
+        _check_value(f"fused {label}", f"{key} against the eager loop", values[key], want,
+                     1e-5 * max(1.0, float(torch.as_tensor(want).double().abs().max())) if key == "ece" else VALUE_TOL)
+    total = weighted_bincount.launches
+    del coll, values
+
+    breakdown = None
+    if dev.type == "cuda":
+        prof_coll = make(dev)
+        for i in range(2):  # group discovery and the capture, outside the trace
+            _update(prof_coll, preds, target, extra, i)
+        breakdown = profile_updates(prof_coll, preds, target, extra, 2, min(20, steps - 2))
+        del prof_coll
+    emit({
+        "phase": "fused", "path": label, "captured": [name for name, _ in captured],
+        "eager": [name for name, _ in eager_reps], "graphs_captured": captures,
+        "launches_capture_update": build_launches, "launches_per_update": (later - later_want * new_graphs) / n,
+        "eager_launches_per_update": later_want, "replays_per_update": replays / n,
+        "fused_ms_per_update": loop_s / (n - new_shapes) * 1e3, "new_shape_update_ms": new_shape_s * 1e3,
+        "eager_ms_per_update": eager_ms,
+        "states_equal_eager": True, "integer_states_compared": int_states,
+        "handed_out_states_unchanged": names,
+        "profile": breakdown, "eager_profile": eager_profile, "card": card,
+    })
+    return total
+
+
+class HostRead:
+    """A metric whose update reads a value on the host (``.item()``): it
+    declares itself capturable (the default), so a collection's fused
+    update must refuse it, naming the member and the line."""
+
+    @staticmethod
+    def make(device):
+        import torch
+
+        from torchmetrics_tpu_torch import Metric
+
+        class _HostRead(Metric):
+            def __init__(self, **kwargs):
+                super().__init__(**kwargs)
+                self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+
+            def update(self, x):
+                self.total = self.total + x.sum().item()
+
+            def compute(self):
+                return self.total
+
+        return _HostRead(device=device)
+
+
+def check_capture_refusal(card: str, dev) -> dict:
+    """A member declared capturable whose update syncs with the host: the
+    fused update raises ``CaptureError`` naming it and its line, and does
+    not fall back to the eager loop."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection, _capture
+
+    coll = MetricCollection({"host_read": HostRead.make(dev)})
+    x = torch.ones(4, device=dev)
+    coll.update(x)  # group discovery, eager
+    try:
+        coll.update(x)
+    except _capture.CaptureError as err:
+        message = str(err)
+    else:
+        raise AssertionError("capture_refusal: a host read inside a captured update was not refused")
+    if "'host_read'" not in message or "chip_smoke.py" not in message or ".item()" not in message:
+        raise AssertionError(f"capture_refusal: the error names no member or line: {message}")
+    return {"phase": "fused", "path": "capture_refusal", "raised": "CaptureError", "message": message, "card": card}
 
 
 # ---------------------------------------------------------------------------
@@ -1237,7 +1444,8 @@ def run_composition(card: str, dev, num_classes: int = 100, batch: int = 1024, e
     float32 logits), 200 updates as 4 epochs of 50: every wrapper's
     bincount launches per update (1 per BootStrapper update for all its
     replicas, 1 per wrapped stat-score update, the tracker's collection 3
-    on an epoch's first update and 2 after), every state (the BootStrapper's
+    on an epoch's first update, 2 + 2 on the second, whose fused update
+    warms up and captures its graph, and 2 after), every state (the BootStrapper's
     stacked int32 ones included) and value against a device="cpu" run on the
     same inputs (integer states bitwise, floats within 1e-6 relative above
     1), a few values against their direct definitions, the windowed and
@@ -1283,7 +1491,10 @@ def run_composition(card: str, dev, num_classes: int = 100, batch: int = 1024, e
         memory = {"inputs_and_resident_mb": resident / 2**20, "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
                   "peak_over_resident_mb": (torch.cuda.max_memory_allocated() - resident) / 2**20}
     want = {name: steps for name in step.launches}
-    want["tracker"] = epochs * 3 + (steps - epochs) * 2
+    # the tracker's collection of each epoch: 3 at group discovery, then one
+    # graph replay of 2 per update, and on the card the warm-up before its
+    # capture 2 more (CPU tensors take the plain step, with no warm-up)
+    want["tracker"] = epochs * 3 + (steps - epochs) * 2 + (epochs * 2 if dev.type == "cuda" else 0)
     want["composition"] = 2 * steps
     if step.launches != want or computed or launches != sum(want.values()):
         raise AssertionError(f"composition: launches {step.launches} ({launches} in all), {computed} at compute; "
@@ -1318,8 +1529,9 @@ def run_composition(card: str, dev, num_classes: int = 100, batch: int = 1024, e
     breakdown = None
     if dev.type == "cuda":
         prof_step = CompositionStep(dev, num_classes, bootstraps)
-        _update(prof_step, preds, target, extra, 0)  # group discovery, outside the trace
-        breakdown = profile_updates(prof_step, preds, target, extra, 1, min(20, steps - 1))
+        for i in range(2):  # group discovery and the tracker's capture, outside the trace
+            _update(prof_step, preds, target, extra, i)
+        breakdown = profile_updates(prof_step, preds, target, extra, 2, min(20, steps - 2))
         del prof_step
 
     emit({
@@ -1335,6 +1547,263 @@ def run_composition(card: str, dev, num_classes: int = 100, batch: int = 1024, e
         "memory": memory, "profile": breakdown, "card": card,
     })
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases streaming, config1 and step_overhead: the captured update path
+# ---------------------------------------------------------------------------
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_streaming(card: str, dev, num_classes: int = 100, batch: int = 1024, steps: int = 200,
+                  windows: tuple = (1, 8, 32)) -> tuple:
+    """Phase ``streaming``: bench config 2 (Accuracy + F1 + binned AUROC,
+    C=100, batch 1,024) through ``coll.buffered(window=K)`` over ``steps``
+    updates, for each K (200 = 6 x 32 + 8: the last window at K=32 is
+    short). Each K runs once to capture its K-step graph, is reset, and runs
+    again timed: updates plus the last flush, synchronised; then compute.
+    States against an eager loop (jit=False) of the same inputs as in
+    ``fused``; one replay per flush. Returns the record and the launches."""
+    import torch
+
+    from torchmetrics_tpu_torch import _capture
+    from torchmetrics_tpu_torch.interop import state_to_numpy
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+    from torchmetrics_tpu_torch.streaming import stream_stats
+
+    path = multiclass_path(num_classes=num_classes, batch=batch, steps=steps)
+    g = torch.Generator(device=dev).manual_seed(1234)
+    preds, target = path["inputs"](g, dev)
+    eager = path["make"](dev, jit=False)
+    for i in range(steps):
+        eager.update(preds[i], target[i])
+    eager_values = eager.compute()
+    ref = state_to_numpy(eager)
+    del eager
+    rows, launches = [], 0
+    for window in windows:
+        handle = path["make"](dev).buffered(window=window)
+        for i in range(steps):
+            handle.update(preds[i], target[i])
+        handle.compute()  # captures the K-step graph (and flushes the short window)
+        handle.reset()
+        _sync(dev)
+        weighted_bincount.launches = 0
+        flushes0, replays0 = stream_stats()["flushes"], _capture.graph_stats()["replays"]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            handle.update(preds[i], target[i])
+        staged_s = time.perf_counter() - t0
+        handle.flush()
+        _sync(dev)
+        total_s = time.perf_counter() - t0
+        run_launches = weighted_bincount.launches
+        flushes = stream_stats()["flushes"] - flushes0
+        replays = _capture.graph_stats()["replays"] - replays0
+        want_flushes = -(-steps // window)
+        if flushes != want_flushes or (dev.type == "cuda" and replays != flushes):
+            raise AssertionError(f"streaming K={window}: {flushes} flushes and {replays} replays; expected "
+                                 f"{want_flushes} flushes, one replay each")
+        if not run_launches:
+            raise AssertionError(f"streaming K={window}: the bincount kernel was launched no time")
+        int_states = _compare_nested(f"streaming K={window}", state_to_numpy(handle.collection), ref)
+        values = handle.compute()
+        for key, want in eager_values.items():
+            _check_value(f"streaming K={window}", f"{key} against the eager loop", values[key], want)
+        launches += run_launches
+        rows.append({"window": window, "flushes": flushes, "replays_per_flush": replays / flushes,
+                     "launches_per_step": run_launches / steps, "ms_per_step": total_s / steps * 1e3,
+                     "staging_ms_per_step": staged_s / steps * 1e3, "updates_per_s": steps / total_s,
+                     "ring_mb": handle.ring_bytes() / 2**20, "integer_states_compared": int_states,
+                     "states_equal_eager": True})
+        del handle, values
+    return {"phase": "streaming", "path": "bench_config2", "num_classes": num_classes, "batch": batch,
+            "steps": steps, "windows": rows, "card": card}, launches
+
+
+def run_config1(card: str, dev, num_classes: int = 100, batch: int = 1024, steps: int = 1000,
+                window: int = 32) -> tuple:
+    """Phase ``config1``, the counterpart of ``bench.py:133``
+    ``bench_config1``: MulticlassAccuracy (C=100, micro,
+    validate_args=False) over 1,000 steps of batch 1,024 (the inputs take
+    410 MB), through ``update_state_batched`` (a Python loop over the
+    steps, then the merge by reduction), the stateful loop, and
+    ``buffered(window=32)`` (1,000 = 31 x 32 + 8). Updates per second of
+    each, host clock around work that ends in a synchronisation; the int32
+    states of the three routes bitwise equal. Returns the record and the
+    launches."""
+    import torch
+
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    preds = torch.softmax(torch.randn(steps, batch, num_classes, generator=g, device=dev), dim=-1)
+    target = torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
+    _sync(dev)
+
+    def make():
+        return MulticlassAccuracy(num_classes=num_classes, average="micro", validate_args=False, device=dev)
+
+    routes, states, launches = {}, {}, 0
+
+    def timed(name, fn):
+        nonlocal launches
+        _sync(dev)
+        weighted_bincount.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        if not weighted_bincount.launches:
+            raise AssertionError(f"config1 {name}: the bincount kernel was launched no time")
+        launches += weighted_bincount.launches
+        routes[name] = {"updates_per_s": steps / seconds, "ms_per_update": seconds / steps * 1e3,
+                        "launches_per_update": weighted_bincount.launches / steps}
+        return out
+
+    batched = make()
+    batched.update_state_batched(batched.init_state(), preds[:4], target[:4])  # warm-up
+    state = timed("update_state_batched", lambda: batched.update_state_batched(batched.init_state(), preds, target))
+    states["update_state_batched"] = state
+
+    stateful = make()
+    for i in range(3):  # warm-up
+        stateful.update(preds[i], target[i])
+    stateful.reset()
+
+    def loop():
+        for i in range(steps):
+            stateful.update(preds[i], target[i])
+
+    timed("stateful", loop)
+    states["stateful"] = stateful.metric_state
+
+    buffered_metric = make()
+    handle = buffered_metric.buffered(window=window)
+    for i in range(2 * window):  # captures the graph
+        handle.update(preds[i], target[i])
+    handle.reset()
+
+    def buffered_loop():
+        for i in range(steps):
+            handle.update(preds[i], target[i])
+        handle.flush()
+
+    timed(f"buffered(window={window})", buffered_loop)
+    states["buffered"] = buffered_metric.metric_state
+    for name in ("stateful", "buffered"):
+        for k, want in states["update_state_batched"].items():
+            got = states[name][k]
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"config1: {name} state {k} differs from update_state_batched's")
+    value = buffered_metric.compute()
+    want = (preds.argmax(-1) == target).double().mean().item()
+    _check_value("config1", "accuracy against its definition", value, want)
+    return {"phase": "config1", "metric": "MulticlassAccuracy(micro)", "num_classes": num_classes, "batch": batch,
+            "steps": steps, "inputs_mb": (preds.numel() * 4 + target.numel() * 8) / 1e6, "routes": routes,
+            "states_equal": True, "accuracy": float(value), "card": card}, launches
+
+
+def run_step_overhead(card: str, dev, d_in: int = 2048, d_h: int = 8192, depth: int = 4, num_classes: int = 100,
+                      batch: int = 512, steps: int = 100, reps: int = 9, buffered_steps: int = 96,
+                      windows: tuple = (1, 8, 32), buffered_reps: int = 5) -> tuple:
+    """Phase ``step_overhead``, the counterpart of ``bench.py:1462-1560``
+    in eager PyTorch: a bf16 MLP (``d_in`` 2048, ``d_h`` 8192, depth 4,
+    tanh; its matmuls ``torch.matmul``, as the JAX package leaves them to
+    XLA) trained by SGD (lr 0.01) on batch 512, C=100, 100 steps an epoch.
+    Variants, in paired interleaved repetitions: metrics off; bench config
+    2's collection updated per step with the softmax of the logits, every
+    member eager (jit=False); the same through the fused update; and
+    ``buffered(window=K)`` for K in 1, 8, 32 over 96 steps, with a compute
+    at the epoch's end (its flush). The cost of a variant is the median of
+    the per-repetition (on - off) epoch times (``bench.py:1517-1530``), its
+    share that over the median metrics-off epoch. Returns the record and
+    the launches."""
+    import statistics as st
+
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def weight(rows, cols):
+        return (torch.randn(rows, cols, generator=g, device=dev) * 0.02).to(torch.bfloat16).requires_grad_()
+
+    params = [weight(d_in, d_h)] + [weight(d_h, d_h) for _ in range(depth)] + [weight(d_h, num_classes)]
+    xs = torch.randn(steps, batch, d_in, generator=g, device=dev)
+    ys = torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
+    path = multiclass_path(num_classes=num_classes, batch=batch, steps=steps)
+
+    def train_step(x, y):
+        h = torch.tanh(torch.matmul(x.to(torch.bfloat16), params[0]))
+        for w in params[1:-1]:
+            h = torch.tanh(torch.matmul(h, w))
+        logits = torch.matmul(h, params[-1]).to(torch.float32)
+        grads = torch.autograd.grad(F.cross_entropy(logits, y), params)
+        with torch.no_grad():
+            for p, grad in zip(params, grads):
+                p.sub_(grad, alpha=0.01)
+        return logits.detach()
+
+    def epoch(n, update=None, finish=None):
+        t0 = time.perf_counter()
+        for i in range(n):
+            logits = train_step(xs[i], ys[i])
+            if update is not None:
+                update(torch.softmax(logits, dim=-1), ys[i])
+        if finish is not None:
+            finish()
+        _sync(dev)
+        return time.perf_counter() - t0
+
+    colls = {"eager": path["make"](dev, jit=False), "fused": path["make"](dev)}
+    for coll in colls.values():  # group discovery and the capture
+        epoch(3, coll.update)
+    epoch(3)
+    weighted_bincount.launches = 0
+    times = {"off": [], "eager": [], "fused": []}
+    for _ in range(reps):
+        times["off"].append(epoch(steps))
+        for name, coll in colls.items():
+            coll.reset()
+            times[name].append(epoch(steps, coll.update))
+    launches = weighted_bincount.launches
+    if not launches:
+        raise AssertionError("step_overhead: the bincount kernel was launched no time")
+    off = st.median(times["off"])
+    variants = {}
+    for name in ("eager", "fused"):
+        diff = st.median([on - o for on, o in zip(times[name], times["off"])])
+        variants[name] = {"metrics_ms_per_step": diff / steps * 1e3, "share_of_step": diff / off}
+    for window in windows:
+        handle = path["make"](dev).buffered(window=window)
+        epoch(buffered_steps, handle.update, handle.compute)  # discovery and the capture
+        handle.reset()
+        diffs, offs = [], []
+        before = weighted_bincount.launches
+        for _ in range(buffered_reps):
+            o = epoch(buffered_steps)
+            on = epoch(buffered_steps, handle.update, handle.compute)
+            handle.reset()
+            diffs.append(on - o)
+            offs.append(o)
+        launches += weighted_bincount.launches - before
+        diff = st.median(diffs)
+        variants[f"buffered(window={window})"] = {"metrics_ms_per_step": diff / buffered_steps * 1e3,
+                                                  "share_of_step": diff / st.median(offs)}
+        del handle
+    return {"phase": "step_overhead", "model": {"d_in": d_in, "d_h": d_h, "depth": depth, "dtype": "bfloat16",
+                                                "num_classes": num_classes, "batch": batch, "lr": 0.01},
+            "steps": steps, "reps": reps, "step_ms_metrics_off": off / steps * 1e3, "variants": variants,
+            "card": card}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1699,7 +2168,12 @@ def main() -> int:
         ("coco_multilabel_exact", coco_multilabel_exact_path()),
     ]
     launches = sum(run_path(label, path, card, dev) for label, path in paths)
+    emit(check_capture_refusal(card, dev))
     launches += run_composition(card, dev)
+    for run in (run_streaming, run_config1, run_step_overhead):
+        record, phase_launches = run(card, dev)
+        emit(record)
+        launches += phase_launches
     emit(sync_free_exact_computes(card))
     record, dist_launches = dist_sync(card)
     emit(record)

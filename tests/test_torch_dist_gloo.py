@@ -217,8 +217,41 @@ def _case_online(rank):
     return out
 
 
+OVERLAP_ROWS = ([16, 16, 16, 16, 5], [7, 7, 7, 7, 9])  # the ranks flush at the same steps (a new shape flushes)
+
+
+def _overlap_batches(rank):
+    rng = np.random.RandomState(300 + rank)
+    out = []
+    for n in OVERLAP_ROWS[rank]:
+        x = rng.randn(n, C).astype(np.float32)
+        e = np.exp(x - x.max(1, keepdims=True))
+        out.append((torch.from_numpy((e / e.sum(1, keepdims=True)).astype(np.float32)),
+                    torch.from_numpy(rng.randint(0, C, n).astype(np.int32))))
+    return out
+
+
+def _case_overlap(rank):
+    """BufferedMetric(overlap_sync=True) over exact AUROC (cat states),
+    window 2: each flush gathers the earlier windows' rows, the compute
+    barrier the rest."""
+    from torchmetrics_tpu_torch.streaming import reset_stream_stats, stream_stats
+
+    reset_stream_stats()
+    m = P.MulticlassAUROC(num_classes=C, device="cpu")
+    handle = m.buffered(window=2, overlap_sync=True)
+    for p, t in _overlap_batches(rank):
+        handle.update(p, t)
+    value = handle.compute()
+    handle.sync()
+    synced = state_to_numpy(m)
+    handle.unsync()
+    return {"value": value.numpy(), "synced": synced, "local": state_to_numpy(m), "stats": stream_stats(),
+            "update_count": m.update_count}
+
+
 CASES = {"metric_sync": _case_metric_sync, "reduce_state": _case_reduce_state, "options": _case_options,
-         "online": _case_online}
+         "online": _case_online, "overlap": _case_overlap}
 
 
 def _worker(rank, case, init_file, out_dir):
@@ -355,3 +388,31 @@ def test_online_states_sync_elementwise_over_two_processes(tmp_path):
     boot = ranks[0]["synced"]["boot"]
     assert boot["tp"].shape == (4, C) and boot["tp"].dtype == np.int32
     assert int(ranks[0]["synced"]["windowed"]["_win_count"].sum()) == len(ROWS[0]) + len(ROWS[1])
+
+
+def test_overlapped_buffered_sync_equals_one_process(tmp_path):
+    """Two ranks flush in lockstep; the overlapped gathers give every rank
+    the rows of one process over all the data (window by window, rank by
+    rank: the same rows in another order) and the same exact AUROC."""
+    ranks = _run("overlap", tmp_path)
+    ref = P.MulticlassAUROC(num_classes=C, device="cpu")
+    for r in range(WORLD):
+        for p, t in _overlap_batches(r):
+            ref.update(p, t)
+    want = state_to_numpy(ref)
+    want_preds, want_target = np.concatenate(want["preds"]), np.concatenate(want["target"])
+    order = np.argsort(want_preds[:, 0], kind="stable")
+    for got in ranks:
+        preds, target = np.concatenate(got["synced"]["preds"]), np.concatenate(got["synced"]["target"])
+        assert preds.dtype == want_preds.dtype and target.dtype == want_target.dtype
+        assert preds.shape == want_preds.shape and target.shape == want_target.shape
+        mine = np.argsort(preds[:, 0], kind="stable")
+        np.testing.assert_array_equal(preds[mine], want_preds[order])
+        np.testing.assert_array_equal(target[mine], want_target[order])
+        np.testing.assert_allclose(got["value"], ref.compute().numpy(), rtol=1e-6, atol=1e-6)
+        # 5 steps at window 2: flushes at steps 2 and 4, and the short one at compute
+        assert got["stats"]["flushes"] == 3 and got["stats"]["overlap_deferred"] == 0
+        assert got["update_count"] == len(OVERLAP_ROWS[0])
+    for r, got in enumerate(ranks):  # unsync restored each rank's own rows
+        local = np.concatenate(got["local"]["preds"])
+        assert local.shape[0] == sum(OVERLAP_ROWS[r])

@@ -19,6 +19,7 @@ from .online import DecayedMetric, WindowedMetric
 from .ops import weighted_bincount
 from .parallel import NoSync, Reduction, SyncBackend
 from .state import MetricState
+from .streaming import BufferedMetric, BufferedMetricCollection
 from .utils.data import label_results
 from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetric, MultioutputWrapper,
                        MultitaskWrapper, Running)
@@ -26,6 +27,8 @@ from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetr
 __all__ = [
     *_classification_all,
     "BootStrapper",
+    "BufferedMetric",
+    "BufferedMetricCollection",
     "CatBuffer",
     "CatLayoutError",
     "CatMetric",

@@ -180,6 +180,10 @@ class CatMetric(BaseAggregator):
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("cat", [], nan_strategy, **kwargs)
+        if self.nan_strategy in ("ignore", "warn"):
+            # the update drops NaN values by boolean indexing: the increment's
+            # length depends on the data (JAX ``aggregation.py:169-171``)
+            self._use_jit = False
 
     def update(self, value: Any) -> None:
         value = torch.atleast_1d(self._impute(self._value(value)))

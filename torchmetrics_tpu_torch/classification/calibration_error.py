@@ -40,6 +40,10 @@ class BinaryCalibrationError(Metric):
         self.norm = norm
         self.ignore_index = ignore_index
         self.validate_args = validate_args
+        if ignore_index is not None:
+            # ignored samples are dropped by boolean indexing: the increments'
+            # length depends on the data (JAX ``calibration_error.py:43-44, 74-75``)
+            self._use_jit = False
         self.add_state("confidences", [], dist_reduce_fx="cat")
         self.add_state("accuracies", [], dist_reduce_fx="cat")
 
@@ -77,6 +81,10 @@ class MulticlassCalibrationError(Metric):
         self.norm = norm
         self.ignore_index = ignore_index
         self.validate_args = validate_args
+        if ignore_index is not None:
+            # ignored samples are dropped by boolean indexing: the increments'
+            # length depends on the data (JAX ``calibration_error.py:43-44, 74-75``)
+            self._use_jit = False
         self.add_state("confidences", [], dist_reduce_fx="cat")
         self.add_state("accuracies", [], dist_reduce_fx="cat")
 

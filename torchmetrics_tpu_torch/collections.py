@@ -16,9 +16,14 @@ because appends do write into them. ``forward`` needs each
 member's own batch value, so it ends the sharing; ``reset`` restores the
 constructor-time grouping.
 
-The fused single-dispatch update of the JAX package (one jitted program for
-every representative) has no counterpart yet: PyTorch runs the
-representatives' updates one after another.
+The fused update (JAX ``collections.py:258-375``): after group discovery,
+every representative declared capturable (``jittable`` and ``jit=True``,
+:meth:`MetricCollection._fused_update_plan`) runs in one CUDA graph replay
+per update, and the others follow eagerly in member order. CPU tensors run
+the same step op by op. A graph's state slots are installed as the
+representatives' states and, through the refs, their members'; an
+observation of a member installs clones first (``Metric._flush_pending``).
+:meth:`MetricCollection.buffered` stages K updates for one replay.
 """
 from collections import OrderedDict
 from copy import deepcopy
@@ -26,11 +31,17 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from torch.utils._pytree import tree_unflatten
+
+from ._capture import (CapturedStep, capturable_leaf, graph_key, is_scalar, new_input_slots, scalar_tensor,
+                       write_inputs)
 from .buffers import CatBuffer
 from .metric import Metric, _filter_kwargs
 from .parallel.reduction import Reduction
 from .parallel.strategies import SyncPolicy
 from .parallel.sync import reduce_state_in_graph
+from .streaming import _flatten_step, _signature_of
+from .utils.exceptions import TorchMetricsUserError
 
 
 def _tree_equal(a: Any, b: Any) -> bool:
@@ -53,6 +64,23 @@ def _leaf_ids(state: Mapping[str, Any]) -> tuple:
         else:
             ids.append(id(v))
     return tuple(ids)
+
+
+def _fused_step(reps: Tuple[Tuple[str, Metric], ...], spec: Any):
+    """Every representative's update body over its own state, on one step's
+    input leaves (JAX ``collections.py:318-327``)."""
+
+    def step(states: Dict[str, Dict[str, torch.Tensor]], leaves: List[Any], trace: List[Optional[str]]):
+        args, kwargs = tree_unflatten(list(leaves), spec)
+        new_states: Dict[str, Any] = {}
+        appends: Dict[str, Any] = {}
+        for name, rep in reps:
+            trace[0] = name
+            new_states[name], appends[name] = rep._pure_update(
+                states[name], args, _filter_kwargs(rep._update_impl, **kwargs))
+        return new_states, appends
+
+    return step
 
 
 class MetricCollection(torch.nn.Module):
@@ -96,6 +124,8 @@ class MetricCollection(torch.nn.Module):
         self._groups: Dict[int, List[str]] = {}
         self._groups_checked = False
         self._state_is_copy = False
+        self._fused_plan: Optional[Tuple[list, list]] = None
+        self._fused_graphs: Dict[Any, CapturedStep] = {}
         self.add_metrics(metrics, *additional_metrics)
 
     @staticmethod
@@ -152,6 +182,7 @@ class MetricCollection(torch.nn.Module):
 
     def _init_compute_groups(self) -> None:
         self._groups_checked = False
+        self._drop_fused_plan()
         if self._enable_compute_groups and self._manual_groups is not None:
             listed = [n for g in self._manual_groups for n in g]
             for n in listed:
@@ -199,7 +230,7 @@ class MetricCollection(torch.nn.Module):
         ``copy`` the members get their own ``cat`` lists (tensors stay shared)."""
         for members in self._groups.values():
             rep = self._metrics[members[0]]
-            state = rep.metric_state
+            state = rep._state_view()
             for name in members[1:]:
                 m = self._metrics[name]
                 m._install_state(state, copy_lists=copy)
@@ -208,11 +239,38 @@ class MetricCollection(torch.nn.Module):
         self._state_is_copy = copy
 
     # ------------------------------------------------------------------
+    # streaming buffer protocol (streaming.py)
+    # ------------------------------------------------------------------
+    def _flush_member_buffers(self) -> None:
+        """Apply staged streaming updates before states are read or
+        rewritten (a :class:`~torchmetrics_tpu_torch.streaming.BufferedMetricCollection`
+        installs one buffer on every member; JAX ``collections.py:234-246``)."""
+        seen: set = set()
+        for m in self._metrics.values():
+            buf = m.__dict__.get("_stream_buffer")
+            if buf is not None and id(buf) not in seen:
+                seen.add(id(buf))
+                if buf.pending:
+                    buf.flush()
+
+    def buffered(self, window: int = 32) -> Any:
+        """A :class:`~torchmetrics_tpu_torch.streaming.BufferedMetricCollection`
+        that stages ``window`` updates of the whole collection and applies
+        them with one graph replay of the fused update, K steps of it."""
+        from .streaming import BufferedMetricCollection
+
+        return BufferedMetricCollection(self, window)
+
+    # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
     def update(self, *args: Any, **kwargs: Any) -> None:
-        """Update every member; after group discovery, only each group's
-        representative runs its update."""
+        """Update every member. The first call runs every member eagerly and
+        finds the compute groups; afterwards the captured representatives
+        run as one graph replay (their plain step on CPU tensors) and the
+        eager ones follow in member order. Inputs a graph cannot take (a
+        string, an object) send every representative to its eager update."""
+        self._flush_member_buffers()
         if not self._groups_checked:
             for m in self._metrics.values():
                 m.update(*args, **_filter_kwargs(m._update_impl, **kwargs))
@@ -220,11 +278,73 @@ class MetricCollection(torch.nn.Module):
                 self._merge_compute_groups()
                 self._create_state_refs()
             self._groups_checked = True
+            self._drop_fused_plan()  # the groups may have changed
             return
-        for members in self._groups.values():
-            rep = self._metrics[members[0]]
+        captured, eager = self._fused_update_plan()
+        leaves, spec = _flatten_step(args, kwargs)
+        if captured and all(capturable_leaf(leaf) for leaf in leaves):
+            self._run_fused_update(captured, leaves, spec, args, kwargs)
+            pending = eager
+        else:
+            pending = captured + eager
+        for _, rep in pending:
             rep.update(*args, **_filter_kwargs(rep._update_impl, **kwargs))
         self._create_state_refs()
+
+    def _drop_fused_plan(self) -> None:
+        self._fused_plan = None
+        self._fused_graphs = {}
+
+    def _fused_update_plan(self) -> Tuple[List[Tuple[str, Metric]], List[Tuple[str, Metric]]]:
+        """(captured, eager) group representatives as ``(name, metric)``
+        pairs, split by each one's declared ``_use_jit`` before any capture
+        (JAX ``collections.py:294-304``); kept until the groups change."""
+        if self._fused_plan is None:
+            captured: List[Tuple[str, Metric]] = []
+            eager: List[Tuple[str, Metric]] = []
+            for members in self._groups.values():
+                rep = self._metrics[members[0]]
+                (captured if rep._use_jit else eager).append((members[0], rep))
+            self._fused_plan = (captured, eager)
+            self._fused_graphs = {}
+        return self._fused_plan
+
+    def _run_fused_update(self, captured: List[Tuple[str, Metric]], leaves: List[Any], spec: Any,
+                          args: tuple, kwargs: Dict[str, Any]) -> None:
+        """One step of every captured representative: validation and the
+        bookkeeping on the host (JAX ``collections.py:338-375``), the update
+        bodies as one graph replay on a card (one per input signature and
+        state layout, captured at its first use) or op by op on the CPU."""
+        for _, rep in captured:
+            if rep._is_synced:
+                raise TorchMetricsUserError("The Metric is currently synced; call `unsync()` before `update`.")
+            fkw = _filter_kwargs(rep._update_impl, **kwargs)
+            rep._check_inputs(args, fkw)
+            rep._eager_validate(*args, **fkw)
+        for _, rep in captured:
+            rep._computed = None
+            rep._update_count += 1
+        reps = tuple(captured)
+        states = {name: rep._tensor_state() for name, rep in reps}
+        device = reps[0][1].device
+        step = _fused_step(reps, spec)
+        if device.type == "cuda":
+            key = graph_key(_signature_of(leaves, spec), reps, states)
+            graph = self._fused_graphs.get(key)
+            if graph is None:
+                slots = new_input_slots(leaves, device)
+                write_inputs(slots, leaves)
+                graph = self._fused_graphs[key] = CapturedStep(step, states, slots, device,
+                                                               f"{type(self).__name__}.update")
+            else:
+                write_inputs(graph.input_slots, leaves)
+            new_states, appends = graph.run(states)
+        else:
+            staged = [scalar_tensor(leaf, device) if is_scalar(leaf) else leaf for leaf in leaves]
+            new_states, appends = step(states, staged, [None])
+        for name, rep in reps:
+            rep._install_state(new_states[name])
+            rep._extend_list_states(appends[name], borrowed=device.type == "cuda")
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Batch values for every member + state accumulation.
@@ -243,6 +363,7 @@ class MetricCollection(torch.nn.Module):
         if self._groups_checked and any(len(g) > 1 for g in self._groups.values()) and not self._state_is_copy:
             self._create_state_refs(copy=True)
         self._state_is_copy = False
+        self._drop_fused_plan()
         self._enable_compute_groups = False
         self._manual_groups = None
         self._groups = {i: [n] for i, n in enumerate(self._metrics)}
@@ -286,6 +407,19 @@ class MetricCollection(torch.nn.Module):
             mc.postfix = self._check_arg(postfix, "postfix")
         return mc
 
+    def __getstate__(self) -> Dict[str, Any]:
+        """Pickling and ``deepcopy`` leave the graphs behind: a copy captures its own."""
+        self._flush_member_buffers()
+        state = super().__getstate__()
+        state["_fused_plan"] = None
+        state["_fused_graphs"] = {}
+        return state
+
+    def _apply(self, fn, recurse=True):
+        """Device and dtype moves drop the graphs, which hold the old slots."""
+        self._drop_fused_plan()
+        return super()._apply(fn, recurse)
+
     def persistent(self, mode: bool = True) -> None:
         for m in self._metrics.values():
             m.persistent(mode)
@@ -298,6 +432,7 @@ class MetricCollection(torch.nn.Module):
         return name if self.postfix is None else name + self.postfix
 
     def _copy_on_read(self) -> None:
+        self._flush_member_buffers()
         if self._groups_checked and not self._state_is_copy:
             self._create_state_refs(copy=True)
 

@@ -29,8 +29,9 @@ def _multiclass_exact_match_update(
         match = preds == target
     correct = torch.all(match, dim=1).to(torch.int32)
     if multidim_average == "global":
-        return torch.sum(correct, dtype=torch.int32), torch.tensor(target.shape[0], dtype=torch.int32,
-                                                                   device=target.device)
+        # a fill on the device, not a copy of a host scalar: a CUDA graph can capture it
+        return torch.sum(correct, dtype=torch.int32), torch.full((), target.shape[0], dtype=torch.int32,
+                                                                 device=target.device)
     return correct, torch.ones_like(correct)
 
 
@@ -59,7 +60,7 @@ def _multilabel_exact_match_update(
     match = torch.where(mask == 1, preds == target, True)
     correct = torch.all(match, dim=1).to(torch.int32)  # (N, S)
     if multidim_average == "global":
-        total = torch.tensor(target.shape[0] * target.shape[2], dtype=torch.int32, device=target.device)
+        total = torch.full((), target.shape[0] * target.shape[2], dtype=torch.int32, device=target.device)
         return torch.sum(correct, dtype=torch.int32), total
     return torch.sum(correct, dim=-1, dtype=torch.int32), torch.full(
         (target.shape[0],), target.shape[2], dtype=torch.int32, device=target.device

@@ -23,6 +23,20 @@ Sync: ``sync``/``compute`` gather through the metric's ``SyncBackend``
 (``HostSync`` over ``torch.distributed`` when the default group has more
 than one rank), and :meth:`Metric.reduce_state` syncs a pure-API state.
 
+Captured updates: ``jit=True`` (the default) and the class attribute
+``jittable`` declare that a metric's update body may be captured into a
+CUDA graph; instance conditions under which an update's shapes depend on
+the data set ``_use_jit = False`` (JAX ``metric.py:492``). A collection
+replays one graph for all its captured members per update, and
+:meth:`Metric.buffered` stages K updates and replays one graph per flush
+(:mod:`~torchmetrics_tpu_torch._capture`, :mod:`~torchmetrics_tpu_torch.streaming`).
+A replay writes its state slots in place, so a metric never hands a slot
+out: every state observation (``_flush_pending``: update, forward,
+compute, reset, sync, ``metric_state``, ``as_state``, ``state_dict``,
+loading, pickling, device moves, attribute reads) first applies staged
+updates and installs clones of any graph slot. Updates outside a graph
+rebind states as before.
+
 Composition: the arithmetic, bitwise and comparison operators (and
 ``abs``, ``-``, ``~``, ``[]``) build a :class:`CompositionalMetric` (JAX
 ``metric.py:1655-1918``); :meth:`Metric.windowed` and :meth:`Metric.decayed`
@@ -31,9 +45,10 @@ build the online views of :mod:`~torchmetrics_tpu_torch.online`. Because
 its identity and the identity of its state tensors, never by their values
 (see :meth:`Metric.__hash__`).
 
-Not ported yet: the XLA executable cache and ``_global_jit`` (:133-345),
-``buffered``, the sharded cat layout, quantized and elastic sync,
-spans/ledger/registry and ``plot``.
+Not ported: the XLA executable cache (graphs are per instance, see
+:mod:`~torchmetrics_tpu_torch._capture`) and the single-metric captured
+``update`` (JAX ``metric.py:1780-1786``); not ported yet: the sharded cat
+layout, quantized and elastic sync, spans/ledger/registry and ``plot``.
 """
 from __future__ import annotations
 
@@ -45,6 +60,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Unio
 
 import torch
 
+from ._capture import is_graph_slot
 from .buffers import CatBuffer, CatLayoutError
 from .parallel.reduction import ELEMENTWISE_REDUCTIONS, Reduction, resolve_reduction
 from .parallel.strategies import SyncPolicy, begin_sync, default_policy, refuse_quantized
@@ -69,20 +85,30 @@ def _squeeze_if_scalar(data: Any) -> Any:
     return data
 
 
+@functools.lru_cache(maxsize=None)
+def _keyword_names(fn: Callable, bound: bool) -> Optional[frozenset]:
+    """The keyword arguments ``fn`` accepts (past its first parameter when it
+    is a method's function), or None when it takes ``**kwargs``. Inspected
+    once per function, which costs some 14 us; keyed on the plain function,
+    so the cache holds no metric alive."""
+    params = list(inspect.signature(fn).parameters.values())[1 if bound else 0:]
+    if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params):
+        return None
+    return frozenset(
+        p.name for p in params
+        if p.kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD, inspect.Parameter.KEYWORD_ONLY) and p.name != "self"
+    )
+
+
 def _filter_kwargs(fn: Callable, **kwargs: Any) -> Dict[str, Any]:
     """Keep only kwargs accepted by ``fn``'s signature (reference
     ``Metric._filter_kwargs``); routes a collection's shared kwargs."""
     if not kwargs:  # the common case; skips the signature inspection
         return kwargs
-    params = inspect.signature(fn).parameters
-    if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
+    func = getattr(fn, "__func__", None)
+    names = _keyword_names(fn, False) if func is None else _keyword_names(func, True)
+    if names is None:
         return kwargs
-    names = {
-        n
-        for n, p in params.items()
-        if p.kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD, inspect.Parameter.KEYWORD_ONLY)
-        and n != "self"
-    }
     return {k: v for k, v in kwargs.items() if k in names}
 
 
@@ -132,6 +158,9 @@ class Metric(torch.nn.Module):
             each in a power-of-two :class:`CatBuffer`; ``"list"`` keeps one
             tensor per update, the bitwise-equal oracle. A state whose
             increments change their trailing shape falls back to the list.
+        jit: whether the update body may be captured into a CUDA graph by a
+            collection's fused update and by :meth:`buffered` (default True;
+            a class with ``jittable = False`` is never captured).
 
     Example (defining a custom metric):
         >>> import torch
@@ -156,6 +185,9 @@ class Metric(torch.nn.Module):
     full_state_update: Optional[bool] = False
 
     _signature_base: Optional[type] = None  # engine base whose update must be unoverridden
+    # the update body may be captured into a CUDA graph: no host reads, no
+    # data-dependent shapes, no host state that changes between updates
+    jittable: bool = True
 
     @property
     def update_signature(self):
@@ -183,6 +215,7 @@ class Metric(torch.nn.Module):
         sync_backend: Optional[SyncBackend] = None,
         sync_policy: Optional[SyncPolicy] = None,
         list_layout: str = "padded",
+        jit: bool = True,
         **kwargs: Any,
     ) -> None:
         if kwargs:
@@ -210,6 +243,8 @@ class Metric(torch.nn.Module):
         self._is_synced = False
         self._cache: Optional[StateDict] = None
         self._in_pure_update = False
+        self._use_jit = bool(jit) and type(self).jittable
+        self._apply_epoch = 0  # bumped by device and dtype moves: graphs over the old tensors are stale
 
     # ------------------------------------------------------------------
     # subclass machinery: wrap update/compute once per class definition
@@ -264,6 +299,58 @@ class Metric(torch.nn.Module):
         self._persistent[name] = persistent
 
     # ------------------------------------------------------------------
+    # streaming buffer and graph-slot protocol (streaming.py, _capture.py)
+    # ------------------------------------------------------------------
+    def _flush_staged(self) -> None:
+        """Apply updates staged in a streaming buffer (the buffer installs
+        itself as ``_stream_buffer`` on the metrics it wraps)."""
+        buf = self.__dict__.get("_stream_buffer")
+        if buf is not None and buf.pending:
+            buf.flush()
+
+    def _flush_pending(self) -> None:
+        """Before a state observation: apply staged updates, so buffered
+        results equal eager ones, and install clones of the states a CUDA
+        graph writes in place (JAX ``metric.py:589``)."""
+        self._flush_staged()
+        self._release_graph_states()
+
+    def _release_graph_states(self) -> None:
+        """Copy-on-expose: replace every installed graph slot by a clone, so
+        nothing handed out changes at the next replay; that replay copies
+        the clone back into its slot."""
+        buffers = self._buffers
+        for name in self._defaults:
+            value = buffers.get(name)
+            if value is not None and is_graph_slot(value):
+                buffers[name] = value.clone()
+
+    def __getattr__(self, name: str) -> Any:
+        """A state read as an attribute is an observation too (outside the
+        metric's own update body, which must read the slot it is given)."""
+        value = super().__getattr__(name)
+        if is_graph_slot(value) and not self.__dict__.get("_in_pure_update", False):
+            value = value.clone()
+            self._buffers[name] = value
+        return value
+
+    def buffered(self, window: int = 32, overlap_sync: bool = False) -> Any:
+        """A :class:`~torchmetrics_tpu_torch.streaming.BufferedMetric` that
+        stages ``window`` updates on the device and applies them with one
+        replay of a CUDA graph of the K-step masked update (the plain loop
+        for CPU tensors), bitwise equal to eager updates; every state
+        observation flushes first. ``overlap_sync=True`` gathers each
+        earlier window's cat rows right after a flush (JAX
+        ``metric.py:597-612``)."""
+        from .streaming import BufferedMetric
+
+        return BufferedMetric(self, window, overlap_sync=overlap_sync)
+
+    def _state_view(self) -> StateDict:
+        """The installed states, without a flush (the collection's refs)."""
+        return {k: self.__dict__[k] if k in self._list_states else self._buffers[k] for k in self._defaults}
+
+    # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
     def update(self, *args: Any, **kwargs: Any) -> None:  # overridden by subclasses
@@ -278,6 +365,7 @@ class Metric(torch.nn.Module):
 
     def reset(self) -> None:
         """Restore default states. Parity: reference ``metric.py:673-688``."""
+        self._flush_pending()
         self._update_count = 0
         self._computed = None
         self._cache = None
@@ -289,6 +377,7 @@ class Metric(torch.nn.Module):
 
         Dual-path semantics, parity: reference ``metric.py:275-391``.
         """
+        self._flush_pending()
         if self._is_synced:
             raise TorchMetricsUserError(
                 "The Metric has been synced and `forward` assumes local state; call `unsync()` first."
@@ -556,14 +645,16 @@ class Metric(torch.nn.Module):
             and self._reductions.get(name) == Reduction.CAT
         )
 
-    def _append_cat_increment(self, name: str, inc: Tensor) -> None:
+    def _append_cat_increment(self, name: str, inc: Tensor, borrowed: bool = False) -> None:
         """Append one increment to a cat state in its layout. Under the
         padded layout a state still held as a list (empty, or loaded from a
         ``state_dict``) becomes a :class:`CatBuffer` at this append; an
         increment of another trailing shape moves the state to the list
         layout for good (JAX ``metric.py:1038-1060``). Each tensor append
         records the state's dtype and trailing shape for :meth:`_precat`
-        (an object list state holds other things)."""
+        (an object list state holds other things). A ``borrowed`` increment
+        (a CUDA graph's output, rewritten at its next replay) is copied
+        before a list keeps it; a :class:`CatBuffer` copies every append."""
         if isinstance(inc, torch.Tensor):
             self._cat_meta[name] = (inc.dtype, tuple(inc.shape[1:]))
         target = self.__dict__[name]
@@ -578,20 +669,44 @@ class Metric(torch.nn.Module):
                 self._layout_fallback.add(name)
                 target = [target.materialize()] if isinstance(target, CatBuffer) and len(target) else list(target)
                 self.__dict__[name] = target
-        target.append(inc)
+        target.append(inc.clone() if borrowed else inc)
 
-    def _extend_list_states(self, appends: Mapping[str, Sequence]) -> None:
+    def _extend_list_states(self, appends: Mapping[str, Sequence], borrowed: bool = False) -> None:
         for k, vs in appends.items():
             for v in vs:
-                self._append_cat_increment(k, v)
+                self._append_cat_increment(k, v, borrowed)
+
+    def _extend_list_states_stacked(self, appends: Mapping[str, Sequence[Tensor]], valid: int,
+                                    borrowed: bool = False) -> None:
+        """Extend cat states from a K-step flush's ``(K, ...)`` append stacks,
+        keeping only steps ``< valid`` (the rest are the masked padding).
+        Under the padded layout the window lands in the :class:`CatBuffer`
+        as one ``copy_`` per state, rows in step order, bitwise the rows of
+        ``valid`` appends; the list layout keeps one increment per step
+        (JAX ``metric.py:1080-1104``)."""
+        for k, stacks in appends.items():
+            if not stacks or valid == 0:
+                continue
+            if self._uses_padded(k):
+                trailings = {tuple(a.shape[2:]) for a in stacks}
+                if len(trailings) == 1:
+                    trailing = next(iter(trailings))
+                    cols = [a[:valid, None] if a.dim() == 1 else a[:valid] for a in stacks]
+                    flat = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+                    self._append_cat_increment(k, flat.reshape((-1,) + trailing), borrowed)
+                    continue
+            for i in range(valid):
+                for a in stacks:
+                    self._append_cat_increment(k, a[i], borrowed)
 
     def as_state(self) -> MetricState:
         """Current state as a :class:`MetricState` (leaves shared, not copied)."""
-        leaves = {k: self.__dict__[k] if k in self._list_states else self._buffers[k] for k in self._defaults}
-        return MetricState(leaves, reductions=self._reductions, list_states=self._list_states)
+        self._flush_pending()
+        return MetricState(self._state_view(), reductions=self._reductions, list_states=self._list_states)
 
     def load_state(self, state: Mapping[str, Any]) -> None:
         """Install state values from a mapping (tensors are shared, not copied)."""
+        self._flush_pending()
         for name in state:
             if name not in self._defaults:
                 raise KeyError(f"Unexpected state {name!r} for {type(self).__name__}")
@@ -630,6 +745,7 @@ class Metric(torch.nn.Module):
         ``metric.py:1203-1255``. The gathers fill a scratch dict that is
         installed only when all of them succeeded, so a failed one (a
         ``HostSync`` timeout) leaves the local state as it was."""
+        self._flush_pending()
         if self._is_synced:
             raise TorchMetricsUserError("The Metric has already been synced.")
         backend = sync_backend or self.sync_backend
@@ -646,7 +762,7 @@ class Metric(torch.nn.Module):
                 self._buffers[name] = value
         self._is_synced = True
 
-    def _gather_synced(self, backend: SyncBackend) -> StateDict:
+    def _gather_synced(self, backend: SyncBackend, skip: frozenset = frozenset()) -> StateDict:
         """Every state gathered through ``backend``, into a new dict (JAX
         ``metric.py:1293-1394``):
 
@@ -659,13 +775,15 @@ class Metric(torch.nn.Module):
           a rank with no rows issues the same collectives);
         - every other state: one ``sync_tensor`` of its concatenation.
 
-        States are visited in sorted name order, the same on every rank.
+        States are visited in sorted name order, the same on every rank;
+        ``skip`` names states gathered elsewhere (the overlapped flush's cat
+        states).
         """
         refuse_quantized(self._sync_policy or default_policy())
         synced: StateDict = {}
         addressed = hasattr(backend, "set_current")  # FakeSync's group addressing
         buckets: Dict[Tuple[Any, torch.dtype], list] = {}
-        for name in sorted(self._defaults):
+        for name in sorted(set(self._defaults) - skip):
             red = self._reductions[name]
             value = self.__dict__[name] if name in self._list_states else self._buffers[name]
             if name in self._list_states and red == Reduction.NONE:
@@ -741,8 +859,9 @@ class Metric(torch.nn.Module):
     # ------------------------------------------------------------------
     @property
     def metric_state(self) -> StateDict:
-        """Current state values."""
-        return {k: self.__dict__[k] if k in self._list_states else self._buffers[k] for k in self._defaults}
+        """Current state values (staged updates applied first)."""
+        self._flush_pending()
+        return self._state_view()
 
     @property
     def update_count(self) -> int:
@@ -759,6 +878,7 @@ class Metric(torch.nn.Module):
                     self._non_persistent_buffers_set.add(name)
 
     def _save_to_state_dict(self, destination, prefix, keep_vars):
+        self._flush_pending()
         super()._save_to_state_dict(destination, prefix, keep_vars)
         for name in sorted(self._list_states):
             if self._persistent[name]:
@@ -770,6 +890,7 @@ class Metric(torch.nn.Module):
                               unexpected_keys, error_msgs):
         """States are rebound (never copied into in place); states absent
         from ``state_dict`` keep their values; unknown keys are unexpected."""
+        self._flush_pending()
         for key, value in state_dict.items():
             if not key.startswith(prefix):
                 continue
@@ -785,8 +906,19 @@ class Metric(torch.nn.Module):
     def clone(self) -> "Metric":
         return copy.deepcopy(self)
 
+    def __getstate__(self) -> Dict[str, Any]:
+        """Pickling and ``deepcopy`` apply staged updates first and leave the
+        streaming buffer behind (it holds graphs; JAX ``metric.py:1541-1552``)."""
+        self._flush_pending()
+        state = super().__getstate__()
+        state.pop("_stream_buffer", None)
+        return state
+
     def _apply(self, fn, recurse=True):
-        """Device/dtype moves reach the defaults and list states too."""
+        """Device/dtype moves reach the defaults and list states too; graphs
+        captured over the old tensors are not replayed again."""
+        self._flush_pending()
+        self._apply_epoch += 1
         super()._apply(fn, recurse)
         self._defaults = {k: v if isinstance(v, list) else fn(v) for k, v in self._defaults.items()}
         self._cat_meta = {k: (dtype if dtype is None else fn(torch.zeros(0, dtype=dtype)).dtype, trailing)
@@ -848,6 +980,7 @@ class Metric(torch.nn.Module):
         value digest would also copy every CUDA state to the host on each
         walk. TorchMetrics hashes this way too.
         """
+        self._flush_staged()
         ids = [id(self._buffers[k]) for k in sorted(self._defaults) if k not in self._list_states]
         for k in sorted(self._list_states):
             value = self.__dict__[k]
@@ -987,6 +1120,8 @@ def _wrap_update(update_fn: Callable) -> Callable:
             # against the installed state; the outer call keeps the books
             update_fn(self, *args, **kwargs)
             return
+        # an eager update interleaved with staged ones extends the flushed state
+        self._flush_pending()
         if self._is_synced:
             raise TorchMetricsUserError(
                 "The Metric is currently synced; call `unsync()` before `update`."
@@ -1006,6 +1141,7 @@ def _wrap_update(update_fn: Callable) -> Callable:
 def _wrap_compute(compute_fn: Callable) -> Callable:
     @functools.wraps(compute_fn)
     def wrapped(self: Metric, *args: Any, **kwargs: Any) -> Any:
+        self._flush_pending()
         if self._update_count == 0:
             rank_zero_warn(
                 f"The ``compute`` method of metric {type(self).__name__} was called before the "
@@ -1055,6 +1191,9 @@ class CompositionalMetric(Metric):
     """
 
     full_state_update = True
+    # its update fans out to the operands in Python; each operand is a metric
+    # of its own, captured or not by whatever updates it
+    jittable = False
 
     def __init__(self, operator: Callable, metric_a: Any, metric_b: Any) -> None:
         device = _operand_device((metric_a, metric_b))

@@ -14,7 +14,16 @@ quiet switch to another path.
 The kernel is built at first use, by ``nvcc`` for ``sm_90a``, from the
 source in this package into ``_build/`` beside it (``.gitignore`` lists it),
 keyed by a hash of the source and flags, and loaded with ``ctypes``.
+
+Launch counts under CUDA graphs: ``weighted_bincount.launches`` is a host
+counter, bumped where ``_launch`` enqueues the kernel. Inside a graph
+capture that host code runs once and the kernel does not run at all, and a
+replay runs the kernel with no host code. :func:`recording_launches` takes
+the capture's counts back off and keeps them as the graph's launches per
+replay; :func:`count_replayed_launches` adds them at every replay, so the
+counter stays the number of kernels that ran.
 """
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -402,3 +411,31 @@ def weighted_bincount(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
 
 
 weighted_bincount.launches = 0
+
+
+class LaunchRecord:
+    """The kernel launches a CUDA graph recorded at capture: each replay runs them."""
+
+    __slots__ = ("count",)
+
+    def __init__(self) -> None:
+        self.count = 0
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Around a CUDA graph capture: the launches counted inside the block
+    were recorded, not run, so the block leaves ``weighted_bincount.launches``
+    as it found it and reports them in the yielded :class:`LaunchRecord`."""
+    record = LaunchRecord()
+    before = weighted_bincount.launches
+    try:
+        yield record
+    finally:
+        record.count = weighted_bincount.launches - before
+        weighted_bincount.launches = before
+
+
+def count_replayed_launches(record: LaunchRecord) -> None:
+    """One replay of a captured graph ran the launches it recorded."""
+    weighted_bincount.launches += record.count

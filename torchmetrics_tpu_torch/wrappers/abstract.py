@@ -25,6 +25,12 @@ def _devices(obj: Any) -> Set[torch.device]:
 class WrapperMetric(Metric):
     """Base class for wrapper metrics; the wrapped metrics own their states."""
 
+    # a wrapper's update orchestrates its wrapped metrics in Python and keeps
+    # host state between updates (a tracker's epochs, Running's window list,
+    # BootStrapper's numpy draws); the wrapped metrics are what a collection
+    # or a buffer captures (JAX ``wrappers/abstract.py:15``)
+    jittable = False
+
     def _check_wrapped(self, *wrapped: Any) -> None:
         """Every wrapped metric or collection lives on this wrapper's device."""
         for obj in wrapped:

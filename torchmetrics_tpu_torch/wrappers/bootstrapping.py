@@ -74,6 +74,9 @@ class BootStrapper(WrapperMetric):
     """
 
     full_state_update = True
+    # drawn on the host with numpy, the resample counts are copied to the
+    # card on every update (``update`` below): a graph would replay one draw
+    jittable = False
 
     def __init__(
         self,
