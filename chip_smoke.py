@@ -791,6 +791,254 @@ def coco_multilabel_exact_path(labels: int = 80, batch: int = 1024, steps: int =
             "launches": (0, 0, 0, 0), "shape": {"labels": labels, "batch": batch, "thresholds": None}}
 
 
+def nyu_depth_path(images: int = 654, batch: int = 8, height: int = 480, width: int = 640) -> dict:
+    """Monocular depth estimation evaluated on the 654 NYU Depth v2 test
+    images at 480 x 640, in batches of 8: 82 updates of 2,457,600 pixels (a
+    ragged last one of 6 images), the depths in metres drawn in [0.5, 10]
+    and the predictions off by a log-normal factor. RMSE, MAE, squared log
+    error, AbsRel (MAPE), R2, explained variance, log-cosh and Pearson over
+    the flattened pixels: float32 sum states (Pearson's running moments),
+    no bincount launch. Float states are held against the CPU run within
+    ``state_rtol`` 1e-5: a float32 sum of n terms in any tree order is
+    within ceil(log2 n) * 2^-24 of the sum of magnitudes (22 * 6e-8 =
+    1.3e-6 at n = 2,457,600), and the moment sums cancel to about a tenth
+    of their magnitude sums (1.3e-5 at worst); roundings of random sign
+    grow as the square root of that, and the H100 reading is 3.2e-7
+    (PERF.md, section 5)."""
+    steps = -(-images // batch)
+
+    def make(device, jit=True):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.regression import (ExplainedVariance, LogCoshError, MeanAbsoluteError,
+                                                       MeanAbsolutePercentageError, MeanSquaredError,
+                                                       MeanSquaredLogError, PearsonCorrCoef, R2Score)
+
+        kw = dict(device=device, jit=jit)
+        return MetricCollection({
+            "rmse": MeanSquaredError(squared=False, **kw), "mae": MeanAbsoluteError(**kw),
+            "msle": MeanSquaredLogError(**kw), "abs_rel": MeanAbsolutePercentageError(**kw), "r2": R2Score(**kw),
+            "explained_variance": ExplainedVariance(**kw), "log_cosh": LogCoshError(**kw),
+            "pearson": PearsonCorrCoef(**kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        target = 0.5 + 9.5 * torch.rand(images, height * width, generator=g, device=dev)
+        factor = torch.exp(0.15 * torch.randn(images, height * width, generator=g, device=dev))
+        preds = torch.clamp(target * factor, 0.5, 10.0)
+        del factor
+        split = lambda x: [c.reshape(-1) for c in torch.split(x, batch)]  # noqa: E731
+        return split(preds), split(target)
+
+    def direct(preds, target):
+        import math
+
+        import torch
+
+        s = torch.zeros(12, dtype=torch.float64, device=preds[0].device)
+        for p, t in zip(preds, target):
+            p, t = p.double(), t.double()
+            d = p - t
+            s += torch.stack([d.pow(2).sum(), d.abs().sum(), (torch.log1p(p) - torch.log1p(t)).pow(2).sum(),
+                              (d.abs() / t.abs()).sum(), t.sum(), t.pow(2).sum(), p.sum(), p.pow(2).sum(),
+                              (p * t).sum(), d.sum(), (d.abs() + torch.log1p(torch.exp(-2 * d.abs()))).sum(),
+                              torch.tensor(float(p.numel()), dtype=torch.float64, device=p.device)])
+        sse, sae, ssle, sape, st, stt, sp, spp, spt, sd, slc, n = s.tolist()
+        tss = stt - st * st / n
+        var_p, var_t, cov = spp - sp * sp / n, tss, spt - sp * st / n
+        return {"rmse": math.sqrt(sse / n), "mae": sae / n, "msle": ssle / n, "abs_rel": sape / n,
+                "r2": 1 - sse / tss, "explained_variance": 1 - (sse / n - (sd / n) ** 2) / (tss / n),
+                "log_cosh": slc / n - math.log(2.0), "pearson": cov / math.sqrt(var_p * var_t)}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps, "launches": (0, 0, 0, 0),
+            "groups": {0: ["abs_rel"], 1: ["explained_variance"], 2: ["log_cosh"], 3: ["mae"], 4: ["msle"],
+                       5: ["pearson"], 6: ["r2"], 7: ["rmse"]},
+            "state_rtol": 1e-5, "value_tol": 1e-5, "sync_free_update": True,
+            "sync_free_compute": True,
+            "shape": {"images": images, "batch": batch, "height": height, "width": width,
+                      "pixels_per_update": batch * height * width, "last_batch": images - (steps - 1) * batch}}
+
+
+def stsb_correlation_path(pairs: int = 1500, batch: int = 32) -> dict:
+    """A GLUE STS-B dev evaluation: 1,500 sentence pairs in batches of 32
+    (46 full and a ragged last one of 28), gold similarities on the
+    benchmark's 0-5 scale in steps of 0.2 (many ties), predictions the gold
+    plus noise. Spearman and Kendall tau-b keep float32 cat states (bitwise
+    against the CPU run); Pearson and concordance (one group of moment
+    states, merged per update) and MSE keep float32 sums, held within
+    ``state_rtol`` 1e-5 (n = 32 per update)."""
+    steps = -(-pairs // batch)
+
+    def make(device, list_layout="padded", jit=True):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.regression import (ConcordanceCorrCoef, KendallRankCorrCoef, MeanSquaredError,
+                                                       PearsonCorrCoef, SpearmanCorrCoef)
+
+        kw = dict(device=device, jit=jit)
+        return MetricCollection({
+            "spearman": SpearmanCorrCoef(list_layout=list_layout, **kw),
+            "kendall": KendallRankCorrCoef(variant="b", list_layout=list_layout, **kw),
+            "pearson": PearsonCorrCoef(**kw), "concordance": ConcordanceCorrCoef(**kw), "mse": MeanSquaredError(**kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        gold = torch.round(25 * torch.rand(pairs, generator=g, device=dev)) / 5
+        preds = torch.clamp(gold + 0.8 * torch.randn(pairs, generator=g, device=dev), 0.0, 5.0)
+        return list(torch.split(preds, batch)), list(torch.split(gold, batch))
+
+    def direct(preds, target):
+        import numpy as np
+        import torch
+        from scipy import stats
+
+        p = torch.cat(preds).double().cpu().numpy()
+        t = torch.cat(target).double().cpu().numpy()
+        cov = np.mean((p - p.mean()) * (t - t.mean()))
+        return {"spearman": stats.spearmanr(p, t).statistic, "kendall": stats.kendalltau(p, t).statistic,
+                "pearson": np.corrcoef(p, t)[0, 1], "mse": np.mean((p - t) ** 2),
+                "concordance": 2 * cov / (p.var() + t.var() + (p.mean() - t.mean()) ** 2)}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps, "layouts": True,
+            "launches": (0, 0, 0, 0), "groups": {0: ["concordance", "pearson"], 1: ["kendall", "spearman"],
+                                                 2: ["mse"]},
+            "state_rtol": 1e-5, "value_tol": 1e-5, "sync_free_update": True,
+            "sync_free_compute": True, "extra": kendall_50k_check,
+            "shape": {"pairs": pairs, "batch": batch, "last_batch": pairs - (steps - 1) * batch}}
+
+
+def kendall_50k_check(dev) -> dict:
+    """``kendall_rank_corrcoef`` (tau-b) alone at n = 50,000 tied pairs
+    against ``scipy.stats.kendalltau`` in float64: 1.25e9 pairs counted in
+    int64 over row tiles. Timed (CUDA events, median of 3), with the device
+    memory it peaks at over its inputs."""
+    import torch
+    from scipy import stats
+
+    from torchmetrics_tpu_torch.functional.regression import kendall_rank_corrcoef
+
+    n = 50_000
+    g = torch.Generator(device=dev).manual_seed(99)
+    gold = torch.round(25 * torch.rand(n, generator=g, device=dev)) / 5
+    preds = torch.round(4 * (gold + torch.randn(n, generator=g, device=dev))) / 4
+    want = stats.kendalltau(preds.double().cpu().numpy(), gold.double().cpu().numpy()).statistic
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tau = kendall_rank_corrcoef(preds, gold, variant="b")
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    err = abs(float(tau) - want)
+    if not err <= 1e-5:
+        raise AssertionError(f"kendall at n={n}: tau {float(tau)} against scipy's {want}")
+    return {"kendall_50k": {"n": n, "tau": float(tau), "scipy_tau": want, "abs_err": err, "tol": 1e-5,
+                            "ms": statistics.median(times),
+                            "peak_over_inputs_mb": (torch.cuda.max_memory_allocated() - base) / 2**20}}
+
+
+def msmarco_rerank_path(queries: int = 6980, candidates: int = 1000, batch_queries: int = 100) -> dict:
+    """MS MARCO passage dev re-ranking: 6,980 queries of 1,000 candidates
+    each, 100 queries per update (69 of 100,000 rows and a ragged last one
+    of 80,000), rows shuffled within each update, query ids sparse in
+    [0, 1,102,704). One relevant passage per query, two with p = 0.065,
+    none within the candidates with p = 0.1 (the default ``"neg"`` action
+    scores those 0). Scores are distinct within a query (a rank order with
+    the relevant passages drawn toward the top), so the float64 direct
+    definitions sort them the same way. The ten metrics share one set of
+    cat states: int32 ids, float32 scores, int32 targets, 6.98 M rows (84
+    MB); each compute groups them by query on the card with one host read."""
+    steps = -(-queries // batch_queries)
+
+    def make(device, list_layout="padded", jit=True):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.retrieval import (RetrievalAUROC, RetrievalFallOut, RetrievalHitRate,
+                                                      RetrievalMAP, RetrievalMRR, RetrievalNormalizedDCG,
+                                                      RetrievalPrecision, RetrievalPrecisionRecallCurve,
+                                                      RetrievalRecall, RetrievalRPrecision)
+
+        kw = dict(device=device, list_layout=list_layout, jit=jit)
+        return MetricCollection({
+            "mrr_10": RetrievalMRR(top_k=10, **kw), "ndcg_10": RetrievalNormalizedDCG(top_k=10, **kw),
+            "map": RetrievalMAP(**kw), "recall_100": RetrievalRecall(top_k=100, **kw),
+            "precision_10": RetrievalPrecision(top_k=10, **kw), "hit_rate_10": RetrievalHitRate(top_k=10, **kw),
+            "r_precision": RetrievalRPrecision(**kw), "fall_out_10": RetrievalFallOut(top_k=10, **kw),
+            "auroc": RetrievalAUROC(**kw), "pr_curve": RetrievalPrecisionRecallCurve(max_k=100, **kw),
+        })
+
+    def inputs(g, dev):
+        import torch
+
+        qids = torch.sort(torch.randperm(1_102_704, generator=g, device=dev)[:queries]).values
+        u = torch.rand(queries, 3, generator=g, device=dev)
+        n_rel = torch.where(u[:, 0] < 0.1, 0, torch.where(u[:, 1] < 0.065, 2, 1))
+        target = (torch.arange(candidates, device=dev)[None, :] < n_rel[:, None]).to(torch.int64)
+        key = torch.rand(queries, candidates, generator=g, device=dev)
+        key = key - target * torch.rand(queries, candidates, generator=g, device=dev)
+        rank = torch.argsort(torch.argsort(key, dim=1, stable=True), dim=1)
+        scores = ((candidates - rank).to(torch.float32) / candidates)
+        ids = qids[:, None].expand(queries, candidates)
+        preds, targets, indexes = [], [], []
+        for lo in range(0, queries, batch_queries):
+            p, t, i = (x[lo:lo + batch_queries].reshape(-1) for x in (scores, target, ids))
+            perm = torch.randperm(p.shape[0], generator=g, device=dev)
+            preds.append(p[perm])
+            targets.append(t[perm])
+            indexes.append(i[perm].contiguous())
+        return preds, targets, {"indexes": indexes}
+
+    def direct(preds, target, indexes):
+        import numpy as np
+        import torch
+
+        p = torch.cat(preds).cpu().numpy()
+        t = torch.cat(target).cpu().numpy()
+        i = torch.cat(indexes).cpu().numpy()
+        order = np.lexsort((-p.astype(np.float64), i))
+        rel = t[order].reshape(-1, candidates).astype(np.float64)  # each query's targets by descending score
+        n_pos = rel.sum(1)
+        has = n_pos > 0
+        ranks = np.arange(1, candidates + 1)
+        cum = np.cumsum(rel, 1)
+        first = np.argmax(rel, 1)
+        rr = np.where(has & (first < 10), 1.0 / (first + 1), 0.0)
+        ap = np.where(has, (cum / ranks * rel).sum(1) / np.maximum(n_pos, 1), 0.0)
+        disc = 1.0 / np.log2(ranks[:10] + 1)
+        idcg = np.array([disc[:int(min(k, 10))].sum() for k in n_pos])
+        ndcg = np.where(has, (rel[:, :10] * disc).sum(1) / np.maximum(idcg, 1e-12), 0.0)
+        rprec = np.where(has, np.array([cum[q, int(k) - 1] if k else 0.0 for q, k in enumerate(n_pos)])
+                         / np.maximum(n_pos, 1), 0.0)
+        neg = 1.0 - rel
+        neg_after = neg.sum(1, keepdims=True) - np.cumsum(neg, 1)  # negatives ranked below each position
+        auroc = np.where(has, (rel * neg_after).sum(1) / np.maximum(n_pos, 1) / neg.sum(1), 0.0)
+        ks = np.arange(1, 101)
+        at_k = cum[:, np.minimum(ks, candidates) - 1]  # relevant passages within the top k, k = 1..100
+        prec_k = np.where(has[:, None], at_k / ks, 0.0)
+        rec_k = np.where(has[:, None], at_k / np.maximum(n_pos, 1)[:, None], 0.0)
+        return {"mrr_10": rr.mean(), "ndcg_10": ndcg.mean(), "map": ap.mean(),
+                "recall_100": np.where(has, at_k[:, 99] / np.maximum(n_pos, 1), 0.0).mean(),
+                "precision_10": np.where(has, at_k[:, 9] / 10, 0.0).mean(),
+                "hit_rate_10": np.where(has, at_k[:, 9] > 0, 0.0).mean(), "r_precision": rprec.mean(),
+                "fall_out_10": (neg[:, :10].sum(1) / neg.sum(1)).mean(), "auroc": auroc.mean(),
+                "pr_curve": (torch.from_numpy(prec_k.mean(0)), torch.from_numpy(rec_k.mean(0)),
+                             torch.arange(1, 101, dtype=torch.int32))}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": steps, "layouts": True,
+            "launches": (0, 0, 0, 0),
+            "groups": {0: ["auroc", "fall_out_10", "hit_rate_10", "map", "mrr_10", "ndcg_10", "pr_curve",
+                           "precision_10", "r_precision", "recall_100"]},
+            "compute_host_reads": 1,
+            "shape": {"queries": queries, "candidates": candidates, "queries_per_update": batch_queries,
+                      "rows_per_update": batch_queries * candidates,
+                      "last_rows": (queries - (steps - 1) * batch_queries) * candidates}}
+
+
 def sync_free_exact_computes(card: str) -> dict:
     """The filled exact functions the class computes go through, on the card
     at the new paths' shapes, under ``torch.cuda.set_sync_debug_mode("error")``:
@@ -833,16 +1081,15 @@ def sync_free_exact_computes(card: str) -> dict:
     return {"phase": "sync_free_compute", "sync_debug_mode": "error", "cases": out, "card": card}
 
 
-def _check_value(label: str, what: str, got, want, tol: float = VALUE_TOL) -> None:
+def _check_value(label: str, what: str, got, want, tol: float = VALUE_TOL) -> float:
     """``got`` (a tensor, or a tuple of them) against ``want`` (the same, or
     floats): finite, of the same shape, integer values equal and float ones
-    within ``tol`` elementwise."""
+    within ``tol`` elementwise; returns the largest difference."""
     import torch
 
     if isinstance(got, tuple):
-        for i, (g, w) in enumerate(zip(got, want)):
-            _check_value(label, f"{what}[{i}]", g, w, tol)
-        return
+        return max((_check_value(label, f"{what}[{i}]", g, w, tol) for i, (g, w) in enumerate(zip(got, want))),
+                   default=0.0)
     got = got.detach().cpu()
     want = torch.as_tensor(want).detach().cpu()
     if not torch.isfinite(got.double()).all() or got.shape != want.shape:
@@ -850,10 +1097,11 @@ def _check_value(label: str, what: str, got, want, tol: float = VALUE_TOL) -> No
     if not got.is_floating_point() and not want.is_floating_point():
         if not torch.equal(got.long(), want.long()):
             raise AssertionError(f"{label}: {what} integer values differ")
-        return
+        return 0.0
     err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
     if err > tol:
         raise AssertionError(f"{label}: {what} differs by {err} (tolerance {tol})")
+    return err
 
 
 def _summary(value):
@@ -936,19 +1184,68 @@ def profile_updates(coll, preds, target, extra, first: int, steps: int) -> dict:
     }
 
 
-def _compare_states(label: str, how: str, got_states: dict, ref_states: dict) -> None:
+def _compare_states(label: str, how: str, got_states: dict, ref_states: dict, rtol=None) -> float:
     """Every state of every member bitwise equal (a cat state, in either
-    layout, as the concatenation of its valid rows)."""
+    layout, as the concatenation of its valid rows); with ``rtol``, float
+    tensor states within ``rtol`` of the reference elementwise, relative to
+    its value. Returns the largest relative difference of those."""
     import numpy as np
 
     def whole(value):
         return np.concatenate(value) if isinstance(value, list) else value
 
+    worst = 0.0
     for member, ref_state in ref_states.items():
         for key, want in ref_state.items():
+            is_cat = isinstance(want, list)
             want, got = whole(want), whole(got_states[member][key])
-            if got.dtype != want.dtype or got.shape != want.shape or not (got == want).all():
+            if got.dtype != want.dtype or got.shape != want.shape:
                 raise AssertionError(f"{label}: {how} state {member}.{key} differs from the CPU run")
+            if rtol is not None and not is_cat and np.issubdtype(want.dtype, np.floating):
+                diff = np.abs(got.astype(np.float64) - want)
+                err = float(np.max(diff / np.maximum(np.abs(want), np.finfo(np.float32).tiny))) if want.size else 0.0
+                worst = max(worst, err)
+                if not err <= rtol:
+                    raise AssertionError(f"{label}: {how} float state {member}.{key} differs from the CPU run by "
+                                         f"{err} (relative; tolerance {rtol})")
+            elif not (got == want).all():
+                raise AssertionError(f"{label}: {how} state {member}.{key} differs from the CPU run")
+    return worst
+
+
+def count_host_reads(fn) -> tuple:
+    """(result, synchronising CUDA calls, where each was made) of ``fn()``,
+    counted under ``torch.cuda.set_sync_debug_mode("warn")``: one warning
+    per call, attributed to the Python line that made it."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return out, len(where), where
+
+
+@contextlib.contextmanager
+def _sync_debug(mode: str, on: bool):
+    """``torch.cuda.set_sync_debug_mode(mode)`` for the block when ``on``."""
+    import torch
+
+    if on:
+        torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        if on:
+            torch.cuda.set_sync_debug_mode("default")
 
 
 def run_path(label: str, path: dict, card: str, dev) -> int:
@@ -958,7 +1255,16 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     A path with ``layouts`` runs its stateful loop again under
     ``list_layout="list"``, whose states and values must equal the padded
     run's and the CPU run's; one with ``sync_free_compute`` computes under
-    ``torch.cuda.set_sync_debug_mode("error")``: no host sync."""
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync, and one with
+    ``sync_free_update`` updates so after group discovery (the stateful and
+    the pure loop). A path may also state ``state_rtol`` (float tensor
+    states against the CPU run, relative; bitwise without it),
+    ``value_tol`` (values against the CPU run and against their direct
+    definitions, absolute; ``VALUE_TOL`` without it),
+    ``compute_host_reads`` (the synchronising calls each member's compute
+    must make, counted under ``set_sync_debug_mode("warn")``) and ``extra``
+    (a check of its own, run after the path, whose record joins the
+    path's)."""
     import torch
 
     from torchmetrics_tpu_torch.interop import state_to_numpy
@@ -994,9 +1300,11 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     _update(coll, preds, target, extra, 0)
     sync()
     first = weighted_bincount.launches
+    sync_free_update = bool(path.get("sync_free_update")) and dev.type == "cuda"
     t0 = time.perf_counter()
-    for i in range(1, steps):
-        _update(coll, preds, target, extra, i)
+    with _sync_debug("error", sync_free_update):  # a host sync in an update raises
+        for i in range(1, steps):
+            _update(coll, preds, target, extra, i)
     sync()
     loop_s = time.perf_counter() - t0
     later = weighted_bincount.launches - first
@@ -1027,8 +1335,9 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     weighted_bincount.launches = 0
     t0 = time.perf_counter()
     state = coll.init_state()
-    for i in range(steps):
-        state = coll.update_state(state, preds[i], target[i], **{k: v[i] for k, v in extra.items()})
+    with _sync_debug("error", sync_free_update):
+        for i in range(steps):
+            state = coll.update_state(state, preds[i], target[i], **{k: v[i] for k, v in extra.items()})
     sync()
     pure_s = time.perf_counter() - t0
     pure_launches = weighted_bincount.launches
@@ -1065,14 +1374,29 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         list_compute_s = time.perf_counter() - t0
         runs.append((state_to_numpy(listed), list_values, "list-layout"))
         del listed, list_values
+    state_rtol, value_tol = path.get("state_rtol"), path.get("value_tol", VALUE_TOL)
+    state_err = value_err = direct_err = 0.0
     for got_states, got_values, how in runs:
-        _compare_states(label, how, got_states, ref_states)
+        state_err = max(state_err, _compare_states(label, how, got_states, ref_states, state_rtol))
         for key, want in ref_values.items():
-            _check_value(label, f"{how} {key} against the CPU run", got_values[key], want)
+            value_err = max(value_err, _check_value(label, f"{how} {key} against the CPU run", got_values[key],
+                                                    want, value_tol))
     del runs, state, pure_values
     # values against their definitions, computed directly in float64
     for key, want in path["direct"](preds, target, **extra).items():
-        _check_value(label, f"{key} against its direct definition", values[key], want)
+        direct_err = max(direct_err, _check_value(label, f"{key} against its direct definition", values[key],
+                                                  want, value_tol))
+
+    # each member's compute again, its synchronising calls counted
+    host_reads = None
+    if "compute_host_reads" in path and dev.type == "cuda":
+        host_reads, where = {}, {}
+        for name, m in coll.items(keep_base=True, copy_state=False):
+            m._computed = None
+            _, host_reads[name], where[name] = count_host_reads(m.compute)
+        if any(n != path["compute_host_reads"] for n in host_reads.values()):
+            raise AssertionError(f"{label}: host reads per compute {host_reads}, expected "
+                                 f"{path['compute_host_reads']} each; made at {where}")
 
     breakdown = None
     if dev.type == "cuda":
@@ -1091,7 +1415,12 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         "list_layout_ms_per_update": None if list_s is None else list_s / (steps - 1) * 1e3,
         "list_layout_compute_ms": None if list_compute_s is None else list_compute_s * 1e3,
         "launches_per_compute": computed, "values": {k: _summary(v) for k, v in values.items()},
-        "states_equal_cpu": True, "memory": memory, "profile": breakdown, "card": card,
+        "states_equal_cpu": True if state_rtol is None else f"within {state_rtol} relative (floats)",
+        "float_state_max_rel_err": state_err, "value_tol": value_tol, "value_max_err_cpu_run": value_err,
+        "value_max_err_direct": direct_err,
+        "update_sync_free": sync_free_update, "compute_host_reads": host_reads,
+        "memory": memory, "profile": breakdown, "card": card,
+        **(path["extra"](dev) if "extra" in path and dev.type == "cuda" else {}),
     })
     fused = run_fused(label, path, card, dev, coll, values, (preds, target, extra), loop_s / (steps - 1) * 1e3,
                       breakdown)
@@ -1834,10 +2163,53 @@ def aggregation_path(steps: int = 8, batch: int = 4096) -> dict:
     return {"make": make, "inputs": inputs, "steps": steps, "cat_rank0_only": True}
 
 
+def pearson_retrieval_path(steps: int = 20, batch: int = 4096, queries: int = 500) -> dict:
+    """PearsonCorrCoef and RetrievalMAP in one collection, over float32
+    scores independent of the 0/1 targets (about 10% relevant) and query ids
+    in [0, 500), so each query's rows are split between the ranks. The MAP's
+    cat states gather in rank order, the single process's row order:
+    bitwise. Pearson's ``dist_reduce_fx=None`` moments come back as
+    ``(world,)`` stacks, which ``_final_aggregation`` merges
+    (``moment_members``) before they are held against one process's moments
+    within ``float_tol`` 1e-5 relative: the merge adds the ranks' moments in
+    another arithmetic than one process's running update. The cross moment
+    of independent inputs cancels to near zero, so its error is taken
+    relative to the size of its terms (``_check_synced``)."""
+    def make(device):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.regression import PearsonCorrCoef
+        from torchmetrics_tpu_torch.retrieval import RetrievalMAP
+        return MetricCollection({"pearson": PearsonCorrCoef(device=device), "map": RetrievalMAP(device=device)})
+
+    def inputs(g, dev):
+        import torch
+        preds = torch.rand(steps, batch, generator=g, device=dev)
+        target = (torch.rand(steps, batch, generator=g, device=dev) < 0.1).to(torch.int64)
+        indexes = torch.randint(0, queries, (steps, batch), generator=g, device=dev)
+        return preds, target, {"indexes": indexes}
+
+    return {"make": make, "inputs": inputs, "steps": steps, "moment_members": ("pearson",), "float_tol": 1e-5}
+
+
+def _merged_moments(states: dict, members) -> dict:
+    """Each named member's synced ``(world,)`` moment stacks merged as its
+    compute merges them, as numpy."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.regression.pearson import _final_aggregation
+    names = ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total")
+    out = dict(states)
+    for member in members:
+        merged = _final_aggregation(*(torch.from_numpy(states[member][k]) for k in names))
+        out[member] = {k: v.numpy() for k, v in zip(names, merged)}
+    return out
+
+
 def _dist_paths() -> list:
     return [("bench_config2", multiclass_path(num_classes=100, batch=1024, steps=200)),
             ("imagenet1k_exact", imagenet1k_exact_path()),
-            ("aggregation", aggregation_path())]
+            ("aggregation", aggregation_path()),
+            ("pearson_retrieval", pearson_retrieval_path())]
 
 
 def _drive(coll, path: dict, inputs, steps, pure: bool, cat_steps=()):
@@ -1876,11 +2248,14 @@ def _rows_equal(got, want) -> bool:
     return got.dtype == want.dtype and got.shape == want.shape and bool((got == want).all())
 
 
-def _check_synced(label: str, how: str, got: dict, want: dict, cat_states: set) -> dict:
+def _check_synced(label: str, how: str, got: dict, want: dict, cat_states: set, tol: float = VALUE_TOL) -> dict:
     """``got`` against ``want`` ({member: {state: numpy}}): cat and integer
-    states bitwise; float states within 1e-6, relative to the value above 1
-    (each rank sums its half, then the halves are added: another order than
-    one process's)."""
+    states bitwise; float states within ``tol`` (1e-6 by default), relative
+    to the value above 1 (each rank sums its half, then the halves are
+    added: another order than one process's). A cross moment ``corr_xy``,
+    the sum of dx*dy, is taken relative to sqrt(var_x * var_y), the
+    Cauchy-Schwarz bound on it and the size of its terms: it cancels to near
+    zero when x and y are independent, and its rounding does not."""
     import numpy as np
     worst = 0.0
     for member, states in want.items():
@@ -1892,11 +2267,14 @@ def _check_synced(label: str, how: str, got: dict, want: dict, cat_states: set) 
                 continue
             if g.dtype != w.dtype or g.shape != w.shape:
                 raise AssertionError(f"dist_sync {label}: {how} state {member}.{key} dtype or shape differs")
-            err = float(np.max(np.abs(g.astype(np.float64) - w) / np.maximum(1.0, np.abs(w)))) if w.size else 0.0
+            scale = np.maximum(1.0, np.abs(w))
+            if key == "corr_xy":
+                scale = np.maximum(scale, np.sqrt(states["var_x"].astype(np.float64) * states["var_y"]))
+            err = float(np.max(np.abs(g.astype(np.float64) - w) / scale)) if w.size else 0.0
             worst = max(worst, err)
-            if not err <= VALUE_TOL:
+            if not err <= tol:
                 raise AssertionError(f"dist_sync {label}: {how} state {member}.{key} differs by {err}")
-    return {"float_state_max_rel_err": worst}
+    return {"float_state_max_rel_err": worst, "float_tol": tol}
 
 
 def _digest(states: dict) -> str:
@@ -1916,10 +2294,11 @@ def _digest(states: dict) -> str:
 def _timed(fn):
     """(result, host ms) of ``fn()`` between two synchronisations of the card."""
     import torch
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, (time.perf_counter() - t0) * 1e3
 
 
@@ -1956,7 +2335,8 @@ def _dist_rank(rank: int, world: int, init_file: str, out_dir: str, device: str 
             coll = path["make"](dev)
             weighted_bincount.launches = 0
             _drive(coll, path, inputs, mine, False, cat_steps)
-            torch.cuda.synchronize()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
             launches = weighted_bincount.launches
             members = list(coll.items(keep_base=True))
             backends = {type(m.sync_backend).__name__ for _, m in members}
@@ -1992,12 +2372,15 @@ def _dist_rank(rank: int, world: int, init_file: str, out_dir: str, device: str 
                 _drive(ref, path, inputs, everything, False, cat_steps)
                 ref_states = state_to_numpy(ref)
                 cat_states = {(n, k) for n, m in members for k in m._list_states}
-                row["stateful"] = _check_synced(label, "synced", synced, ref_states, cat_states)
+                moments, tol = path.get("moment_members", ()), path.get("float_tol", VALUE_TOL)
+                row["stateful"] = _check_synced(label, "synced", _merged_moments(synced, moments), ref_states,
+                                                cat_states, tol)
                 ref_values = ref.compute()
                 for key, want in ref_values.items():
-                    _check_value(f"dist_sync {label}", f"{key} against one process", values[key], want)
+                    _check_value(f"dist_sync {label}", f"{key} against one process", values[key], want, tol)
                 ref_pure = state_to_numpy(_drive(ref, path, inputs, everything, True, cat_steps))
-                row["pure"] = _check_synced(label, "reduced", reduced_np, ref_pure, cat_states)
+                row["pure"] = _check_synced(label, "reduced", _merged_moments(reduced_np, moments), ref_pure,
+                                            cat_states, tol)
                 row["values"] = {k: _summary(v) for k, v in values.items()}
             report["paths"][label] = row
             del coll, inputs, state, reduced_np, synced
@@ -2166,6 +2549,9 @@ def main() -> int:
         ("imagenet1k_exact", imagenet1k_exact_path()),
         ("jigsaw_fairness_binary", jigsaw_fairness_path()),
         ("coco_multilabel_exact", coco_multilabel_exact_path()),
+        ("nyu_depth_v2_regression", nyu_depth_path()),
+        ("stsb_dev_correlation", stsb_correlation_path()),
+        ("msmarco_dev_rerank", msmarco_rerank_path()),
     ]
     launches = sum(run_path(label, path, card, dev) for label, path in paths)
     emit(check_capture_refusal(card, dev))

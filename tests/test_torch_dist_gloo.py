@@ -250,8 +250,38 @@ def _case_overlap(rank):
             "update_count": m.update_count}
 
 
+def _pearson_retrieval_batches(rank):
+    """Scores, 0/1 targets and query ids of 0..5 (each query split between
+    the ranks)."""
+    rng = np.random.RandomState(400 + rank)
+    return [(torch.from_numpy(rng.rand(n).astype(np.float32)), torch.from_numpy(rng.randint(0, 2, n)),
+             torch.from_numpy(rng.randint(0, 6, n))) for n in ROWS[rank]]
+
+
+def _pearson_retrieval():
+    return P.MetricCollection({"pearson": P.PearsonCorrCoef(device="cpu"), "map": P.RetrievalMAP(device="cpu")})
+
+
+def _case_pearson_retrieval(rank):
+    """PearsonCorrCoef's NONE-reduced moments and RetrievalMAP's cat states
+    through HostSync (Metric.sync, compute) and the pure route."""
+    coll = _pearson_retrieval()
+    state = coll.init_state()
+    for p, t, i in _pearson_retrieval_batches(rank):
+        coll.update(p, t, indexes=i)
+        state = coll.update_state(state, p, t, indexes=i)
+    out = {"synced": {}, "values": {}}
+    for name, m in coll.items(keep_base=True):
+        m.sync()
+        out["synced"][name] = state_to_numpy(m)
+        m.unsync()
+        out["values"][name] = m.compute().numpy()
+    out["reduced"] = state_to_numpy(coll.reduce_state(state))
+    return out
+
+
 CASES = {"metric_sync": _case_metric_sync, "reduce_state": _case_reduce_state, "options": _case_options,
-         "online": _case_online, "overlap": _case_overlap}
+         "online": _case_online, "overlap": _case_overlap, "pearson_retrieval": _case_pearson_retrieval}
 
 
 def _worker(rank, case, init_file, out_dir):
@@ -416,3 +446,36 @@ def test_overlapped_buffered_sync_equals_one_process(tmp_path):
     for r, got in enumerate(ranks):  # unsync restored each rank's own rows
         local = np.concatenate(got["local"]["preds"])
         assert local.shape[0] == sum(OVERLAP_ROWS[r])
+
+
+def test_pearson_moments_and_retrieval_rows_sync_like_one_process(tmp_path):
+    """Pearson's moments come back as the ranks' (world,) stacks (the local
+    moments, bitwise), which compute merges to one process's value within
+    1e-6; RetrievalMAP's cat rows gather in rank order, one process's rows
+    bitwise, and its value is one process's."""
+    from torchmetrics_tpu_torch.functional.regression.pearson import _final_aggregation
+
+    ranks = _run("pearson_retrieval", tmp_path)
+    locals_ = []
+    for r in range(WORLD):
+        m = P.PearsonCorrCoef(device="cpu")
+        for p, t, _ in _pearson_retrieval_batches(r):
+            m.update(p, t)
+        locals_.append(state_to_numpy(m))
+    ref = _pearson_retrieval()
+    for r in range(WORLD):
+        for p, t, i in _pearson_retrieval_batches(r):
+            ref.update(p, t, indexes=i)
+    ref_states = state_to_numpy(ref)
+    names = ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total")
+    for got in ranks:
+        for how in ("synced", "reduced"):
+            states = got[how]
+            for k in names:
+                _assert_tree_equal(states["pearson"][k], np.stack([loc[k] for loc in locals_]), f"{how} {k}")
+            merged = _final_aggregation(*(torch.from_numpy(states["pearson"][k]) for k in names))
+            for k, v in zip(names, merged):
+                np.testing.assert_allclose(v.numpy(), ref_states["pearson"][k], rtol=1e-6, atol=1e-6, err_msg=k)
+            _assert_tree_equal(states["map"], ref_states["map"], f"{how} map")
+        np.testing.assert_allclose(got["values"]["pearson"], ref["pearson"].compute().numpy(), rtol=1e-6, atol=1e-6)
+        _assert_tree_equal(got["values"]["map"], ref["map"].compute().numpy(), "map value")

@@ -415,3 +415,100 @@ def test_deepcopy_of_a_fused_collection_is_independent():
     coll.update(preds[2], target[2])
     assert torch.equal(twin._metrics["acc"]._buffers["tp"], before)
     assert twin._metrics["acc"]._update_count == 2 and coll._metrics["acc"]._update_count == 3
+
+
+# ---------------------------------------------------------------- regression and retrieval members
+RTOL = 1e-5  # float32 sums of the two packages in another order (the regression slice's tolerance)
+
+
+def _regression_collection(pkg, jit=True):
+    kw = dict(jit=jit) if pkg is J else dict(jit=jit, **CPU)
+    # the JAX package's Pearson moments run eagerly: its executable cache is
+    # process-wide, and a test of its own that shares a worker process counts
+    # on compiling Pearson's update first (its tests/test_fused_collection.py:140)
+    moments = dict(kw, jit=False) if pkg is J else kw
+    return pkg.MetricCollection({
+        "rmse": pkg.MeanSquaredError(squared=False, **kw), "mae": pkg.MeanAbsoluteError(**kw),
+        "r2": pkg.R2Score(**kw), "ev": pkg.ExplainedVariance(**kw), "log_cosh": pkg.LogCoshError(**kw),
+        "pearson": pkg.PearsonCorrCoef(**moments), "ccc": pkg.ConcordanceCorrCoef(**moments),
+        "spearman": pkg.SpearmanCorrCoef(**kw), "kendall": pkg.KendallRankCorrCoef(**kw),
+        "csi": pkg.CriticalSuccessIndex(0.5, keep_sequence_dim=0, **kw),
+    })
+
+
+def _regression_data(steps=6, seed=7):
+    rng = np.random.RandomState(seed)
+    target = np.round(rng.rand(steps, 4, 6), 1).astype(np.float32)
+    return [(p, t) for p, t in zip((target + 0.3 * rng.randn(steps, 4, 6)).astype(np.float32), target)]
+
+
+def _retrieval_collection(pkg, jit=True):
+    kw = dict(jit=jit) if pkg is J else dict(jit=jit, **CPU)
+    return pkg.MetricCollection({"map": pkg.RetrievalMAP(**kw), "mrr": pkg.RetrievalMRR(top_k=3, **kw),
+                                 "ndcg": pkg.RetrievalNormalizedDCG(**kw),
+                                 "curve": pkg.RetrievalPrecisionRecallCurve(max_k=4, **kw)})
+
+
+def _retrieval_data(steps=5, rows=24, seed=8):
+    rng = np.random.RandomState(seed)
+    return [(np.round(rng.rand(rows), 1).astype(np.float32), rng.randint(0, 2, rows), rng.randint(0, 7, rows))
+            for _ in range(steps)]
+
+
+def _assert_port_states_equal(a, b):
+    sa, sb = _port_states(a), _port_states(b)
+    for name in sa:
+        for k in sa[name]:
+            assert sa[name][k].dtype == sb[name][k].dtype, (name, k)
+            np.testing.assert_array_equal(sa[name][k], sb[name][k], err_msg=f"{name}.{k}")
+
+
+def _assert_like_jax(pc, jc):
+    port, jax = _port_states(pc), _jax_states(jc)
+    for name in jax:
+        for k, want in jax[name].items():
+            got = port[name][k]
+            assert got.dtype == want.dtype and got.shape == want.shape, (name, k, got.dtype, want.dtype)
+            if np.issubdtype(want.dtype, np.floating) and k not in pc._metrics[name]._list_states:
+                np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-6, err_msg=f"{name}.{k}")
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=f"{name}.{k}")
+
+
+def test_regression_collection_captures_every_member_and_equals_eager_bitwise():
+    """Every regression member is declared capturable (the SUM states, the
+    Pearson moments whose update reads state, the cat states); the fused
+    step equals the eager loop bitwise and the JAX package's fused update
+    within the slice's tolerance."""
+    fused, eager, jc = _regression_collection(P), _regression_collection(P, jit=False), _regression_collection(J)
+    for p, t in _regression_data():
+        for coll in (fused, eager):
+            coll.update(torch.from_numpy(p), torch.from_numpy(t))
+        jc.update(jnp.asarray(p), jnp.asarray(t))
+    captured, not_captured = fused._fused_update_plan()
+    assert not not_captured and len(captured) == len(fused.compute_groups)
+    _assert_port_states_equal(fused, eager)
+    _assert_like_jax(fused, jc)
+    fv, ev, jv = fused.compute(), eager.compute(), jc.compute()
+    for k in jv:
+        assert torch.equal(fv[k], ev[k]), k
+        np.testing.assert_allclose(fv[k].numpy(), np.asarray(jv[k]), rtol=RTOL, atol=1e-6, err_msg=k)
+
+
+def test_retrieval_collection_fused_equals_eager_and_jax():
+    """The retrieval members share one group of cat states; the fused step
+    appends the same rows as the eager loop and the JAX package, bitwise."""
+    fused, eager, jc = _retrieval_collection(P), _retrieval_collection(P, jit=False), _retrieval_collection(J)
+    for p, t, i in _retrieval_data():
+        for coll in (fused, eager):
+            coll.update(torch.from_numpy(p), torch.from_numpy(t), indexes=torch.from_numpy(i))
+        jc.update(jnp.asarray(p), jnp.asarray(t), indexes=jnp.asarray(i))
+    assert fused.compute_groups == {0: ["curve", "map", "mrr", "ndcg"]}
+    assert [n for n, _ in fused._fused_update_plan()[0]] == ["curve"]
+    _assert_port_states_equal(fused, eager)
+    _assert_like_jax(fused, jc)
+    fv, jv = fused.compute(), jc.compute()
+    for k in ("map", "mrr", "ndcg"):
+        np.testing.assert_allclose(fv[k].numpy(), np.asarray(jv[k]), rtol=TOL, atol=TOL, err_msg=k)
+    for got, want in zip(fv["curve"], jv["curve"]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)

@@ -475,3 +475,74 @@ def test_buffered_cat_metric_matches_jax(window):
     assert isinstance(pm.__dict__["preds"], P.CatBuffer)
     _assert_states_match_jax(_port_states({"m": pm}), _jax_states({"m": jm}))
     np.testing.assert_allclose(float(ph.compute()), float(jh.compute()), rtol=TOL, atol=TOL)
+
+
+# ------------------------------------------------ regression and retrieval members
+def _regression_collection(pkg):
+    kw = {} if pkg is J else CPU
+    # the JAX package's Pearson runs eagerly, in step with the buffered
+    # window: its executable cache is process-wide, and a test of its own
+    # that shares a worker process counts on compiling Pearson's update first
+    # (its tests/test_fused_collection.py:140)
+    moments = {"jit": False} if pkg is J else CPU
+    return pkg.MetricCollection({
+        "mse": pkg.MeanSquaredError(**kw), "r2": pkg.R2Score(**kw), "pearson": pkg.PearsonCorrCoef(**moments),
+        "spearman": pkg.SpearmanCorrCoef(**kw), "kl": pkg.KLDivergence(reduction="none", **kw),
+    })
+
+
+def _regression_steps(steps=10, seed=9):
+    rng = np.random.RandomState(seed)
+    p = rng.rand(steps, 6, 4).astype(np.float32) + 0.1
+    return [(x, (x + 0.2 * rng.rand(6, 4)).astype(np.float32)) for x in p]
+
+
+@pytest.mark.parametrize("window", [1, 3, 8])
+def test_buffered_regression_collection_bitwise_eager_and_like_jax(window):
+    """Sum states, Pearson's moments (an update that reads state, merged by
+    the masked step as any state is) and cat states, buffered at K = 1, 3
+    and 8 (short last windows): bitwise the eager loop, and within 1e-5 of
+    the JAX package's buffered collection."""
+    eager, handle = _regression_collection(P), _regression_collection(P).buffered(window=window)
+    jh = _regression_collection(J).buffered(window=window)
+    for p, t in _regression_steps():
+        eager.update(torch.from_numpy(p), torch.from_numpy(t))
+        handle.update(torch.from_numpy(p), torch.from_numpy(t))
+        jh.update(jnp.asarray(p), jnp.asarray(t))
+    handle.flush()
+    jh.flush()
+    for name, m in eager._metrics.items():
+        _assert_state_bitwise(m, handle.collection._metrics[name])
+    port, jax = _port_states(handle.collection._metrics), _jax_states(jh.collection._metrics)
+    for name in jax:
+        for k, want in jax[name].items():
+            got = port[name][k]
+            assert got.dtype == want.dtype and got.shape == want.shape, (name, k)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, err_msg=f"{name}.{k}")
+
+
+@pytest.mark.parametrize("window", [1, 4])
+def test_buffered_retrieval_keeps_declared_cat_dtypes(window):
+    """Under buffered(K) the retrieval cat states keep the dtypes they
+    declare (int32 ids from int64 input, float32 scores, a bool ignore
+    channel) and equal the eager loop's and the JAX package's rows."""
+    rng = np.random.RandomState(10)
+    eager = P.RetrievalMAP(ignore_index=-1, **CPU)
+    metric = P.RetrievalMAP(ignore_index=-1, **CPU)
+    handle, jm = metric.buffered(window=window), J.RetrievalMAP(ignore_index=-1)
+    jh = jm.buffered(window=window)
+    for _ in range(5):
+        p, t, i = rng.rand(12).astype(np.float32), rng.randint(-1, 2, 12), rng.randint(0, 4, 12)
+        eager.update(torch.from_numpy(p), torch.from_numpy(t), indexes=torch.from_numpy(i))
+        handle.update(torch.from_numpy(p), torch.from_numpy(t), indexes=torch.from_numpy(i))
+        jh.update(jnp.asarray(p), jnp.asarray(t), indexes=jnp.asarray(i))
+    handle.flush()
+    jh.flush()
+    _assert_state_bitwise(eager, metric)
+    dtypes = {k: _rows(v).dtype for k, v in metric.metric_state.items()}
+    assert dtypes == {"indexes": np.int32, "preds": np.float32, "target": np.int32, "ignore": np.bool_}
+    port, jax = _port_states({"m": metric}), _jax_states({"m": jm})
+    for k, want in jax["m"].items():
+        assert port["m"][k].dtype == want.dtype, k
+        np.testing.assert_array_equal(port["m"][k], want, err_msg=k)
+    np.testing.assert_allclose(float(handle.compute()), float(jh.compute()), rtol=TOL, atol=TOL)

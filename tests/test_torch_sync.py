@@ -91,6 +91,13 @@ FAMILIES = {
     # tests/test_online.py:223
     "online": (lambda pkg, **kw: _online_family(pkg, **kw),
                lambda k, m, b, w: m.update(w(b[3]), w(b[4])) if k == "windowed_mean" else m.update(w(b[3]))),
+    # NONE-reduced running moments, gathered as (world,) stacks and merged at
+    # compute (the empty rank's count is 0)
+    "pearson": (lambda pkg, **kw: {"pearson": pkg.PearsonCorrCoef(**kw), "concordance": pkg.ConcordanceCorrCoef(**kw)},
+                lambda k, m, b, w: m.update(w(b[3]), w(b[4]))),
+    # int32 query ids, float32 scores and int32 targets as cat states
+    "retrieval": (lambda pkg, **kw: {"map": pkg.RetrievalMAP(**kw)},
+                  lambda k, m, b, w: m.update(w(b[4]), w(b[1] % 2), indexes=w(b[2]))),
 }
 
 

@@ -18,6 +18,11 @@ from .metric import CompositionalMetric, Metric
 from .online import DecayedMetric, WindowedMetric
 from .ops import weighted_bincount
 from .parallel import NoSync, Reduction, SyncBackend
+from .regression import *  # noqa: F401,F403
+from .regression import __all__ as _regression_all
+from .retrieval import (RetrievalAUROC, RetrievalFallOut, RetrievalHitRate, RetrievalMAP, RetrievalMRR,
+                        RetrievalNormalizedDCG, RetrievalPrecision, RetrievalPrecisionRecallCurve, RetrievalRecall,
+                        RetrievalRecallAtFixedPrecision, RetrievalRPrecision)
 from .state import MetricState
 from .streaming import BufferedMetric, BufferedMetricCollection
 from .utils.data import label_results
@@ -26,6 +31,7 @@ from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetr
 
 __all__ = [
     *_classification_all,
+    *_regression_all,
     "BootStrapper",
     "BufferedMetric",
     "BufferedMetricCollection",
@@ -49,6 +55,17 @@ __all__ = [
     "MultitaskWrapper",
     "NoSync",
     "Reduction",
+    "RetrievalAUROC",
+    "RetrievalFallOut",
+    "RetrievalHitRate",
+    "RetrievalMAP",
+    "RetrievalMRR",
+    "RetrievalNormalizedDCG",
+    "RetrievalPrecision",
+    "RetrievalPrecisionRecallCurve",
+    "RetrievalRPrecision",
+    "RetrievalRecall",
+    "RetrievalRecallAtFixedPrecision",
     "Running",
     "RunningMean",
     "RunningSum",

@@ -19,3 +19,14 @@ def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
 def _value_check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def _narrow(x: torch.Tensor) -> torch.Tensor:
+    """A 64-bit input in the 32-bit dtype the JAX package computes it in
+    (JAX without x64 holds float64 as float32 and int64 as int32), so both
+    packages round the same intermediates."""
+    dtype = _NARROW.get(x.dtype)
+    return x if dtype is None else x.to(dtype)

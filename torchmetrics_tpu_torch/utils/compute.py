@@ -26,6 +26,12 @@ def _safe_divide(num: Tensor, denom: Tensor, zero_division: float = 0.0) -> Tens
     return torch.where(zero, torch.full_like(out, zero_division), out)
 
 
+def _safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)``, with ``x == 0`` giving 0 (no ``0 * -inf`` NaN)."""
+    out = x * torch.log(torch.where(x == 0, torch.ones_like(y), y))
+    return torch.where(x == 0, torch.zeros_like(out), out)
+
+
 def _auc_compute_without_check(x: Tensor, y: Tensor, direction: float, axis: int = -1) -> Tensor:
     dx = torch.diff(x, dim=axis)
     y0 = torch.narrow(y, axis, 0, y.shape[axis] - 1)
