@@ -71,7 +71,28 @@ not 0 and no result line is printed:
    torch.cuda.set_sync_debug_mode("error"), so a host sync fails them;
    their values are held within 1e-6 of float64 numpy definitions (exact
    AUROC and AP by sorting, hinge, ranking metrics, fairness rates from the
-   counts). Every path reports its peak device memory;
+   counts). Every path reports its peak device memory.
+   The reference-image paths launch no kernel; float states within 1e-5
+   relative of the CPU run (which covers a path's first ``cpu_steps``
+   updates, against a card run of those), values within 1e-5 (relative
+   above 1) of it and of float64 definitions (separable float64 filters):
+   - div2k_val_x4_sr: PSNR, SSIM, MS-SSIM, UQI, VIF over the 100 DIV2K
+     validation images at 3 x 1356 x 2040, batch 1; its record adds the
+     TF32 check (SSIM and VIF with torch.backends.cudnn.allow_tf32 = True
+     set by the caller, within 1e-5 of float64; the same without the
+     port's IEEE pin, for comparison; SSIM against scipy.ndimage) and one
+     lone SSIM over four image sizes (one capture each);
+   - wv3_pansharpening_reduced: SAM, ERGAS, SCC, RASE, RMSE-SW and UQI over
+     20 WorldView-3 samples of 8 x 256 x 256;
+   - wv3_pansharpening_full: D_s and QNR over 20 samples (8 x 512 x 512
+     fused, 8 x 128 x 128 ms, the pan band repeated over 8), batches of 4;
+     D_lambda alone; whole images as cat states, bitwise;
+   - live1_jpeg_deblock: PSNR, PSNR-B and SSIM over 29 grayscale images of
+     1 x 512 x 768 with 8 x 8 block offsets; total variation alone;
+   each followed by phase lone: every image metric of the path updated
+   alone, one replay per update after its capture (RASE: two captures, its
+   first update reshapes its states), states bitwise equal to an eager
+   twin (jit=False), host ms per update of both routes;
    composition: the wrappers, the composition and the online
    metrics at bench config 2's width (C=100, batch 1,024, float32 logits),
    200 updates as 4 epochs of 50 (see CompositionStep): a MetricTracker of
@@ -80,7 +101,8 @@ not 0 and no result line is printed:
    (Accuracy + F1) / 2, a MultitaskWrapper and RunningMean, WindowedMean and
    DecayedMean of the loss; each wrapper's launches per update (1 per
    BootStrapper update for all 10 replicas, 1 per wrapped stat-score
-   update), every state against a device="cpu" run (integer states, the
+   update, and 1 more once where a wrapper's inner metric, updated alone,
+   warms up before its capture), every state against a device="cpu" run (integer states, the
    BootStrapper's stacked ones included, bitwise), the online updates and
    computes under set_sync_debug_mode("error"), the profiler breakdown and
    the peak device memory.
@@ -93,13 +115,16 @@ not 0 and no result line is printed:
    launches per update equal to the eager route's, one replay per update,
    states handed out before a fused update unchanged after it, host ms per
    update beside the eager loop's and the profiler breakdown; a member
-   whose update reads the host (capture_refusal) must raise CaptureError;
+   whose update reads the host (capture_refusal) must raise CaptureError,
+   in a collection and alone;
 5. streaming: bench config 2 through MetricCollection.buffered(window=K),
    K in 1, 8, 32, 200 updates (a short last window at K=32): states against
    the eager loop, one replay per flush, ms per step, ring memory;
 6. config1: bench.py's config 1 (MulticlassAccuracy, C=100, 1,000 steps of
-   batch 1,024) through update_state_batched, the stateful loop and
-   buffered(window=32): updates/s of each, int32 states equal;
+   batch 1,024) through update_state_batched, the stateful loop eagerly
+   (jit=False) and through the lone metric's captured update (one replay
+   per update), and buffered(window=32): updates/s of each, int32 states
+   equal;
 7. step_overhead: bench.py's step-overhead MLP (bf16, 2048 -> 8192 x 4 ->
    100, batch 512, SGD) in eager PyTorch, with bench config 2's collection
    updated per step eagerly, fused, and buffered at K in 1, 8, 32: each
@@ -384,6 +409,7 @@ def multiclass_path(num_classes: int, batch: int, steps: int) -> dict:
     def make(device, jit=True):
         from torchmetrics_tpu_torch import MetricCollection
         from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
+        from torchmetrics_tpu_torch.regression import MeanSquaredError
 
         kw = dict(num_classes=num_classes, validate_args=False, device=device, jit=jit)
         return MetricCollection({
@@ -1039,6 +1065,688 @@ def msmarco_rerank_path(queries: int = 6980, candidates: int = 1000, batch_queri
                       "last_rows": (queries - (steps - 1) * batch_queries) * candidates}}
 
 
+# ---------------------------------------------------------------------------
+# the reference-image paths: float64 definitions, the data, the paths
+# ---------------------------------------------------------------------------
+
+def _filter64(x, taps_h, taps_w):
+    """A separable float64 filter of (N, C, H, W) ``x``, valid padding: one
+    (kh, 1) and one (1, kw) depthwise pass (the port filters with one 2-D
+    float32 pass)."""
+    import torch.nn.functional as F
+
+    c = x.shape[1]
+    x = F.conv2d(x, taps_h.reshape(1, 1, -1, 1).expand(c, 1, -1, 1), groups=c)
+    return F.conv2d(x, taps_w.reshape(1, 1, 1, -1).expand(c, 1, 1, -1), groups=c)
+
+
+def _gauss64(size: int, sigma: float, device):
+    import torch
+
+    x = torch.arange(size, dtype=torch.float64, device=device) - (size - 1) / 2
+    g = torch.exp(-(x**2) / (2 * sigma**2))
+    return g / g.sum()
+
+
+def _ssim64(p, t, data_range: float = 1.0, size: int = 11, sigma: float = 1.5):
+    """Per-sample SSIM and contrast sensitivity in float64: reflect-padded
+    Gaussian moments, the pad margins cropped."""
+    import torch.nn.functional as F
+
+    pad = (size - 1) // 2
+    g = _gauss64(size, sigma, p.device)
+    p, t = F.pad(p, (pad,) * 4, mode="reflect"), F.pad(t, (pad,) * 4, mode="reflect")
+    mp, mt, pp, tt, pt = (_filter64(v, g, g) for v in (p, t, p * p, t * t, p * t))
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    vp, vt, cov = pp - mp * mp, tt - mt * mt, pt - mp * mt
+    cs = (2 * cov + c2) / (vp + vt + c2)
+    sim = (2 * mp * mt + c1) / (mp * mp + mt * mt + c1) * cs
+    crop = (slice(None), slice(None), slice(pad, -pad), slice(pad, -pad))
+    n = p.shape[0]
+    return sim[crop].reshape(n, -1).mean(1), cs[crop].reshape(n, -1).mean(1)
+
+
+def _ms_ssim64(p, t, data_range: float = 1.0, betas=(0.0448, 0.2856, 0.3001, 0.2363, 0.1333)):
+    import torch
+    import torch.nn.functional as F
+
+    sims, css = [], []
+    for i in range(len(betas)):
+        sim, cs = _ssim64(p, t, data_range)
+        sims.append(torch.relu(sim))
+        css.append(torch.relu(cs))
+        if i < len(betas) - 1:
+            p, t = F.avg_pool2d(p, 2), F.avg_pool2d(t, 2)
+    out = sims[-1] ** betas[-1]
+    for cs, beta in zip(css[:-1], betas[:-1]):
+        out = out * cs**beta
+    return out
+
+
+def _uqi64(p, t, size: int = 11, sigma: float = 1.5):
+    """Per-sample UQI in float64 (variances clamped at 0, float32's eps in
+    the denominator, as the definition the JAX package keeps)."""
+    import torch
+    import torch.nn.functional as F
+
+    pad = (size - 1) // 2
+    g = _gauss64(size, sigma, p.device)
+    p, t = F.pad(p, (pad,) * 4, mode="reflect"), F.pad(t, (pad,) * 4, mode="reflect")
+    mp, mt, pp, tt, pt = (_filter64(v, g, g) for v in (p, t, p * p, t * t, p * t))
+    vp, vt = torch.clamp(pp - mp * mp, min=0.0), torch.clamp(tt - mt * mt, min=0.0)
+    q = (2 * mp * mt) * (2 * (pt - mp * mt)) / ((mp * mp + mt * mt) * (vp + vt) + torch.finfo(torch.float32).eps)
+    n = p.shape[0]
+    return q[:, :, pad:-pad, pad:-pad].reshape(n, -1).mean(1)
+
+
+def _vif64(p, t, sigma_n_sq: float = 2.0):
+    """Per-sample VIF-p (channel mean) in float64."""
+    import torch
+
+    eps = 1e-10
+    per_channel = []
+    for c in range(p.shape[1]):
+        x, y = p[:, c : c + 1], t[:, c : c + 1]
+        num = torch.zeros(p.shape[0], dtype=torch.float64, device=p.device)
+        den = torch.zeros_like(num)
+        for scale in range(4):
+            n = 2.0 ** (4 - scale) + 1.0
+            g = _gauss64(int(n), n / 5.0, p.device)
+            if scale > 0:
+                x, y = _filter64(x, g, g)[:, :, ::2, ::2], _filter64(y, g, g)[:, :, ::2, ::2]
+            mx, my = _filter64(x, g, g), _filter64(y, g, g)
+            vx = torch.clamp(_filter64(x * x, g, g) - mx * mx, min=0.0)
+            vy = torch.clamp(_filter64(y * y, g, g) - my * my, min=0.0)
+            cxy = _filter64(x * y, g, g) - mx * my
+            gain = cxy / (vy + eps)
+            sv = vx - gain * cxy
+            gain, sv, vy = (torch.where(vy >= eps, gain, 0.0), torch.where(vy >= eps, sv, vx),
+                            torch.where(vy >= eps, vy, 0.0))
+            gain, sv = torch.where(vx >= eps, gain, 0.0), torch.where(vx >= eps, sv, 0.0)
+            sv = torch.where(gain >= 0, sv, vx)
+            gain, sv = torch.clamp(gain, min=0.0), torch.clamp(sv, min=eps)
+            num = num + torch.log2(1 + gain**2 * vy / (sv + sigma_n_sq)).sum((1, 2, 3))
+            den = den + torch.log2(1 + vy / sigma_n_sq).sum((1, 2, 3))
+        per_channel.append(num / (den + eps))
+    return torch.stack(per_channel).mean(0)
+
+
+def _sym_pad64(x, before: int, after: int):
+    import torch
+
+    x = torch.cat([x[..., :before, :].flip(-2), x, x[..., x.shape[-2] - after:, :].flip(-2)], -2)
+    return torch.cat([x[..., :before].flip(-1), x, x[..., x.shape[-1] - after:].flip(-1)], -1)
+
+
+def _box64(x, size: int, before: int, after: int):
+    """Window means over symmetric padding in float64."""
+    import torch
+
+    box = torch.full((size,), 1.0 / size, dtype=torch.float64, device=x.device)
+    return _filter64(_sym_pad64(x, before, after), box, box)
+
+
+def _hp64(x):
+    """SCC's Laplacian high-pass, times 2, over symmetric padding of 1."""
+    import torch.nn.functional as F
+
+    lap = -F.pad(x.new_ones(1, 1, 1, 1), (1, 1, 1, 1), value=1.0)
+    lap[0, 0, 1, 1] = 8.0
+    c = x.shape[1]
+    return F.conv2d(_sym_pad64(x, 1, 1), lap.expand(c, 1, 3, 3), groups=c) * 2.0
+
+
+def _scc64(p, t, window: int = 8):
+    """Per-sample SCC in float64: the high-passed images' local correlation
+    over zero-padded windows."""
+    import torch
+    import torch.nn.functional as F
+
+    hp, ht = _hp64(p), _hp64(t)
+    before, after = -(-(window - 1) // 2), (window - 1) // 2
+    box = torch.full((window,), 1.0 / window, dtype=torch.float64, device=p.device)
+
+    def mean(v):
+        return _filter64(F.pad(v, (before, after, before, after)), box, box)
+
+    mp, mt = mean(hp), mean(ht)
+    vp, vt = torch.clamp(mean(hp * hp) - mp * mp, min=0.0), torch.clamp(mean(ht * ht) - mt * mt, min=0.0)
+    den = torch.sqrt(vp) * torch.sqrt(vt)
+    scc = torch.where(den == 0, 0.0, (mean(hp * ht) - mp * mt) / torch.where(den == 0, 1.0, den))
+    return scc.mean((1, 2, 3))
+
+
+def _rmse_maps64(p, t, window: int = 8):
+    """(per-sample RMSE-SW maps, window-mean target over window**2) in float64."""
+    import torch
+
+    before, after = window // 2, window // 2 + window % 2 - 1
+    rmse = torch.sqrt(torch.clamp(_box64((p - t) ** 2, window, before, after), min=0.0))
+    return rmse, _box64(t, window, before, after) / window**2
+
+
+def _crop64(x, window: int):
+    cs = round(window / 2)
+    return x[..., cs:-cs, cs:-cs]
+
+
+def _d_lambda64(fused, ms):
+    """D_lambda (p = 1) of whole sets, in float64."""
+    bands = fused.shape[1]
+    total = 0.0
+    for k in range(bands):
+        for r in range(k + 1, bands):
+            q_ms = _uqi64(ms[:, k : k + 1], ms[:, r : r + 1]).mean()
+            q_fused = _uqi64(fused[:, k : k + 1], fused[:, r : r + 1]).mean()
+            total += 2 * abs(float(q_ms) - float(q_fused))
+    return total / (bands * (bands - 1))
+
+
+def _d_s64(fused, ms, pan, window: int = 7):
+    """D_s (norm order 1, pan_lr made from pan) of whole sets, in float64."""
+    import torch.nn.functional as F
+
+    degraded = _box64(pan, window, window // 2, (window - 1) // 2)
+    degraded = F.interpolate(degraded, size=ms.shape[-2:], mode="bilinear", align_corners=False, antialias=False)
+    diffs = [abs(float(_uqi64(ms[:, i : i + 1], degraded[:, i : i + 1]).mean())
+                 - float(_uqi64(fused[:, i : i + 1], pan[:, i : i + 1]).mean())) for i in range(fused.shape[1])]
+    return sum(diffs) / len(diffs)
+
+
+def _psnrb64(p, t, block: int = 8):
+    """PSNR-B of a (N, 1, H, W) set in float64, by its definition: the mean
+    squared error plus the blockiness of the predictions."""
+    import math
+
+    import torch
+
+    n_img, _, h, w = p.shape
+    dh, dv = (p[..., :, 1:] - p[..., :, :-1]) ** 2, (p[..., 1:, :] - p[..., :-1, :]) ** 2
+    col = torch.arange(w - 1, device=p.device) % block == block - 1
+    row = (torch.arange(h - 1, device=p.device) % block == block - 1)[:, None]
+    bef = 0.0
+    for i in range(n_img):
+        d_b = (dh[i] * col).sum() + (dv[i] * row).sum()
+        d_bc = (dh[i] * ~col).sum() + (dv[i] * ~row).sum()
+        n_hb, n_vb = h * (w / block) - 1, w * (h / block) - 1
+        d_b, d_bc = float(d_b) / (n_hb + n_vb), float(d_bc) / (h * (w - 1) - n_hb + w * (h - 1) - n_vb)
+        bef += math.log2(block) / math.log2(min(h, w)) * (d_b - d_bc) if d_b > d_bc else 0.0
+    mse = float(((p - t) ** 2).sum()) / t.numel() + bef
+    rng = float(t.max() - t.min())
+    return 10 * math.log10((rng**2 if rng > 2 else 1.0) / mse)
+
+
+def _blur(x, sigma: float):
+    """A Gaussian blur (9 taps, reflect padding) in float32: the degradation
+    of the synthetic predictions."""
+    import torch.nn.functional as F
+
+    g = _gauss64(9, sigma, x.device).float()
+    c = x.shape[1]
+    x = F.pad(x, (4, 4, 4, 4), mode="reflect")
+    x = F.conv2d(x, g.reshape(1, 1, -1, 1).expand(c, 1, -1, 1), groups=c)
+    return F.conv2d(x, g.reshape(1, 1, 1, -1).expand(c, 1, 1, -1), groups=c)
+
+
+def _natural(g, dev, n: int, channels: int, height: int, width: int):
+    """(n, C, H, W) float32 images in [0, 1] with a photograph's spectrum,
+    roughly: smooth random fields at three scales and fine texture."""
+    import torch
+    import torch.nn.functional as F
+
+    img = torch.zeros(n, channels, height, width, device=dev)
+    for cells, weight in ((8, 0.5), (64, 0.3), (256, 0.15)):
+        low = torch.rand(n, channels, max(2, height // cells), max(2, width // cells), generator=g, device=dev)
+        img += weight * F.interpolate(low, size=(height, width), mode="bilinear", align_corners=False)
+    img += 0.05 * torch.rand(n, channels, height, width, generator=g, device=dev)
+    return torch.clamp(img, 0.0, 1.0)
+
+
+def div2k_sr_path(images: int = 100, height: int = 1356, width: int = 2040, cpu_steps: int = 2) -> dict:
+    """DIV2K validation x4 super-resolution evaluation (Agustsson & Timofte,
+    NTIRE 2017), as BasicSR and the SR papers report it: 100 HR images, here
+    all 3 x 1356 x 2040 float32 in [0, 1] (cut: the set mixes sizes), batch
+    1; the predictions are the target blurred (sigma 1.2) with Gaussian noise
+    (0.02). PSNR, SSIM and MS-SSIM (data_range 1.0), UQI and VIF: float32
+    sums, UQI's cat state of per-image values. The CPU run covers the first
+    ``cpu_steps`` updates (an image costs it seconds); float states within
+    1e-5 relative of it, values within 1e-5 of it and of float64
+    definitions (separable float64 filters); each member also runs alone.
+    The extra check is the TF32 check and SSIM against scipy.ndimage."""
+
+    def make(device, jit=True):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.image import (MultiScaleStructuralSimilarityIndexMeasure, PeakSignalNoiseRatio,
+                                                  StructuralSimilarityIndexMeasure, UniversalImageQualityIndex,
+                                                  VisualInformationFidelity)
+
+        kw = dict(device=device, jit=jit)
+        return MetricCollection({
+            "psnr": PeakSignalNoiseRatio(data_range=1.0, **kw), "ssim": StructuralSimilarityIndexMeasure(
+                data_range=1.0, **kw), "ms_ssim": MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, **kw),
+            "uqi": UniversalImageQualityIndex(**kw), "vif": VisualInformationFidelity(**kw)})
+
+    def inputs(g, dev):
+        import torch
+
+        target = torch.cat([_natural(g, dev, 1, 3, height, width) for _ in range(images)])
+        preds = torch.cat([torch.clamp(_blur(t[None], 1.2) + 0.02 * torch.randn(t[None].shape, generator=g,
+                                                                                 device=dev), 0.0, 1.0)
+                           for t in target])
+        return preds[:, None], target[:, None]
+
+    def direct(preds, target):
+        import math
+
+        sse = sum(float(((p.double() - t.double()) ** 2).sum()) for p, t in zip(preds, target))
+        per = {"ssim": [], "ms_ssim": [], "uqi": [], "vif": []}
+        for p, t in zip(preds, target):
+            p, t = p.double(), t.double()
+            per["ssim"].append(float(_ssim64(p, t)[0].mean()))
+            per["ms_ssim"].append(float(_ms_ssim64(p, t).mean()))
+            per["uqi"].append(float(_uqi64(p, t).mean()))
+            per["vif"].append(float(_vif64(p, t).mean()))
+        out = {k: sum(v) / len(v) for k, v in per.items()}
+        out["psnr"] = 10 * math.log10(1.0 / (sse / (preds.numel())))
+        return out
+
+    def lone(device, jit):
+        return dict(make(device, jit).items(keep_base=True, copy_state=False))
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": images, "launches": (0, 0, 0, 0),
+            "groups": {0: ["ms_ssim"], 1: ["psnr"], 2: ["ssim"], 3: ["uqi"], 4: ["vif"]},
+            "state_rtol": 1e-5, "value_tol": 1e-5, "sync_free_update": True, "sync_free_compute": True,
+            "compute_host_reads": 0, "cpu_steps": cpu_steps, "lone": lone, "float_cat_states": ("uqi.vals",),
+            "value_relative": True,
+            "extra": lambda dev: {**tf32_check(dev, height, width), **ssim_sizes_check(dev)},
+            "shape": {"images": images, "batch": 1, "channels": 3, "height": height, "width": width,
+                      "reduced": ["every image at the set's most common size, 1356 x 2040"]}}
+
+
+def wv3_reduced_path(samples: int = 20, bands: int = 8, size: int = 256, cpu_steps: int = 4) -> dict:
+    """The PanCollection WorldView-3 reduced-resolution test set (Deng et
+    al., IEEE GRSM 2022): 20 samples of 8 x 256 x 256 fused images against
+    their ground truth, one per update. SAM, ERGAS (ratio 4), SCC, RASE,
+    RMSE-SW and UQI; RASE's states become (8, 256, 256) maps at its first
+    update. Float states within 1e-5 relative of the CPU run (its first
+    ``cpu_steps`` updates), cat states bitwise; values within 1e-5 relative
+    of the CPU run and of float64 definitions."""
+
+    def make(device, jit=True):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.image import (ErrorRelativeGlobalDimensionlessSynthesis,
+                                                  RelativeAverageSpectralError, RootMeanSquaredErrorUsingSlidingWindow,
+                                                  SpatialCorrelationCoefficient, SpectralAngleMapper,
+                                                  UniversalImageQualityIndex)
+
+        kw = dict(device=device, jit=jit)
+        return MetricCollection({
+            "sam": SpectralAngleMapper(**kw), "ergas": ErrorRelativeGlobalDimensionlessSynthesis(ratio=4.0, **kw),
+            "scc": SpatialCorrelationCoefficient(**kw), "rase": RelativeAverageSpectralError(**kw),
+            "rmse_sw": RootMeanSquaredErrorUsingSlidingWindow(**kw), "uqi": UniversalImageQualityIndex(**kw)})
+
+    def inputs(g, dev):
+        import torch
+
+        target = _natural(g, dev, samples, bands, size, size)
+        preds = torch.clamp(_blur(target, 1.0) + 0.01 * torch.randn(target.shape, generator=g, device=dev), 0, 1)
+        return preds[:, None], target[:, None]
+
+    def direct(preds, target):
+        import torch
+
+        p, t = preds[:, 0].double(), target[:, 0].double()
+        cos_num = torch.linalg.vector_norm(p / torch.linalg.vector_norm(p, dim=1, keepdim=True)
+                                           - t / torch.linalg.vector_norm(t, dim=1, keepdim=True), dim=1)
+        cos_den = torch.linalg.vector_norm(p / torch.linalg.vector_norm(p, dim=1, keepdim=True)
+                                           + t / torch.linalg.vector_norm(t, dim=1, keepdim=True), dim=1)
+        rmse_band = torch.sqrt(((p - t) ** 2).mean((2, 3)))
+        ergas = 400.0 * torch.sqrt(((rmse_band / t.mean((2, 3))) ** 2).mean(1))
+        rmse_map, target_map = _rmse_maps64(p, t)
+        rase_map = 100.0 / (target_map.mean(0).mean(0)) * torch.sqrt((rmse_map.mean(0) ** 2).mean(0))
+        return {"sam": float((2 * torch.atan2(cos_num, cos_den)).mean()), "ergas": float(ergas.mean()),
+                "scc": float(torch.cat([_scc64(p[i : i + 1], t[i : i + 1]) for i in range(len(p))]).mean()),
+                "rase": float(_crop64(rase_map, 8).mean()),
+                "rmse_sw": float(_crop64(rmse_map, 8).mean((1, 2, 3)).mean()),
+                "uqi": float(torch.cat([_uqi64(p[i : i + 1], t[i : i + 1]) for i in range(len(p))]).mean())}
+
+    def lone(device, jit):
+        return dict(make(device, jit).items(keep_base=True, copy_state=False))
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": samples, "launches": (0, 0, 0, 0),
+            "groups": {0: ["ergas"], 1: ["rase"], 2: ["rmse_sw"], 3: ["sam"], 4: ["scc"], 5: ["uqi"]},
+            "state_rtol": 1e-5, "value_tol": 1e-5, "sync_free_update": True, "sync_free_compute": True,
+            "compute_host_reads": 0, "cpu_steps": cpu_steps, "lone": lone,
+            "value_relative": True, "float_cat_states": ("sam.vals", "ergas.vals", "scc.vals", "uqi.vals"),
+            "shape": {"samples": samples, "batch": 1, "bands": bands, "height": size, "width": size}}
+
+
+def wv3_full_path(samples: int = 20, batch: int = 4, bands: int = 8, size: int = 512, ratio: int = 4,
+                  cpu_steps: int = 1) -> dict:
+    """The PanCollection WorldView-3 full-resolution test set: 20 samples,
+    fused images of 8 x 512 x 512 from multispectral ones of 8 x 128 x 128
+    and a 512 x 512 panchromatic band (repeated over the 8 bands), in
+    batches of 4. D_s and QNR (pan_lr=None, so each compute makes the
+    degraded pan: a 7 x 7 mean filter and the bilinear resize) take
+    ``target={"ms", "pan"}``; D_lambda takes the ms as its target, so it runs
+    alone. The three keep whole images as cat states: bitwise against the
+    CPU run (its first batch), values within 1e-5 of it and of float64
+    definitions."""
+
+    def make(device, jit=True):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.image import QualityWithNoReference, SpatialDistortionIndex
+
+        kw = dict(device=device, jit=jit)
+        return MetricCollection({"d_s": SpatialDistortionIndex(**kw), "qnr": QualityWithNoReference(**kw)})
+
+    def inputs(g, dev):
+        import torch
+
+        ms = _natural(g, dev, samples, bands, size // ratio, size // ratio)
+        up = torch.nn.functional.interpolate(ms, scale_factor=ratio, mode="bicubic", align_corners=False)
+        pan = torch.clamp(up.mean(1, keepdim=True) + 0.05 * _natural(g, dev, samples, 1, size, size), 0, 1)
+        preds = torch.clamp(up + 0.5 * (pan - up.mean(1, keepdim=True)), 0, 1)
+        pan = pan.repeat(1, bands, 1, 1)
+        split = lambda x: list(torch.split(x, batch))  # noqa: E731
+        return split(preds), [{"ms": m, "pan": q} for m, q in zip(split(ms), split(pan))]
+
+    def direct(preds, target):
+        import torch
+
+        fused = torch.cat(preds).double()
+        ms = torch.cat([t["ms"] for t in target]).double()
+        pan = torch.cat([t["pan"] for t in target]).double()
+        d_s = _d_s64(fused, ms, pan)
+        return {"d_s": d_s, "qnr": (1 - _d_lambda64(fused, ms)) * (1 - d_s)}
+
+    def lone(device, jit):
+        from torchmetrics_tpu_torch.image import SpectralDistortionIndex
+
+        return {"d_lambda": SpectralDistortionIndex(device=device, jit=jit),
+                **dict(make(device, jit).items(keep_base=True, copy_state=False))}
+
+    def lone_args(preds, target):
+        return (preds, target["ms"])
+
+    def lone_direct(preds, target):
+        import torch
+
+        return {"d_lambda": _d_lambda64(torch.cat(preds).double(), torch.cat([t["ms"] for t in target]).double())}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": -(-samples // batch),
+            "launches": (0, 0, 0, 0), "groups": {0: ["d_s", "qnr"]},
+            "state_rtol": 1e-5, "value_tol": 1e-5, "sync_free_update": True, "sync_free_compute": True,
+            "compute_host_reads": 0, "cpu_steps": cpu_steps, "lone": lone,
+            "value_relative": True,
+            "lone_args": {"d_lambda": lone_args}, "lone_direct": lone_direct,
+            "shape": {"samples": samples, "batch": batch, "bands": bands, "height": size, "width": size,
+                      "ms_size": size // ratio}}
+
+
+def live1_deblock_path(images: int = 29, height: int = 512, width: int = 768) -> dict:
+    """JPEG deblocking evaluated on LIVE1 (29 images) in grayscale, as the
+    ARCNN/DnCNN line of work reports PSNR, PSNR-B and SSIM: here each
+    1 x 512 x 768 (cut: the set mixes sizes), batch 1; the predictions carry
+    a constant offset per 8 x 8 block (uniform in +-0.03) and faint noise.
+    PSNR, PSNR-B and SSIM in a collection; total variation takes one input,
+    so it runs alone on the predictions. Float states within 1e-5 relative
+    of the CPU run, values within 1e-5 of it and of float64 definitions."""
+
+    def make(device, jit=True):
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.image import (PeakSignalNoiseRatio, PeakSignalNoiseRatioWithBlockedEffect,
+                                                  StructuralSimilarityIndexMeasure)
+
+        kw = dict(device=device, jit=jit)
+        return MetricCollection({"psnr": PeakSignalNoiseRatio(data_range=1.0, **kw),
+                                 "psnrb": PeakSignalNoiseRatioWithBlockedEffect(**kw),
+                                 "ssim": StructuralSimilarityIndexMeasure(data_range=1.0, **kw)})
+
+    def inputs(g, dev):
+        import torch
+
+        target = _natural(g, dev, images, 1, height, width)
+        offsets = 0.06 * torch.rand(images, 1, height // 8, width // 8, generator=g, device=dev) - 0.03
+        blocks = offsets.repeat_interleave(8, dim=2).repeat_interleave(8, dim=3)
+        preds = torch.clamp(target + blocks + 0.005 * torch.randn(target.shape, generator=g, device=dev), 0, 1)
+        return preds[:, None], target[:, None]
+
+    def direct(preds, target):
+        import math
+
+        p, t = preds[:, 0].double(), target[:, 0].double()
+        ssim = [float(_ssim64(p[i : i + 1], t[i : i + 1])[0].mean()) for i in range(len(p))]
+        return {"psnr": 10 * math.log10(1.0 / float(((p - t) ** 2).mean())), "psnrb": _psnrb64(p, t),
+                "ssim": sum(ssim) / len(ssim)}
+
+    def lone(device, jit):
+        from torchmetrics_tpu_torch.image import TotalVariation
+
+        return {"tv": TotalVariation(device=device, jit=jit), **dict(make(device, jit).items(keep_base=True,
+                                                                                           copy_state=False))}
+
+    def lone_direct(preds, target):
+        p = preds[:, 0].double()
+        return {"tv": float((p[..., 1:, :] - p[..., :-1, :]).abs().sum() + (p[..., 1:] - p[..., :-1]).abs().sum())}
+
+    return {"make": make, "inputs": inputs, "direct": direct, "steps": images, "launches": (0, 0, 0, 0),
+            "groups": {0: ["psnr"], 1: ["psnrb"], 2: ["ssim"]},
+            "state_rtol": 1e-5, "value_tol": 1e-5, "sync_free_update": True, "sync_free_compute": True,
+            "compute_host_reads": 0, "lone": lone, "value_relative": True,
+            "lone_args": {"tv": lambda preds, target: (preds,)}, "lone_direct": lone_direct,
+            "shape": {"images": images, "batch": 1, "channels": 1, "height": height, "width": width,
+                      "reduced": ["every image at 512 x 768"]}}
+
+
+def tf32_check(dev, height: int, width: int) -> dict:
+    """SSIM and VIF of one DIV2K-sized pair with
+    ``torch.backends.cudnn.allow_tf32 = True`` set by the caller: within
+    1e-5 of their float64 definitions, since the port pins cuDNN's float32
+    convolutions to IEEE; the same with the pin taken out (cuDNN free to
+    multiply in TF32), for comparison; and the float64 SSIM of the pair
+    against scipy.ndimage's Gaussian filter on the host, within 1e-5."""
+    import numpy as np
+    import scipy.ndimage
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image import (helper, structural_similarity_index_measure,
+                                                         visual_information_fidelity)
+
+    g = torch.Generator(device=dev).manual_seed(99)
+    target = _natural(g, dev, 1, 3, height, width)
+    preds = torch.clamp(_blur(target, 1.2) + 0.02 * torch.randn(target.shape, generator=g, device=dev), 0, 1)
+    funcs = {"ssim": lambda: structural_similarity_index_measure(preds, target, data_range=1.0),
+             "vif": lambda: visual_information_fidelity(preds, target)}
+    wants = {"ssim": float(_ssim64(preds.double(), target.double())[0].mean()),
+             "vif": float(_vif64(preds.double(), target.double()).mean())}
+    gots, unpinned = {}, {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, fn in funcs.items():
+            gots[name] = float(fn())
+        pin = helper.ieee_fp32_convolutions
+        helper.ieee_fp32_convolutions = contextlib.nullcontext
+        try:
+            for name, fn in funcs.items():
+                unpinned[name] = float(fn())
+        finally:
+            helper.ieee_fp32_convolutions = pin
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for name, want in wants.items():
+        if not abs(gots[name] - want) <= 1e-5:
+            raise AssertionError(f"tf32 check: {name} {gots[name]} against its float64 definition {want} with TF32 "
+                                 "allowed")
+    got, want = gots["ssim"], wants["ssim"]
+    p, t = preds[0].double().cpu().numpy(), target[0].double().cpu().numpy()
+    trunc = 5 / 1.5
+    vals = []
+    for c in range(p.shape[0]):
+        def f(v):
+            return scipy.ndimage.gaussian_filter(v, 1.5, truncate=trunc, mode="reflect")
+
+        x, y = p[c], t[c]
+        mx, my = f(x), f(y)
+        cs = (2 * (f(x * y) - mx * my) + 9e-4) / (f(x * x) - mx * mx + f(y * y) - my * my + 9e-4)
+        vals.append((((2 * mx * my + 1e-4) / (mx * mx + my * my + 1e-4)) * cs)[5:-5, 5:-5].mean())
+    scipy_value = float(np.mean(vals))
+    if not abs(scipy_value - want) <= 1e-5 or not abs(got - scipy_value) <= 1e-5:
+        raise AssertionError(f"tf32 check: SSIM {got}, float64 {want}, scipy.ndimage {scipy_value}")
+    return {"tf32_check": {"allow_tf32_by_caller": True, "tol": 1e-5, "ssim_scipy_ndimage": scipy_value,
+                           "abs_err_scipy": abs(got - scipy_value),
+                           **{name: {"value": gots[name], "float64": want, "abs_err": abs(gots[name] - want),
+                                     "tf32_unpinned": unpinned[name],
+                                     "abs_err_tf32_unpinned": abs(unpinned[name] - want)}
+                              for name, want in wants.items()}}}
+
+
+def ssim_sizes_check(dev, sizes=((1356, 2040), (1152, 2040), (1356, 1536), (648, 1020))) -> dict:
+    """One lone SSIM fed four image sizes, two images each: one capture per
+    size, one replay per update, states bitwise equal to an eager twin's."""
+    import torch
+
+    from torchmetrics_tpu_torch import _capture
+    from torchmetrics_tpu_torch.image import StructuralSimilarityIndexMeasure
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    lone = StructuralSimilarityIndexMeasure(data_range=1.0, device=dev)
+    eager = StructuralSimilarityIndexMeasure(data_range=1.0, device=dev, jit=False)
+    before = _capture.graph_stats()
+    for h, w in sizes:
+        for _ in range(2):
+            target = _natural(g, dev, 1, 3, h, w)
+            preds = torch.clamp(_blur(target, 1.2), 0, 1)
+            lone.update(preds, target)
+            eager.update(preds, target)
+    captures = _capture.graph_stats()["captures"] - before["captures"]
+    replays = _capture.graph_stats()["replays"] - before["replays"]
+    if captures != len(sizes) or replays != 2 * len(sizes) or len(lone._update_graphs) != len(sizes):
+        raise AssertionError(f"ssim sizes: {captures} captures and {replays} replays over {len(sizes)} sizes")
+    for k, v in eager.metric_state.items():
+        if not torch.equal(lone.metric_state[k], v):
+            raise AssertionError(f"ssim sizes: state {k} differs from the eager twin")
+    return {"ssim_sizes": {"sizes": [list(s) for s in sizes], "captures": captures, "replays": replays,
+                           "states_equal_eager": True}}
+
+
+def run_lone(label: str, path: dict, card: str, dev, inputs: tuple) -> dict:
+    """Phase ``lone``: each metric of ``path["lone"]`` updated alone over the
+    path's ``steps`` updates, through the captured route and through an
+    eager twin (jit=False): states bitwise equal, values equal. The captured
+    metric runs the steps twice. The first pass captures a graph per
+    signature (RASE two: its states change shape at the first update), each
+    update timed alone between syncs, so the updates that captured are timed
+    apart; after a reset the second pass replays a graph at every update and
+    is timed as a loop, like the eager twin's. A metric also named in
+    ``lone_direct`` (one not in the collection) has its value held against
+    its float64 definition and its states against a CPU run of
+    ``cpu_steps`` updates."""
+    import torch
+
+    from torchmetrics_tpu_torch import _capture
+    from torchmetrics_tpu_torch.interop import state_to_numpy
+
+    preds, target, _ = inputs
+    pick = path.get("lone_args", {})
+    direct = path["lone_direct"](preds, target) if "lone_direct" in path else {}
+    steps = path["steps"]
+    card_run = dev.type == "cuda"  # CPU tensors update eagerly
+    rows = {}
+    for name, lone in path["lone"](dev, True).items():
+        eager = path["lone"](dev, False)[name]
+        args = pick.get(name, lambda p, t: (p, t))
+
+        def drive(m, first=0, last=steps):
+            for i in range(first, last):
+                m.update(*args(preds[i], target[i]))
+
+        drive(eager, 0, 1)  # allocator and library handles
+        eager.reset()
+        _sync(dev)
+        t0 = time.perf_counter()
+        drive(eager)
+        _sync(dev)
+        eager_s = time.perf_counter() - t0
+
+        # first pass: every update timed alone, captures apart from replays
+        stats = _capture.graph_stats()
+        capture_s, captured, first_replay_s = [], 0, 0.0
+        for i in range(steps):
+            before = _capture.graph_stats()["captures"]
+            _sync(dev)
+            t0 = time.perf_counter()
+            drive(lone, i, i + 1)
+            _sync(dev)
+            took = time.perf_counter() - t0
+            if _capture.graph_stats()["captures"] > before:
+                capture_s.append(took)
+            else:
+                first_replay_s += took
+        captures = _capture.graph_stats()["captures"] - stats["captures"]
+        first_replays = _capture.graph_stats()["replays"] - stats["replays"]
+        # second pass: every signature has its graph, each update replays one
+        lone.reset()
+        stats = _capture.graph_stats()
+        _sync(dev)
+        t0 = time.perf_counter()
+        drive(lone)
+        _sync(dev)
+        lone_s = time.perf_counter() - t0
+        recaptures = _capture.graph_stats()["captures"] - stats["captures"]
+        replays = _capture.graph_stats()["replays"] - stats["replays"]
+        want_replays = steps if card_run else 0
+        if ((captures >= 1) != card_run or recaptures or first_replays != want_replays
+                or replays != want_replays):
+            raise AssertionError(f"lone {label}.{name}: {captures} captures and {first_replays} replays over the "
+                                 f"first {steps} updates, {recaptures} and {replays} over the second; expected a "
+                                 "capture per signature in the first pass, none in the second, and one replay "
+                                 "per update")
+        _compare_states(f"lone {label}.{name}", "captured against eager", {name: state_to_numpy(lone)},
+                        {name: state_to_numpy(eager)})
+        value, want = lone.compute(), eager.compute()
+        if not all(torch.equal(a, b) for a, b in zip(value if isinstance(value, tuple) else (value,),
+                                                      want if isinstance(want, tuple) else (want,))):
+            raise AssertionError(f"lone {label}.{name}: the captured value differs from the eager one")
+        row = {"captures": captures, "replays_per_update": replays / steps, "steps": steps,
+               "eager_ms_per_update": eager_s / steps * 1e3, "replay_ms_per_update": lone_s / steps * 1e3,
+               "capture_update_ms": [t * 1e3 for t in capture_s],
+               "first_pass_replay_ms_synced": first_replay_s / max(1, steps - len(capture_s)) * 1e3,
+               "states_equal_eager": "bitwise"}
+        if name in direct:
+            row["value"] = float(value)
+            row["value_err_direct"] = _check_value(f"lone {label}", f"{name} against its definition", value,
+                                                   direct[name], _value_tol(path, direct[name]))
+            k = path.get("cpu_steps", steps)
+            ref, snap = path["lone"]("cpu", False)[name], path["lone"](dev, False)[name]
+            for i in range(k):
+                ref.update(*_on_cpu(list(args(preds[i], target[i]))))
+                snap.update(*args(preds[i], target[i]))
+            row["float_state_max_rel_err_cpu"] = _compare_states(
+                f"lone {label}.{name}", f"card at update {k} against the CPU", {name: state_to_numpy(snap)},
+                {name: state_to_numpy(ref)}, path.get("state_rtol"), path.get("float_cat_states", ()))
+            want_cpu = ref.compute()
+            row["value_err_cpu"] = _check_value(f"lone {label}", f"{name} against the CPU run", snap.compute(),
+                                                want_cpu, _value_tol(path, want_cpu))
+            del ref, snap
+        rows[name] = row
+        del lone, eager
+    return {"phase": "lone", "path": label, "metrics": rows, "card": card}
+
+
+def _value_tol(path: dict, want) -> float:
+    """A path's value tolerance for ``want``: absolute, or with
+    ``value_relative`` relative to the value where it exceeds 1 (RASE and
+    PSNR run to hundreds and tens)."""
+    import torch
+
+    tol = path.get("value_tol", VALUE_TOL)
+    if not path.get("value_relative"):
+        return tol
+    return tol * max(1.0, float(torch.as_tensor(want).double().abs().max()))
+
+
 def sync_free_exact_computes(card: str) -> dict:
     """The filled exact functions the class computes go through, on the card
     at the new paths' shapes, under ``torch.cuda.set_sync_debug_mode("error")``:
@@ -1134,7 +1842,18 @@ def _on_cpu(x):
         return x.cpu()
     if isinstance(x, dict):
         return {k: _on_cpu(v) for k, v in x.items()}
-    return [e.cpu() for e in x]
+    return [_on_cpu(e) for e in x]
+
+
+def _head(x, k: int):
+    """The first ``k`` steps of per-step inputs (a stack, a list, or a dict
+    of them)."""
+    return {n: _head(v, k) for n, v in x.items()} if isinstance(x, dict) else x[:k]
+
+
+def _shape(x):
+    """A step input's shape (a dict of tensors: each one's)."""
+    return tuple(sorted((k, tuple(v.shape)) for k, v in x.items())) if isinstance(x, dict) else tuple(x.shape)
 
 
 def _update(coll, preds, target, extra, i: int) -> None:
@@ -1184,11 +1903,13 @@ def profile_updates(coll, preds, target, extra, first: int, steps: int) -> dict:
     }
 
 
-def _compare_states(label: str, how: str, got_states: dict, ref_states: dict, rtol=None) -> float:
+def _compare_states(label: str, how: str, got_states: dict, ref_states: dict, rtol=None, float_cats=()) -> float:
     """Every state of every member bitwise equal (a cat state, in either
     layout, as the concatenation of its valid rows); with ``rtol``, float
-    tensor states within ``rtol`` of the reference elementwise, relative to
-    its value. Returns the largest relative difference of those."""
+    tensor states, and the cat states named ``member.state`` in
+    ``float_cats`` (rows of computed values, not copies of the inputs),
+    within ``rtol`` of the reference elementwise, relative to its value.
+    Returns the largest relative difference of those."""
     import numpy as np
 
     def whole(value):
@@ -1201,7 +1922,8 @@ def _compare_states(label: str, how: str, got_states: dict, ref_states: dict, rt
             want, got = whole(want), whole(got_states[member][key])
             if got.dtype != want.dtype or got.shape != want.shape:
                 raise AssertionError(f"{label}: {how} state {member}.{key} differs from the CPU run")
-            if rtol is not None and not is_cat and np.issubdtype(want.dtype, np.floating):
+            relative = not is_cat or f"{member}.{key}" in float_cats
+            if rtol is not None and relative and np.issubdtype(want.dtype, np.floating):
                 diff = np.abs(got.astype(np.float64) - want)
                 err = float(np.max(diff / np.maximum(np.abs(want), np.finfo(np.float32).tiny))) if want.size else 0.0
                 worst = max(worst, err)
@@ -1348,16 +2070,35 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         raise AssertionError(f"{label}: pure launches {pure_launches}, {pure_computed} at compute; "
                              f"expected {pure_want * steps}, {compute_want}")
 
-    # the same run on the CPU (the kernel's plain version) over the same inputs
+    # the same run on the CPU (the kernel's plain version) over the same
+    # inputs; a path with ``cpu_steps`` K runs the CPU over its first K
+    # updates only, against a card run of those K updates, and holds its
+    # pure run against its stateful one
+    state_rtol, value_tol = path.get("state_rtol"), path.get("value_tol", VALUE_TOL)
+    cpu_steps = path.get("cpu_steps", steps)
     ref = make("cpu", jit=False)
-    preds_cpu, target_cpu, extra_cpu = _on_cpu(preds), _on_cpu(target), _on_cpu(extra)
-    for i in range(steps):
+    preds_cpu, target_cpu, extra_cpu = (_on_cpu(_head(x, cpu_steps)) for x in (preds, target, extra))
+    t0 = time.perf_counter()
+    for i in range(cpu_steps):
         _update(ref, preds_cpu, target_cpu, extra_cpu, i)
     ref_values = ref.compute()
+    cpu_s = time.perf_counter() - t0
     ref_states = state_to_numpy(ref)
-    del ref
+    del ref, preds_cpu, target_cpu, extra_cpu
 
-    runs = [(state_to_numpy(coll), values, "stateful"), (state_to_numpy(state), pure_values, "pure")]
+    if cpu_steps < steps:
+        snap = make(dev, jit=False)
+        for i in range(cpu_steps):
+            _update(snap, preds, target, extra, i)
+        runs = [(state_to_numpy(snap), snap.compute(), f"card at update {cpu_steps}")]
+        del snap
+        _compare_states(label, "pure against stateful", state_to_numpy(state), state_to_numpy(coll), state_rtol,
+                        path.get("float_cat_states", ()))
+        for key, want in values.items():
+            _check_value(label, f"pure {key} against the stateful loop", pure_values[key], want,
+                         _value_tol(path, want))
+    else:
+        runs = [(state_to_numpy(coll), values, "stateful"), (state_to_numpy(state), pure_values, "pure")]
     list_s = list_compute_s = None
     if path.get("layouts"):
         listed = make(dev, list_layout="list", jit=False)
@@ -1374,18 +2115,18 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         list_compute_s = time.perf_counter() - t0
         runs.append((state_to_numpy(listed), list_values, "list-layout"))
         del listed, list_values
-    state_rtol, value_tol = path.get("state_rtol"), path.get("value_tol", VALUE_TOL)
     state_err = value_err = direct_err = 0.0
     for got_states, got_values, how in runs:
-        state_err = max(state_err, _compare_states(label, how, got_states, ref_states, state_rtol))
+        state_err = max(state_err, _compare_states(label, how, got_states, ref_states, state_rtol,
+                                                   path.get("float_cat_states", ())))
         for key, want in ref_values.items():
             value_err = max(value_err, _check_value(label, f"{how} {key} against the CPU run", got_values[key],
-                                                    want, value_tol))
+                                                    want, _value_tol(path, want)))
     del runs, state, pure_values
     # values against their definitions, computed directly in float64
     for key, want in path["direct"](preds, target, **extra).items():
         direct_err = max(direct_err, _check_value(label, f"{key} against its direct definition", values[key],
-                                                  want, value_tol))
+                                                  want, _value_tol(path, want)))
 
     # each member's compute again, its synchronising calls counted
     host_reads = None
@@ -1415,6 +2156,7 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
         "list_layout_ms_per_update": None if list_s is None else list_s / (steps - 1) * 1e3,
         "list_layout_compute_ms": None if list_compute_s is None else list_compute_s * 1e3,
         "launches_per_compute": computed, "values": {k: _summary(v) for k, v in values.items()},
+        "cpu_steps": cpu_steps, "cpu_run_s": cpu_s,
         "states_equal_cpu": True if state_rtol is None else f"within {state_rtol} relative (floats)",
         "float_state_max_rel_err": state_err, "value_tol": value_tol, "value_max_err_cpu_run": value_err,
         "value_max_err_direct": direct_err,
@@ -1424,6 +2166,9 @@ def run_path(label: str, path: dict, card: str, dev) -> int:
     })
     fused = run_fused(label, path, card, dev, coll, values, (preds, target, extra), loop_s / (steps - 1) * 1e3,
                       breakdown)
+    if "lone" in path:
+        del coll
+        emit(run_lone(label, path, card, dev, (preds, target, extra)))
     return first + later + computed + pure_launches + pure_computed + fused
 
 
@@ -1500,7 +2245,7 @@ def run_fused(label: str, path: dict, card: str, dev, eager, eager_values: dict,
     launches0, stats = weighted_bincount.launches, _capture.graph_stats()
 
     def new_shape(i):
-        return any(x[i].shape != x[i - 1].shape for x in (preds, target, *extra.values()))
+        return any(_shape(x[i]) != _shape(x[i - 1]) for x in (preds, target, *extra.values()))
 
     # an update whose inputs change shape (Jigsaw's ragged last batch) warms
     # up and captures a graph of its own: timed apart, between two syncs
@@ -1535,8 +2280,10 @@ def run_fused(label: str, path: dict, card: str, dev, eager, eager_values: dict,
     int_states = _compare_nested(f"fused {label}", state_to_numpy(coll), state_to_numpy(eager))
     values = coll.compute()
     for key, want in eager_values.items():
-        _check_value(f"fused {label}", f"{key} against the eager loop", values[key], want,
-                     1e-5 * max(1.0, float(torch.as_tensor(want).double().abs().max())) if key == "ece" else VALUE_TOL)
+        tol = VALUE_TOL
+        if key == "ece" or path.get("value_relative"):
+            tol = (1e-5 if key == "ece" else VALUE_TOL) * max(1.0, float(torch.as_tensor(want).double().abs().max()))
+        _check_value(f"fused {label}", f"{key} against the eager loop", values[key], want, tol)
     total = weighted_bincount.launches
     del coll, values
 
@@ -1605,7 +2352,17 @@ def check_capture_refusal(card: str, dev) -> dict:
         raise AssertionError("capture_refusal: a host read inside a captured update was not refused")
     if "'host_read'" not in message or "chip_smoke.py" not in message or ".item()" not in message:
         raise AssertionError(f"capture_refusal: the error names no member or line: {message}")
-    return {"phase": "fused", "path": "capture_refusal", "raised": "CaptureError", "message": message, "card": card}
+    lone = HostRead.make(dev)
+    try:
+        lone.update(x)
+    except _capture.CaptureError as err:
+        lone_message = str(err)
+    else:
+        raise AssertionError("capture_refusal: a host read inside a lone captured update was not refused")
+    if "_HostRead.update" not in lone_message or ".item()" not in lone_message:
+        raise AssertionError(f"capture_refusal: the lone error names no class or line: {lone_message}")
+    return {"phase": "fused", "path": "capture_refusal", "raised": "CaptureError", "message": message,
+            "lone_message": lone_message, "card": card}
 
 
 # ---------------------------------------------------------------------------
@@ -1630,14 +2387,17 @@ class CompositionStep:
     """One evaluation step of a training loop as Lightning users write it,
     at bench config 2's width: a MetricTracker over Accuracy (micro), F1
     (macro) and binned AUROC (T=64); a poisson and a multinomial
-    BootStrapper (10 replicas) of Accuracy and macro F1; Accuracy per class
+    BootStrapper (10 replicas) of Accuracy and macro F1, and a poisson one
+    of MeanSquaredError on a regression head's outputs (its copies loop,
+    eagerly: a resample's size changes per update); Accuracy per class
     (ClasswiseWrapper), its min and max (MinMaxMetric) and over the last 5
     updates (Running); (Accuracy + F1) / 2; a MultitaskWrapper of Accuracy
     and the mean per-sample loss; and RunningMean (window 50), WindowedMean
     (horizon 64, 8 slots) and DecayedMean (half-life 50) of the per-step
     loss, ``nan_strategy="ignore"`` (a NaN step is skipped), updated under
     ``torch.cuda.set_sync_debug_mode("error")`` on the card. ``launches``
-    counts each wrapper's bincount launches."""
+    counts each wrapper's bincount launches, ``captures`` the graphs each
+    captures."""
 
     def __init__(self, device, num_classes: int, bootstraps: int):
         import torch
@@ -1646,6 +2406,7 @@ class CompositionStep:
                                             MetricTracker, MinMaxMetric, MultitaskWrapper, Running, RunningMean,
                                             WindowedMean)
         from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassAUROC, MulticlassF1Score
+        from torchmetrics_tpu_torch.regression import MeanSquaredError
 
         kw = dict(num_classes=num_classes, validate_args=False, device=device)
         dev = dict(device=device)
@@ -1658,6 +2419,7 @@ class CompositionStep:
                                          raw=True, **dev),
             "boot_multinomial": BootStrapper(MulticlassF1Score(average="macro", **kw), num_bootstraps=bootstraps,
                                              sampling_strategy="multinomial", quantile=[0.025, 0.975], raw=True, **dev),
+            "boot_mse_poisson": BootStrapper(MeanSquaredError(**dev), num_bootstraps=bootstraps, **dev),
             "classwise": ClasswiseWrapper(MulticlassAccuracy(average=None, **kw), **dev),
             "minmax": MinMaxMetric(MulticlassAccuracy(**kw), **dev),
             "running": Running(MulticlassAccuracy(**kw), window=5, **dev),
@@ -1668,22 +2430,27 @@ class CompositionStep:
                        "windowed_mean": WindowedMean(horizon=64, slots=8, nan_strategy="ignore", **dev),
                        "decayed_mean": DecayedMean(halflife=50.0, nan_strategy="ignore", **dev)}
         self.launches = dict.fromkeys(self.wrappers, 0)
+        self.captures = dict.fromkeys(self.wrappers, 0)
         # host seconds in each wrapper's update (no sync: the device idles
         # through most of an update, so this is mostly the host's own cost)
         self.host_s = dict.fromkeys([*self.wrappers, "online"], 0.0)
         self.wrappers["tracker"].increment()
 
-    def update(self, preds, target, loss, step_loss) -> None:
+    def update(self, preds, target, loss, step_loss, reg_preds, reg_target) -> None:
+        from torchmetrics_tpu_torch import _capture
         from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
 
         for name, m in self.wrappers.items():
-            before, t0 = weighted_bincount.launches, time.perf_counter()
+            before, captured, t0 = weighted_bincount.launches, _capture.graph_stats()["captures"], time.perf_counter()
             if name == "multitask":
                 m.update({"cls": preds, "loss": loss}, {"cls": target, "loss": 1.0})
+            elif name == "boot_mse_poisson":
+                m.update(reg_preds, reg_target)
             else:
                 m.update(preds, target)
             self.host_s[name] += time.perf_counter() - t0
             self.launches[name] += weighted_bincount.launches - before
+            self.captures[name] += _capture.graph_stats()["captures"] - captured
         t0 = time.perf_counter()
         with _host_sync_raises(self.device):
             for m in self.online.values():
@@ -1749,14 +2516,18 @@ def _compare_nested(label: str, got, want, where: str = "") -> int:
 
 
 def _composition_inputs(g, dev, num_classes: int, batch: int, steps: int) -> tuple:
-    """Float32 logits, labels, per-sample cross-entropy and its per-step mean."""
+    """Float32 logits, labels, per-sample cross-entropy and its per-step
+    mean, and a regression head's outputs and targets."""
     import torch
 
     logits = torch.randn(steps, batch, num_classes, generator=g, device=dev)
     target = torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
     loss = torch.nn.functional.cross_entropy(logits.reshape(-1, num_classes), target.reshape(-1),
                                              reduction="none").reshape(steps, batch)
-    return logits, target, {"loss": loss, "step_loss": loss.mean(1)}
+    reg_target = torch.rand(steps, batch, generator=g, device=dev)
+    reg_preds = reg_target + 0.1 * torch.randn(steps, batch, generator=g, device=dev)
+    return logits, target, {"loss": loss, "step_loss": loss.mean(1), "reg_preds": reg_preds,
+                            "reg_target": reg_target}
 
 
 def _drive_composition(step: CompositionStep, preds, target, extra, epochs: int, per_epoch: int) -> None:
@@ -1772,7 +2543,8 @@ def run_composition(card: str, dev, num_classes: int = 100, batch: int = 1024, e
     """Path ``composition`` at bench config 2's width (C=100, batch 1,024,
     float32 logits), 200 updates as 4 epochs of 50: every wrapper's
     bincount launches per update (1 per BootStrapper update for all its
-    replicas, 1 per wrapped stat-score update, the tracker's collection 3
+    replicas, 1 per wrapped stat-score update and, on the card, 1 more at
+    the warm-up before the inner metric's own capture, the tracker's collection 3
     on an epoch's first update, 2 + 2 on the second, whose fused update
     warms up and captures its graph, and 2 after), every state (the BootStrapper's
     stacked int32 ones included) and value against a device="cpu" run on the
@@ -1819,15 +2591,25 @@ def run_composition(card: str, dev, num_classes: int = 100, batch: int = 1024, e
     if dev.type == "cuda":
         memory = {"inputs_and_resident_mb": resident / 2**20, "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
                   "peak_over_resident_mb": (torch.cuda.max_memory_allocated() - resident) / 2**20}
+    card_run = dev.type == "cuda"
     want = {name: steps for name in step.launches}
     # the tracker's collection of each epoch: 3 at group discovery, then one
     # graph replay of 2 per update, and on the card the warm-up before its
     # capture 2 more (CPU tensors take the plain step, with no warm-up)
-    want["tracker"] = epochs * 3 + (steps - epochs) * 2 + (epochs * 2 if dev.type == "cuda" else 0)
-    want["composition"] = 2 * steps
+    want["tracker"] = epochs * 3 + (steps - epochs) * 2 + (epochs * 2 if card_run else 0)
+    want["composition"] = 2 * steps + (2 if card_run else 0)
+    # an inner stat-score metric the wrapper updates alone replays its own
+    # graph on the card, whose warm-up launches once more at its capture
+    for name in ("classwise", "minmax", "multitask"):
+        want[name] += 1 if card_run else 0
+    want["boot_mse_poisson"] = 0  # MeanSquaredError launches no bincount
     if step.launches != want or computed or launches != sum(want.values()):
         raise AssertionError(f"composition: launches {step.launches} ({launches} in all), {computed} at compute; "
                              f"expected {want}, none at compute")
+    # a Poisson resample's size changes per update: its copies stay eager
+    if step.captures["boot_mse_poisson"]:
+        raise AssertionError(f"composition: the poisson BootStrapper's copies captured "
+                             f"{step.captures['boot_mse_poisson']} graphs")
 
     ref = CompositionStep(torch.device("cpu"), num_classes, bootstraps)
     preds_cpu, target_cpu, extra_cpu = _on_cpu(preds), _on_cpu(target), _on_cpu(extra)
@@ -1866,7 +2648,7 @@ def run_composition(card: str, dev, num_classes: int = 100, batch: int = 1024, e
     emit({
         "phase": "slice", "path": "composition", "num_classes": num_classes, "batch": batch, "epochs": epochs,
         "steps": steps, "bootstraps": bootstraps,
-        "launches_per_update": {k: v / steps for k, v in step.launches.items()},
+        "launches_per_update": {k: v / steps for k, v in step.launches.items()}, "captures": step.captures,
         "host_ms_per_update": {k: v / steps * 1e3 for k, v in step.host_s.items()},
         "launches": launches, "launches_per_compute": computed,
         "stateful_updates_per_s": steps / loop_s, "stateful_ms_per_update": loop_s / steps * 1e3,
@@ -1961,13 +2743,15 @@ def run_config1(card: str, dev, num_classes: int = 100, batch: int = 1024, steps
     ``bench_config1``: MulticlassAccuracy (C=100, micro,
     validate_args=False) over 1,000 steps of batch 1,024 (the inputs take
     410 MB), through ``update_state_batched`` (a Python loop over the
-    steps, then the merge by reduction), the stateful loop, and
-    ``buffered(window=32)`` (1,000 = 31 x 32 + 8). Updates per second of
-    each, host clock around work that ends in a synchronisation; the int32
-    states of the three routes bitwise equal. Returns the record and the
-    launches."""
+    steps, then the merge by reduction), the stateful loop eagerly
+    (jit=False) and through the lone metric's captured update (one replay
+    per update), and ``buffered(window=32)`` (1,000 = 31 x 32 + 8). Updates
+    per second of each, host clock around work that ends in a
+    synchronisation; the int32 states of the four routes bitwise equal.
+    Returns the record and the launches."""
     import torch
 
+    from torchmetrics_tpu_torch import _capture
     from torchmetrics_tpu_torch.classification import MulticlassAccuracy
     from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
 
@@ -1976,8 +2760,8 @@ def run_config1(card: str, dev, num_classes: int = 100, batch: int = 1024, steps
     target = torch.randint(0, num_classes, (steps, batch), generator=g, device=dev)
     _sync(dev)
 
-    def make():
-        return MulticlassAccuracy(num_classes=num_classes, average="micro", validate_args=False, device=dev)
+    def make(jit=True):
+        return MulticlassAccuracy(num_classes=num_classes, average="micro", validate_args=False, device=dev, jit=jit)
 
     routes, states, launches = {}, {}, 0
 
@@ -2001,17 +2785,25 @@ def run_config1(card: str, dev, num_classes: int = 100, batch: int = 1024, steps
     state = timed("update_state_batched", lambda: batched.update_state_batched(batched.init_state(), preds, target))
     states["update_state_batched"] = state
 
-    stateful = make()
-    for i in range(3):  # warm-up
-        stateful.update(preds[i], target[i])
-    stateful.reset()
-
-    def loop():
+    def loop(metric):
         for i in range(steps):
-            stateful.update(preds[i], target[i])
+            metric.update(preds[i], target[i])
 
-    timed("stateful", loop)
-    states["stateful"] = stateful.metric_state
+    # the eager stateful loop (jit=False), and the same loop where the lone
+    # metric replays its captured update (captured at the warm-up)
+    for name, jit in (("stateful", False), ("stateful_captured", True)):
+        stateful = make(jit)
+        for i in range(3):  # warm-up
+            stateful.update(preds[i], target[i])
+        stateful.reset()
+        graphs = _capture.graph_stats()
+        timed(name, lambda: loop(stateful))
+        replays = _capture.graph_stats()["replays"] - graphs["replays"]
+        captures = _capture.graph_stats()["captures"] - graphs["captures"]
+        if (replays, captures) != ((steps, 0) if jit and dev.type == "cuda" else (0, 0)):
+            raise AssertionError(f"config1 {name}: {replays} replays and {captures} captures over {steps} updates")
+        routes[name]["replays_per_update"] = replays / steps
+        states[name] = stateful.metric_state
 
     buffered_metric = make()
     handle = buffered_metric.buffered(window=window)
@@ -2026,7 +2818,7 @@ def run_config1(card: str, dev, num_classes: int = 100, batch: int = 1024, steps
 
     timed(f"buffered(window={window})", buffered_loop)
     states["buffered"] = buffered_metric.metric_state
-    for name in ("stateful", "buffered"):
+    for name in ("stateful", "stateful_captured", "buffered"):
         for k, want in states["update_state_batched"].items():
             got = states[name][k]
             if got.dtype != want.dtype or not torch.equal(got, want):
@@ -2552,6 +3344,10 @@ def main() -> int:
         ("nyu_depth_v2_regression", nyu_depth_path()),
         ("stsb_dev_correlation", stsb_correlation_path()),
         ("msmarco_dev_rerank", msmarco_rerank_path()),
+        ("div2k_val_x4_sr", div2k_sr_path()),
+        ("wv3_pansharpening_reduced", wv3_reduced_path()),
+        ("wv3_pansharpening_full", wv3_full_path()),
+        ("live1_jpeg_deblock", live1_deblock_path()),
     ]
     launches = sum(run_path(label, path, card, dev) for label, path in paths)
     emit(check_capture_refusal(card, dev))

@@ -13,6 +13,8 @@ from .buffers import CatBuffer, CatLayoutError
 from .classification import *  # noqa: F401,F403
 from .classification import __all__ as _classification_all
 from .collections import MetricCollection
+from .image import *  # noqa: F401,F403
+from .image import __all__ as _image_all
 from .interop import state_from_numpy, state_to_numpy
 from .metric import CompositionalMetric, Metric
 from .online import DecayedMetric, WindowedMetric
@@ -32,6 +34,7 @@ from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetr
 __all__ = [
     *_classification_all,
     *_regression_all,
+    *_image_all,
     "BootStrapper",
     "BufferedMetric",
     "BufferedMetricCollection",

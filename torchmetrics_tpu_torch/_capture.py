@@ -18,7 +18,10 @@ A :class:`CapturedStep` is one graph of a pure step
   capture, and a body that reads a value on the host fails there, by name;
 - the graph, captured into a private memory pool. It reads the slots, runs
   the step and copies each new state back into its slot; the appends (cat
-  increments) are its static outputs.
+  increments) are its static outputs, and so is a new state of another
+  shape than its slot (RASE's scalar defaults, which its first update
+  broadcasts into maps: the next update's states have other shapes, hence
+  another graph); a new state of another dtype raises.
 
 A replay writes the state slots in place, so the owner installs the slots
 as its states after a replay, each marked ``_tm_graph_slot``, and the metric
@@ -40,6 +43,7 @@ from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils._pytree import tree_flatten
 
 from .ops import bincount
 
@@ -99,6 +103,18 @@ def leaf_signature(leaf: Any) -> Any:
     if leaf is None:
         return None
     return ("scalar", type(leaf).__name__)
+
+
+def flatten_step(args: tuple, kwargs: dict) -> Tuple[List[Any], Any]:
+    """One step's input leaves and their structure."""
+    return tree_flatten((args, kwargs))
+
+
+def signature_of(leaves: List[Any], spec: Any) -> tuple:
+    """Hashable (structure, shapes, dtypes, devices) key of one step's
+    leaves: a Python number is keyed by its type, not its value, as JAX keys
+    weak-typed scalars. Steps of one signature share a graph."""
+    return (spec, tuple(leaf_signature(leaf) for leaf in leaves))
 
 
 def graph_key(signature: Any, reps: Any, states: StepStates) -> tuple:
@@ -180,6 +196,44 @@ def _new_slot(value: Tensor) -> Tensor:
     return slot
 
 
+def write_back(state_slots: StepStates, new_states: StepStates, label: str) -> StepStates:
+    """Copy each new state into its slot (inside a capture: the graph's last
+    nodes) and return the new states kept as outputs instead: those of
+    another shape than their slot (RASE's scalar defaults, broadcast into
+    maps at the first update), marked as slots, since a replay rewrites
+    them. A new state of another dtype raises. A new state that is a view
+    of some slot is cloned before any slot is written, so no copy reads a
+    slot another copy already changed."""
+    slot_storage = {s.untyped_storage().data_ptr() for st in state_slots.values() for s in st.values()}
+    writes = []
+    outputs: StepStates = {}
+    for owner, named in new_states.items():
+        for name, value in named.items():
+            slot = state_slots[owner][name]
+            if value is slot:
+                continue
+            if value.dtype != slot.dtype:
+                raise CaptureError(
+                    f"{label}: member {owner!r} turns state {name!r} from {slot.dtype} into {value.dtype}; a "
+                    "captured update keeps each state's dtype. Construct it with jit=False to keep it eager.")
+            if value.untyped_storage().data_ptr() in slot_storage:
+                value = value.clone()
+            if value.shape != slot.shape:
+                setattr(value, SLOT_MARK, True)
+                outputs.setdefault(owner, {})[name] = value
+                continue
+            writes.append((slot, value))
+    for slot, value in writes:
+        slot.copy_(value)
+    return outputs
+
+
+def step_results(state_slots: StepStates, outputs: StepStates) -> StepStates:
+    """A step's new states: its slots, with the reshaped states of
+    :func:`write_back` in their place."""
+    return {o: {**slots, **outputs.get(o, {})} for o, slots in state_slots.items()}
+
+
 class CapturedStep:
     """One CUDA graph of ``step`` for one owner and one input signature.
 
@@ -213,13 +267,14 @@ class CapturedStep:
                 with bincount.recording_launches() as record:
                     with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                         new_states, appends = step(self.state_slots, input_slots, trace)
-                        self._write_back(new_states)
+                        outputs = write_back(self.state_slots, new_states, label)
             except CaptureError:
                 raise
             except Exception as err:
                 raise self._error(trace, "cannot be captured", err) from err
         self.launches = record
         self.appends = appends
+        self.results = step_results(self.state_slots, outputs)
         for owner, named in appends.items():
             for name, incs in named.items():
                 for inc in incs:
@@ -232,32 +287,10 @@ class CapturedStep:
         return CaptureError(f"{self.label}: the update of member {trace[0]!r} {what}, at {_failing_op(err)}: "
                             f"{type(err).__name__}: {err}. Construct it with jit=False to keep it eager.")
 
-    def _write_back(self, new_states: StepStates) -> None:
-        """Copy each new state into its slot, as the graph's last nodes. A new
-        state that is a view of some slot is cloned before any slot is
-        written, so no copy reads a slot another copy already changed."""
-        slot_storage = {s.untyped_storage().data_ptr() for st in self.state_slots.values() for s in st.values()}
-        writes = []
-        for owner, named in new_states.items():
-            for name, value in named.items():
-                slot = self.state_slots[owner][name]
-                if value is slot:
-                    continue
-                if value.shape != slot.shape or value.dtype != slot.dtype:
-                    raise CaptureError(
-                        f"{self.label}: member {owner!r} turns state {name!r} from {slot.dtype}{tuple(slot.shape)} "
-                        f"into {value.dtype}{tuple(value.shape)}; a captured update keeps each state's dtype and "
-                        "shape. Construct it with jit=False to keep it eager.")
-                if value.untyped_storage().data_ptr() in slot_storage:
-                    value = value.clone()
-                writes.append((slot, value))
-        for slot, value in writes:
-            slot.copy_(value)
-
     def run(self, states: StepStates) -> Tuple[StepStates, Dict[str, Any]]:
         """Copy each state that is not its slot into the slot, replay, and
-        return the slots (the new states) and the appends. The caller has
-        written the input slots."""
+        return the new states (the slots and the reshaped outputs) and the
+        appends. The caller has written the input slots."""
         with torch.cuda.device(self.device), torch.no_grad():
             for owner, named in states.items():
                 slots = self.state_slots[owner]
@@ -269,4 +302,4 @@ class CapturedStep:
         bincount.count_replayed_launches(self.launches)
         self.replays += 1
         _GRAPH_STATS["replays"] += 1
-        return self.state_slots, self.appends
+        return self.results, self.appends

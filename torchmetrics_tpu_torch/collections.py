@@ -33,14 +33,13 @@ import torch
 
 from torch.utils._pytree import tree_unflatten
 
-from ._capture import (CapturedStep, capturable_leaf, graph_key, is_scalar, new_input_slots, scalar_tensor,
-                       write_inputs)
+from ._capture import (CapturedStep, capturable_leaf, flatten_step, graph_key, is_scalar, new_input_slots,
+                       scalar_tensor, signature_of, write_inputs)
 from .buffers import CatBuffer
 from .metric import Metric, _filter_kwargs
 from .parallel.reduction import Reduction
 from .parallel.strategies import SyncPolicy
 from .parallel.sync import reduce_state_in_graph
-from .streaming import _flatten_step, _signature_of
 from .utils.exceptions import TorchMetricsUserError
 
 
@@ -273,7 +272,7 @@ class MetricCollection(torch.nn.Module):
         self._flush_member_buffers()
         if not self._groups_checked:
             for m in self._metrics.values():
-                m.update(*args, **_filter_kwargs(m._update_impl, **kwargs))
+                m._eager_update(*args, **_filter_kwargs(m._update_impl, **kwargs))
             if self._enable_compute_groups:
                 self._merge_compute_groups()
                 self._create_state_refs()
@@ -281,7 +280,7 @@ class MetricCollection(torch.nn.Module):
             self._drop_fused_plan()  # the groups may have changed
             return
         captured, eager = self._fused_update_plan()
-        leaves, spec = _flatten_step(args, kwargs)
+        leaves, spec = flatten_step(args, kwargs)
         if captured and all(capturable_leaf(leaf) for leaf in leaves):
             self._run_fused_update(captured, leaves, spec, args, kwargs)
             pending = eager
@@ -329,7 +328,7 @@ class MetricCollection(torch.nn.Module):
         device = reps[0][1].device
         step = _fused_step(reps, spec)
         if device.type == "cuda":
-            key = graph_key(_signature_of(leaves, spec), reps, states)
+            key = graph_key(signature_of(leaves, spec), reps, states)
             graph = self._fused_graphs.get(key)
             if graph is None:
                 slots = new_input_slots(leaves, device)

@@ -26,10 +26,15 @@ than one rank), and :meth:`Metric.reduce_state` syncs a pure-API state.
 Captured updates: ``jit=True`` (the default) and the class attribute
 ``jittable`` declare that a metric's update body may be captured into a
 CUDA graph; instance conditions under which an update's shapes depend on
-the data set ``_use_jit = False`` (JAX ``metric.py:492``). A collection
+the data set ``_use_jit = False`` (JAX ``metric.py:492``). A metric on a
+card updated alone replays one graph of its update body per update, one
+graph per input signature, captured at the signature's first update (JAX
+``metric.py:1780-1786``; :meth:`Metric._replay_update`); a collection
 replays one graph for all its captured members per update, and
 :meth:`Metric.buffered` stages K updates and replays one graph per flush
 (:mod:`~torchmetrics_tpu_torch._capture`, :mod:`~torchmetrics_tpu_torch.streaming`).
+CPU tensors, ``jit=False``, ``jittable = False`` and inputs a graph cannot
+take (strings, objects) update eagerly.
 A replay writes its state slots in place, so a metric never hands a slot
 out: every state observation (``_flush_pending``: update, forward,
 compute, reset, sync, ``metric_state``, ``as_state``, ``state_dict``,
@@ -46,8 +51,7 @@ its identity and the identity of its state tensors, never by their values
 (see :meth:`Metric.__hash__`).
 
 Not ported: the XLA executable cache (graphs are per instance, see
-:mod:`~torchmetrics_tpu_torch._capture`) and the single-metric captured
-``update`` (JAX ``metric.py:1780-1786``); not ported yet: the sharded cat
+:mod:`~torchmetrics_tpu_torch._capture`); not ported yet: the sharded cat
 layout, quantized and elastic sync, spans/ledger/registry and ``plot``.
 """
 from __future__ import annotations
@@ -56,11 +60,13 @@ import copy
 import functools
 import inspect
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils._pytree import tree_unflatten
 
-from ._capture import is_graph_slot
+from ._capture import (CapturedStep, capturable_leaf, flatten_step, graph_key, is_graph_slot, new_input_slots,
+                       signature_of, write_inputs)
 from .buffers import CatBuffer, CatLayoutError
 from .parallel.reduction import ELEMENTWISE_REDUCTIONS, Reduction, resolve_reduction
 from .parallel.strategies import SyncPolicy, begin_sync, default_policy, refuse_quantized
@@ -158,9 +164,10 @@ class Metric(torch.nn.Module):
             each in a power-of-two :class:`CatBuffer`; ``"list"`` keeps one
             tensor per update, the bitwise-equal oracle. A state whose
             increments change their trailing shape falls back to the list.
-        jit: whether the update body may be captured into a CUDA graph by a
-            collection's fused update and by :meth:`buffered` (default True;
-            a class with ``jittable = False`` is never captured).
+        jit: whether the update body may be captured into a CUDA graph:
+            alone, by a collection's fused update and by :meth:`buffered`
+            (default True; a class with ``jittable = False`` is never
+            captured).
 
     Example (defining a custom metric):
         >>> import torch
@@ -245,6 +252,7 @@ class Metric(torch.nn.Module):
         self._in_pure_update = False
         self._use_jit = bool(jit) and type(self).jittable
         self._apply_epoch = 0  # bumped by device and dtype moves: graphs over the old tensors are stale
+        self._update_graphs: Dict[Any, CapturedStep] = {}
 
     # ------------------------------------------------------------------
     # subclass machinery: wrap update/compute once per class definition
@@ -609,7 +617,9 @@ class Metric(torch.nn.Module):
         """The states, to restore after a forward or a sync: nothing appends
         to a cached ``CatBuffer`` meanwhile (the forward updates fresh
         defaults; a synced metric refuses updates), so it is kept as it is
-        and reinstalled without a copy."""
+        and reinstalled without a copy. A graph slot is swapped for a clone
+        first: the next replay rewrites the slot."""
+        self._release_graph_states()
         out: StateDict = {}
         for k in self._defaults:
             if k in self._list_states:
@@ -712,6 +722,62 @@ class Metric(torch.nn.Module):
                 raise KeyError(f"Unexpected state {name!r} for {type(self).__name__}")
         self._install_state(state)
         self._computed = None
+
+    def _captures_updates(self) -> bool:
+        """Whether an update of this metric alone replays a CUDA graph:
+        declared capturable, and on a card."""
+        return self._use_jit and self._device.type == "cuda"
+
+    def _replay_update(self, leaves: List[Any], spec: Any) -> None:
+        """The update body as one replay of this metric's CUDA graph for the
+        input signature, captured at the signature's first update (warm-up
+        on a side stream, which applies nothing, then the capture); the
+        graph's state slots become the states and its appends extend the
+        cat states. Validation and the update count stay on the host."""
+        states = {"metric": self._tensor_state()}
+        key = graph_key(signature_of(leaves, spec), (("metric", self),), states)
+        graphs = self._update_graphs
+        graph = graphs.get(key)
+        if graph is None:
+            slots = new_input_slots(leaves, self._device)
+            write_inputs(slots, leaves)
+            graph = graphs[key] = CapturedStep(_lone_step(self, spec), states, slots, self._device,
+                                               f"{type(self).__name__}.update")
+        else:
+            write_inputs(graph.input_slots, leaves)
+        new_states, appends = graph.run(states)
+        self._install_state(new_states["metric"])
+        self._extend_list_states(appends["metric"], borrowed=True)
+
+    def _apply_update(self, args: tuple, kwargs: dict, capture: bool) -> None:
+        """One update's books (validation, the update count) and its body:
+        a replay of this metric's graph where ``capture`` and
+        :meth:`_captures_updates` allow it and every input leaf can enter a
+        graph, op by op otherwise."""
+        # an eager update interleaved with staged ones extends the flushed state
+        self._flush_pending()
+        if self._is_synced:
+            raise TorchMetricsUserError(
+                "The Metric is currently synced; call `unsync()` before `update`."
+            )
+        self._check_inputs(args, kwargs)
+        self._eager_validate(*args, **kwargs)
+        self._computed = None
+        self._update_count += 1
+        if capture and self._captures_updates():
+            leaves, spec = flatten_step(args, kwargs)
+            if all(capturable_leaf(leaf) for leaf in leaves):
+                self._replay_update(leaves, spec)
+                return
+        new_tensors, appends = self._pure_update(self._tensor_state(), args, kwargs)
+        self._install_state(new_tensors)
+        self._extend_list_states(appends)
+
+    def _eager_update(self, *args: Any, **kwargs: Any) -> None:
+        """``update`` op by op, capturing no graph of this metric's own: a
+        collection's group discovery, after which the collection's fused
+        graph updates the metric."""
+        self._apply_update(args, kwargs, capture=False)
 
     def _check_inputs(self, args: tuple, kwargs: dict) -> None:
         """Inputs must be tensors on this metric's device; nothing is copied."""
@@ -912,6 +978,7 @@ class Metric(torch.nn.Module):
         self._flush_pending()
         state = super().__getstate__()
         state.pop("_stream_buffer", None)
+        state["_update_graphs"] = {}  # a copy captures its own
         return state
 
     def _apply(self, fn, recurse=True):
@@ -919,6 +986,7 @@ class Metric(torch.nn.Module):
         captured over the old tensors are not replayed again."""
         self._flush_pending()
         self._apply_epoch += 1
+        self._update_graphs = {}
         super()._apply(fn, recurse)
         self._defaults = {k: v if isinstance(v, list) else fn(v) for k, v in self._defaults.items()}
         self._cat_meta = {k: (dtype if dtype is None else fn(torch.zeros(0, dtype=dtype)).dtype, trailing)
@@ -1120,22 +1188,24 @@ def _wrap_update(update_fn: Callable) -> Callable:
             # against the installed state; the outer call keeps the books
             update_fn(self, *args, **kwargs)
             return
-        # an eager update interleaved with staged ones extends the flushed state
-        self._flush_pending()
-        if self._is_synced:
-            raise TorchMetricsUserError(
-                "The Metric is currently synced; call `unsync()` before `update`."
-            )
-        self._check_inputs(args, kwargs)
-        self._eager_validate(*args, **kwargs)
-        self._computed = None
-        self._update_count += 1
-        new_tensors, appends = self._pure_update(self._tensor_state(), args, kwargs)
-        self._install_state(new_tensors)
-        self._extend_list_states(appends)
+        self._apply_update(args, kwargs, capture=True)
 
     wrapped._tm_wrapped = True
     return wrapped
+
+
+def _lone_step(metric: Metric, spec: Any) -> Callable:
+    """The step a metric updated alone captures: its update body over its
+    own state, on one step's input leaves."""
+    label = type(metric).__name__
+
+    def step(states: Dict[str, StateDict], leaves: List[Any], trace: List[Optional[str]]):
+        args, kwargs = tree_unflatten(list(leaves), spec)
+        trace[0] = label
+        new_states, appends = metric._pure_update(states["metric"], args, kwargs)
+        return {"metric": new_states}, {"metric": appends}
+
+    return step
 
 
 def _wrap_compute(compute_fn: Callable) -> Callable:

@@ -37,13 +37,13 @@ Counterpart of ``torchmetrics_tpu/streaming.py``: :class:`BufferedMetric`
 Not ported: the elastic sync's deferral note (A13) and the spans and
 registry (A14); :func:`stream_stats` counts flushes instead.
 """
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_unflatten
 
-from ._capture import (CapturedStep, capturable_leaf, graph_key, leaf_signature, new_input_slots, scalar_tensor,
-                       write_inputs)
+from ._capture import (CapturedStep, capturable_leaf, flatten_step, graph_key, new_input_slots, scalar_tensor,
+                       signature_of, write_inputs)
 from .buffers import CatBuffer
 from .metric import Metric, StateDict, _filter_kwargs
 from .parallel.reduction import Reduction
@@ -67,19 +67,11 @@ def reset_stream_stats() -> None:
         _STREAM_STATS[k] = 0
 
 
-def _flatten_step(args: tuple, kwargs: dict) -> Tuple[List[Any], Any]:
-    return tree_flatten((args, kwargs))
-
-
-def _signature_of(leaves: Sequence[Any], spec: Any) -> tuple:
-    return (spec, tuple(leaf_signature(leaf) for leaf in leaves))
-
-
 def _input_signature(args: tuple, kwargs: dict) -> tuple:
     """Hashable (structure, shapes, dtypes, devices) key of one step: a
     Python number is keyed by its type, not its value, as JAX keys weak-typed
     scalars (JAX :74-88). Steps of one signature share a ring and a graph."""
-    return _signature_of(*_flatten_step(args, kwargs))
+    return signature_of(*flatten_step(args, kwargs))
 
 
 def _masked_merge(keep: Tensor, new: StateDict, old: StateDict) -> StateDict:
@@ -192,7 +184,7 @@ class _Staging:
         return sum(r.nbytes() for r in self.__dict__["_rings"].values())
 
     def _stage(self, leaves: List[Any], spec: Any, device: torch.device) -> None:
-        sig = _signature_of(leaves, spec)
+        sig = signature_of(leaves, spec)
         ring = self.__dict__["_ring"]
         if ring is not None and ring.count and ring.signature != sig:
             self.flush()  # a new signature: apply the old window first, keeping the order
@@ -292,7 +284,7 @@ class BufferedMetric(_Staging):
         if m._is_synced:
             raise TorchMetricsUserError("The Metric is currently synced; call `unsync()` before `update`.")
         m._check_inputs(args, kwargs)
-        leaves, spec = _flatten_step(args, kwargs)
+        leaves, spec = flatten_step(args, kwargs)
         if not all(capturable_leaf(leaf) for leaf in leaves):
             # inputs a graph cannot take (strings, objects): apply the staged
             # window first, then update eagerly, keeping the order
@@ -506,7 +498,7 @@ class BufferedMetricCollection(_Staging):
             coll.update(*args, **kwargs)
             return
         captured, eager = coll._fused_update_plan()
-        leaves, spec = _flatten_step(args, kwargs)
+        leaves, spec = flatten_step(args, kwargs)
         if not captured or not all(capturable_leaf(leaf) for leaf in leaves):
             self.flush()
             coll.update(*args, **kwargs)

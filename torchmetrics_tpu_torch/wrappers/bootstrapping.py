@@ -35,6 +35,10 @@ Two routes:
   one-sample update instead; ``torch.func.vmap`` cannot batch through the
   kernel's ctypes launch, so the port loops. Integer states stay bitwise
   equal; a float state (a mean over a resample) sums in another order.
+  A Poisson resample has a new size at almost every update, so its copies
+  update eagerly (``_use_jit = False``): a graph per batch size would be
+  captured once and hardly replayed. Multinomial resamples keep the
+  batch's size, so a copy on a card replays one graph per update.
 
 A replica that draws no sample is not updated, on either route.
 """
@@ -119,6 +123,8 @@ class BootStrapper(WrapperMetric):
                 self.add_state(name, stacked, dist_reduce_fx=base_metric._reductions[name])
         else:
             self.metrics.extend(deepcopy(base_metric) for _ in range(num_bootstraps))
+            for m in self.metrics:
+                m._use_jit = m._use_jit and sampling_strategy != "poisson"
 
     def _state_children(self) -> Dict[str, Any]:
         return {} if self.weight_rows else {"metrics": list(self.metrics)}

@@ -5,6 +5,9 @@ Counterpart of ``torchmetrics_tpu/wrappers/multioutput.py`` (reference
 column ``i`` of ``output_dim``. ``remove_nans`` drops the rows where any
 float input of that column is NaN, by boolean indexing, which sizes the
 result from the data and so reads the device (as in the JAX package).
+Those row counts change from batch to batch, so under ``remove_nans`` the
+copies update eagerly (``_use_jit = False``) instead of capturing a graph
+per row count.
 """
 from copy import deepcopy
 from typing import Any, Dict, List, Tuple
@@ -43,6 +46,8 @@ class MultioutputWrapper(WrapperMetric):
         super().__init__(**kwargs)
         self._check_wrapped(base_metric)
         self.metrics = torch.nn.ModuleList([deepcopy(base_metric) for _ in range(num_outputs)])
+        for m in self.metrics:
+            m._use_jit = m._use_jit and not remove_nans
         self.output_dim = output_dim
         self.remove_nans = remove_nans
         self.squeeze_outputs = squeeze_outputs
