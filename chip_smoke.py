@@ -149,7 +149,32 @@ not 0 and no result line is printed:
    process over all the data (cat and integer states bitwise, float states
    and values within 1e-6) and both ranks' synced states must hash alike.
    Each timed sync starts at a barrier, after one untimed sync of the same
-   states (the first collectives of a group set up its connections).
+   states (the first collectives of a group set up its connections);
+10. the model-based image metrics, before dist_sync, each network at its
+   published widths on seeded random weights (the pretrained files are
+   not in the repository), every update eager and no graph captured, the
+   bincount never launched, with ms per update, compute ms, peak device
+   memory over the inputs, a torch.profiler breakdown (device busy and idle
+   share, top kernels) and each value against a device="cpu" run of the
+   same weights and inputs (tolerances at FEATURE_RTOL and below):
+   - cifar10_fid: FID (2048), KID (100 subsets of 1,000), IS
+     (logits_unbiased, 10 splits) and MiFID in one MetricCollection over
+     5,000 real and 5,000 fake 32 x 32 images in [0, 255] (CIFAR-10 as
+     torch-fidelity evaluates it, cut from 50,000), batches of 200, one
+     FID-InceptionV3 forward at 299 x 299 per batch (make_fid_inception,
+     seed 0); FID also against float64 numpy/scipy on the same features;
+     the CPU run covers 32 images a side;
+   - bapps_lpips: LPIPS (AlexNet, random backbone, the trained heads of
+     lpips_heads.npz, reduction "mean") over 10,000 pairs of 64 x 64
+     patches in [-1, 1], batches of 50; the VGG and SqueezeNet trunks one
+     batch each against the CPU;
+   - ppl_vgg: PerceptualPathLength with the VGG LPIPS, epsilon 1e-4, resize
+     64, lerp and slerp_unit, 2,000 samples (cut from 100,000) of a seeded
+     generator from 512-wide latents to 3 x 256 x 256 images;
+   - model_tf32: with torch.backends.cudnn.allow_tf32 = True and matmul
+     precision "high" set by the caller, Inception's features equal the
+     pinned run's within TF32_CHECK_RTOL, and KID's Gram and FID's
+     covariance products are within it of float64.
 
 The last lines are the kernels' record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -1861,18 +1886,25 @@ def _update(coll, preds, target, extra, i: int) -> None:
 
 
 def profile_updates(coll, preds, target, extra, first: int, steps: int) -> dict:
-    """Where one stateful update's time goes, from a torch.profiler trace of
-    ``steps`` steady-state updates (steps ``first`` on): wall time, device
-    busy time (the union of the trace's device intervals), the bincount
+    """Where one stateful update's time goes: :func:`profile_steps` over
+    ``steps`` steady-state updates (steps ``first`` on)."""
+    return profile_steps(lambda i: _update(coll, preds, target, extra, i), range(first, first + steps), "update")
+
+
+def profile_steps(step, indices, unit: str = "step") -> dict:
+    """Where the time of ``step(i)`` over ``indices`` goes, from a
+    torch.profiler trace, per ``unit``: wall time, device busy time (the
+    union of the trace's device intervals), its idle share, the bincount
     kernels' share of it, and the busiest device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    indices = list(indices)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(first, first + steps):
-            _update(coll, preds, target, extra, i)
+        for i in indices:
+            step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -1891,15 +1923,19 @@ def profile_updates(coll, preds, target, extra, first: int, steps: int) -> dict:
             busy_us += end - reach
             reach = end
     ours = sum(v for k, v in by_name.items() if "histogram_kernel" in k)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    by_short = {}  # kernels whose names share their first 60 characters, summed
+    for k, v in by_name.items():
+        by_short[k[:60]] = by_short.get(k[:60], 0.0) + v
+    top = sorted(by_short.items(), key=lambda kv: -kv[1])[:6]
+    n = len(indices)
     return {
-        "profiled_updates": steps,
-        "wall_ms_per_update": wall_us / steps / 1e3,
-        "device_busy_ms_per_update": busy_us / steps / 1e3 if spans else None,
+        f"profiled_{unit}s": n,
+        f"wall_ms_per_{unit}": wall_us / n / 1e3,
+        f"device_busy_ms_per_{unit}": busy_us / n / 1e3 if spans else None,
         "device_idle_share": 1.0 - busy_us / wall_us if spans else None,
-        "bincount_kernel_ms_per_update": ours / steps / 1e3 if spans else None,
-        "device_ops_per_update": len(spans) / steps,
-        "top_device_ms_per_update": {k[:60]: v / steps / 1e3 for k, v in top},
+        f"bincount_kernel_ms_per_{unit}": ours / n / 1e3 if spans else None,
+        f"device_ops_per_{unit}": len(spans) / n,
+        f"top_device_ms_per_{unit}": {k: v / n / 1e3 for k, v in top},
     }
 
 
@@ -2928,6 +2964,558 @@ def run_step_overhead(card: str, dev, d_in: int = 2048, d_h: int = 8192, depth: 
 
 
 # ---------------------------------------------------------------------------
+# phases cifar10_fid, bapps_lpips, ppl_vgg, model_tf32: the model-based image
+# metrics, whose networks run at their published widths on seeded random
+# weights; every update eager (jittable = False), no graph captured
+# ---------------------------------------------------------------------------
+
+# card against a device="cpu" run of the same inputs and weights: cuDNN's and
+# oneDNN's float32 convolutions (both IEEE, the port pins cuDNN's) add in
+# different orders through ~50 layers, and eigh runs on cuSOLVER against
+# LAPACK
+FEATURE_RTOL = 1e-4  # network outputs, relative to each tap's largest magnitude
+# FID and MiFID of 32 images a side (covariances of rank 31 at width 2048), and
+# their computes on the same states: float32 eigh resolves an eigenvalue to
+# ~1e-7 of the largest, and the square-root trace sums 2,048 of them
+FID_CPU_RTOL = 1e-2
+SCORE_CPU_RTOL = 1e-3  # KID and IS of 32 images a side, relative to the mean
+LPIPS_CPU_RTOL = 1e-5  # LPIPS distances
+PPL_CPU_RTOL = 2e-2  # PPL at epsilon 1e-4: distances of images 1e-4 apart, divided by 1e-8
+# FID from float32 moments of 5,000 images a side, against float64 numpy/scipy: the
+# same float32 eigh, on a spectrum a random network concentrates in a few directions
+FID_F64_RTOL = 2e-2
+TF32_CHECK_RTOL = 1e-5  # Inception features with TF32 allowed by the caller, against the pinned run
+
+
+def _rel_err(got, want) -> float:
+    """Largest difference of ``got`` from ``want`` relative to ``want``'s
+    largest magnitude (tensors, or tuples of them taken as one: a (mean,
+    std) pair is held relative to the mean), on any devices."""
+    import torch
+
+    def flat(x):
+        if isinstance(x, (tuple, list)):
+            return torch.cat([flat(e) for e in x])
+        return torch.as_tensor(x).detach().double().cpu().reshape(-1)
+
+    got, want = flat(got), flat(want)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        return float("inf")
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return float((got - want).abs().max()) / scale if scale else float((got - want).abs().max())
+
+
+def _hold(label: str, what: str, err: float, tol: float) -> float:
+    if not err <= tol:
+        raise AssertionError(f"{label}: {what} differs by {err} relative (tolerance {tol})")
+    return err
+
+
+class _ModelRun:
+    """Counts kept over one path's driven run: graphs captured (none may be:
+    the six metrics update eagerly), bincount launches (none: the kernel is
+    not on these paths) and the device memory peak over what was resident."""
+
+    def __init__(self, dev):
+        import torch
+
+        from torchmetrics_tpu_torch import _capture
+        from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+
+        self.dev, self._capture, self._bincount = dev, _capture, weighted_bincount
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.resident = torch.cuda.memory_allocated()
+        self.graphs = _capture.graph_stats()
+        weighted_bincount.launches = 0
+
+    def close(self, label: str, metrics) -> dict:
+        import torch
+
+        captures = self._capture.graph_stats()["captures"] - self.graphs["captures"]
+        replays = self._capture.graph_stats()["replays"] - self.graphs["replays"]
+        held = sum(len(m._update_graphs) for m in metrics)
+        if captures or replays or held:
+            raise AssertionError(f"{label}: {captures} graphs captured, {replays} replays, {held} held by the metrics")
+        if self._bincount.launches:
+            raise AssertionError(f"{label}: {self._bincount.launches} bincount launches on a path without the kernel")
+        out = {"captures": 0, "bincount_launches": 0}
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+            out["memory"] = {"inputs_and_resident_mb": self.resident / 2**20,
+                             "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
+                             "peak_over_resident_mb": (torch.cuda.max_memory_allocated() - self.resident) / 2**20}
+        return out
+
+
+def _sync_dev(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _network_flops(net, x) -> int:
+    """Floating-point operations of one forward of ``net`` on ``x``: two per
+    multiply-add of every convolution and linear layer, from their output
+    shapes (pools, BatchNorm and activations left out)."""
+    import torch
+
+    total = [0]
+
+    def count(module, inputs, output):
+        if isinstance(module, torch.nn.Conv2d):
+            kh, kw = module.kernel_size
+            total[0] += 2 * output.numel() * module.in_channels // module.groups * kh * kw
+        elif isinstance(module, torch.nn.Linear):
+            total[0] += 2 * output.numel() * module.in_features
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _fid_taps(net):
+    """The 2048 features and the 1008 logits of one forward of ``net`` per
+    input batch (a NetworkCache keyed on the tensor), for the four metrics."""
+    from torchmetrics_tpu_torch.wrappers.feature_share import NetworkCache
+
+    cache = NetworkCache(net, max_size=2)
+    return (lambda imgs: cache(imgs)[2048]), (lambda imgs: cache(imgs)["logits_unbiased"])
+
+
+def _fid_collection(device, net, kid_subsets: int, kid_subset_size: int, is_splits: int):
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.image import (FrechetInceptionDistance, InceptionScore, KernelInceptionDistance,
+                                              MemorizationInformedFrechetInceptionDistance)
+
+    features, logits = _fid_taps(net)
+    return MetricCollection({
+        "fid": FrechetInceptionDistance(feature=features, device=device),
+        "kid": KernelInceptionDistance(feature=features, subsets=kid_subsets, subset_size=kid_subset_size,
+                                       device=device),
+        "is": InceptionScore(feature=logits, splits=is_splits, device=device),
+        "mifid": MemorizationInformedFrechetInceptionDistance(feature=features, device=device),
+    })
+
+
+def _cifar_images(g, dev, n: int, fake: bool):
+    """(n, 3, 32, 32) float32 images in [0, 255] at CIFAR-10's size; the
+    fake side blurred, dimmed and noisier, as a weak generator's."""
+    import torch
+
+    img = _natural(g, dev, n, 3, 32, 32)
+    if fake:
+        img = torch.clamp(0.6 * _blur(img, 1.0) + 0.1 + 0.05 * torch.randn(img.shape, generator=g, device=dev),
+                          0.0, 1.0)
+    return img * 255.0
+
+
+def _fid64(real, fake) -> float:
+    """FID of two feature sets in float64 on the host (numpy moments, scipy's
+    LAPACK eigh): |mu_r - mu_f|^2 + tr S_r + tr S_f - 2 tr (S_r^1/2 S_f S_r^1/2)^1/2."""
+    import numpy as np
+    import scipy.linalg
+
+    r, f = real.double().cpu().numpy(), fake.double().cpu().numpy()
+    mu_r, mu_f = r.mean(axis=0), f.mean(axis=0)
+    s_r, s_f = np.cov(r, rowvar=False), np.cov(f, rowvar=False)
+    vals, vecs = scipy.linalg.eigh(s_r)
+    root = (vecs * np.sqrt(np.clip(vals, 0, None))) @ vecs.T
+    inner = np.clip(scipy.linalg.eigvalsh(root @ s_f @ root), 0, None)
+    return float(((mu_r - mu_f) ** 2).sum() + np.trace(s_r) + np.trace(s_f) - 2 * np.sqrt(inner).sum())
+
+
+def run_cifar10_fid(card: str, dev, per_side: int = 5000, batch: int = 200, check: int = 32,
+                    kid_subsets: int = 100, kid_subset_size: int = 1000, is_splits: int = 10) -> dict:
+    """Path ``cifar10_fid``: torch-fidelity's CIFAR-10 evaluation (32 x 32
+    RGB in [0, 255], resized to 299 in the network) through one
+    MetricCollection of FID (2048), KID (100 subsets of 1,000), IS
+    (logits_unbiased, 10 splits) and MiFID, over ``per_side`` real and as
+    many fake images in batches of ``batch`` (cut from the protocol's
+    50,000), real and fake updates in turn; every metric reads one forward
+    of the FID-InceptionV3 per batch (random init, make_fid_inception seed
+    0), and IS sees both sides, as a collection hands it every update.
+    Eager updates and zero captures; ms per update and compute ms; FID
+    against float64 numpy/scipy on the same features (KID's cat states);
+    and, on ``check`` images a side, the network's features and every value
+    against a device="cpu" run of the same weights, and the card's compute
+    against the CPU's compute on the card's own states."""
+    import copy
+
+    import torch
+
+    from torchmetrics_tpu_torch.models import make_fid_inception
+    from torchmetrics_tpu_torch.utils.data import dim_zero_cat
+
+    label = "cifar10_fid"
+    net, _, _ = make_fid_inception((2048, "logits_unbiased"), rng_seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1010)
+    real = _cifar_images(g, dev, per_side, fake=False)
+    fake = _cifar_images(g, dev, per_side, fake=True)
+    steps = per_side // batch
+    with torch.no_grad():
+        net(real[:batch])  # cuDNN's handles and the allocator
+    flops_per_image = _network_flops(net, real[:1])
+    _sync_dev(dev)
+
+    run = _ModelRun(dev)
+    coll = _fid_collection(dev, net, kid_subsets, kid_subset_size, is_splits)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        coll.update(real[i * batch:(i + 1) * batch], real=True)
+        coll.update(fake[i * batch:(i + 1) * batch], real=False)
+    _sync_dev(dev)
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    values = coll.compute()
+    _sync_dev(dev)
+    compute_s = time.perf_counter() - t0
+    record = run.close(label, coll.values())
+
+    # FID against float64 on the features KID keeps (the same extractor's)
+    kid = coll["kid"]
+    real_feats = dim_zero_cat(kid.metric_state["real_features"])
+    fake_feats = dim_zero_cat(kid.metric_state["fake_features"])
+    fid_state = coll["fid"].metric_state
+    moment_err = max(_rel_err(fid_state["real_features_sum"], real_feats.double().sum(0)),
+                     _rel_err(fid_state["fake_features_sum"], fake_feats.double().sum(0)))
+    _hold(label, "FID's feature sums against KID's features", moment_err, 1e-4)
+    fid64 = _fid64(real_feats, fake_feats)
+    fid_f64_err = _hold(label, "FID against float64 numpy/scipy", abs(float(values["fid"]) - fid64) / abs(fid64),
+                        FID_F64_RTOL)
+    del real_feats, fake_feats
+
+    # the card against a device="cpu" run of the same weights on `check` images a side
+    cpu = torch.device("cpu")
+    net_cpu = copy.deepcopy(net).to(cpu)
+    r_chk, f_chk = real[:check], fake[:check]
+    small = dict(kid_subsets=10, kid_subset_size=check // 2, is_splits=2)
+    card_small = _fid_collection(dev, net, **small)
+    cpu_small = _fid_collection(cpu, net_cpu, **small)
+    for m, (r, f) in ((card_small, (r_chk, f_chk)), (cpu_small, (r_chk.cpu(), f_chk.cpu()))):
+        m.update(r, real=True)
+        m.update(f, real=False)
+    # the network's two taps, as KID's and IS's cat states keep them
+    feature_err = _hold(label, "network taps against the CPU", max(
+        _rel_err(dim_zero_cat(card_small[name].metric_state[key]), dim_zero_cat(cpu_small[name].metric_state[key]))
+        for name, key in (("kid", "real_features"), ("kid", "fake_features"), ("is", "features"))), FEATURE_RTOL)
+    got, want = card_small.compute(), cpu_small.compute()
+    cpu_errs = {k: _hold(label, f"{k} against the CPU run", _rel_err(got[k], want[k]),
+                         FID_CPU_RTOL if k in ("fid", "mifid") else SCORE_CPU_RTOL) for k in want}
+    # the compute alone: the CPU's compute on the card's states (eigh on LAPACK against cuSOLVER)
+    same_state = {}
+    for name in ("fid", "mifid"):
+        twin = _fid_collection(cpu, net_cpu, **small)[name]
+        if name == "fid":
+            twin._ensure_states(card_small[name]._num_features)  # FID sizes its states at its first update
+        twin.load_state({k: (v.cpu() if isinstance(v, torch.Tensor) else [dim_zero_cat(v).cpu()])
+                         for k, v in card_small[name].metric_state.items()})
+        twin._update_count = 1
+        same_state[name] = _hold(label, f"{name} compute against the CPU's on the same states",
+                                 _rel_err(got[name], twin.compute()), FID_CPU_RTOL)
+
+    profile = None
+    if dev.type == "cuda":
+        prof = _fid_collection(dev, net, kid_subsets, kid_subset_size, is_splits)
+        prof.update(real[:batch], real=True)  # group discovery, outside the trace
+        profile = profile_steps(lambda i: prof.update((real if i % 2 else fake)[i * batch:(i + 1) * batch],
+                                                      real=bool(i % 2)), range(1, 5))
+        del prof
+    return {"phase": "slice", "path": label, "images_per_side": per_side, "batch": batch, "size": [3, 32, 32],
+            "network": "FID-InceptionV3 at 299 x 299, random init (make_fid_inception, seed 0)",
+            "reduced": ["5,000 real and 5,000 fake images, cut from 50,000", "random weights: the torch-fidelity "
+                        "checkpoint is not in the repository"],
+            "updates": 2 * steps, "ms_per_update": loop_s / (2 * steps) * 1e3,
+            "images_per_s": 2 * per_side / loop_s, "compute_ms": compute_s * 1e3,
+            "network_gflop_per_image": flops_per_image / 1e9,
+            "network_tflop_per_s_of_busy_time": (None if profile is None else flops_per_image * batch
+                                                 / (profile["device_busy_ms_per_step"] * 1e-3) / 1e12),
+            "values": {k: _summary(v) for k, v in values.items()}, "compute_groups": coll.compute_groups,
+            "fid_float64": fid64, "fid_float64_rel_err": fid_f64_err, "fid_float64_tol": FID_F64_RTOL,
+            "fid_moments_rel_err": moment_err,
+            "cpu_check": {"images_per_side": check, "feature_rel_err": feature_err, "feature_tol": FEATURE_RTOL,
+                          "value_rel_err": cpu_errs, "value_tol": {"fid_mifid": FID_CPU_RTOL, "kid_is": SCORE_CPU_RTOL},
+                          "compute_on_same_states_rel_err": same_state},
+            **record, "profile": profile, "card": card}
+
+
+def _patches(g, dev, n: int, size: int = 64):
+    """BAPPS-like pairs: (n, 3, size, size) reference patches in [-1, 1] and
+    a distorted copy (blur, noise, a colour shift)."""
+    import torch
+
+    ref = _natural(g, dev, n, 3, size, size) * 2 - 1
+    shift = 0.1 * (torch.rand(n, 3, 1, 1, generator=g, device=dev) - 0.5)
+    dist = _blur(ref, 0.7) + 0.05 * torch.randn(ref.shape, generator=g, device=dev) + shift
+    return ref, torch.clamp(dist, -1.0, 1.0)
+
+
+def run_bapps_lpips(card: str, dev, pairs: int = 10_000, batch: int = 50, check: int = 32) -> dict:
+    """Path ``bapps_lpips``: LPIPS (AlexNet trunk, random init, with the
+    reference's trained heads from lpips_heads.npz; reduction "mean") over
+    ``pairs`` pairs of 64 x 64 patches in [-1, 1], BAPPS 2AFC's patch size,
+    in batches of ``batch``: eager updates, zero captures, ms per update,
+    compute ms; ``check`` pairs against a device="cpu" run of the same
+    weights; the VGG and SqueezeNet trunks one batch each against the CPU."""
+    import copy
+    import warnings
+
+    import torch
+
+    from torchmetrics_tpu_torch.image import LearnedPerceptualImagePatchSimilarity
+    from torchmetrics_tpu_torch.models import make_lpips
+
+    label = "bapps_lpips"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random backbones under trained heads: expected here
+        nets = {t: make_lpips(t, rng_seed=0, device=dev)[0] for t in ("alex", "vgg", "squeeze")}
+    g = torch.Generator(device=dev).manual_seed(2020)
+    ref, dist = _patches(g, dev, pairs)
+    steps = pairs // batch
+    with torch.no_grad():
+        nets["alex"](ref[:batch], dist[:batch])
+    _sync_dev(dev)
+
+    run = _ModelRun(dev)
+    metric = LearnedPerceptualImagePatchSimilarity(net_type=nets["alex"], reduction="mean", device=dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        metric.update(ref[i * batch:(i + 1) * batch], dist[i * batch:(i + 1) * batch])
+    _sync_dev(dev)
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    value = metric.compute()
+    _sync_dev(dev)
+    compute_s = time.perf_counter() - t0
+    record = run.close(label, [metric])
+    if float(metric.total) != pairs:
+        raise AssertionError(f"{label}: {float(metric.total)} pairs counted, {pairs} given")
+
+    cpu = torch.device("cpu")
+    errs = {}
+    for net_type, net in nets.items():
+        net_cpu = copy.deepcopy(net).to(cpu)
+        with torch.no_grad():
+            got = net(ref[:check], dist[:check])
+            want = net_cpu(ref[:check].cpu(), dist[:check].cpu())
+        errs[net_type] = _hold(label, f"{net_type} distances against the CPU", _rel_err(got, want), LPIPS_CPU_RTOL)
+    card_m = LearnedPerceptualImagePatchSimilarity(net_type=nets["alex"], device=dev)
+    cpu_m = LearnedPerceptualImagePatchSimilarity(net_type=copy.deepcopy(nets["alex"]).to(cpu), device=cpu)
+    card_m.update(ref[:check], dist[:check])
+    cpu_m.update(ref[:check].cpu(), dist[:check].cpu())
+    value_err = _hold(label, "LPIPS against the CPU run", _rel_err(card_m.compute(), cpu_m.compute()),
+                      LPIPS_CPU_RTOL)
+
+    profile = None
+    if dev.type == "cuda":
+        prof = LearnedPerceptualImagePatchSimilarity(net_type=nets["alex"], device=dev)
+        profile = profile_steps(lambda i: prof.update(ref[i * batch:(i + 1) * batch], dist[i * batch:(i + 1) * batch]),
+                                range(20))
+    return {"phase": "slice", "path": label, "pairs": pairs, "batch": batch, "size": [3, 64, 64],
+            "network": "LPIPS AlexNet trunk, random init (make_lpips, seed 0), trained heads",
+            "reduced": ["random backbone weights: the torchvision checkpoints are not in the repository"],
+            "updates": steps, "ms_per_update": loop_s / steps * 1e3, "pairs_per_s": pairs / loop_s,
+            "compute_ms": compute_s * 1e3, "value": float(value),
+            "cpu_check": {"pairs": check, "distance_rel_err": errs, "value_rel_err": value_err,
+                          "tol": LPIPS_CPU_RTOL},
+            **record, "profile": profile, "card": card}
+
+
+class SyntheticGenerator:
+    """A seeded convolutional generator at StyleGAN's interface widths:
+    512-wide latents to 3 x 256 x 256 images in [-1, 1] (a linear map to
+    512 x 4 x 4, six doublings of nearest upsampling, 3 x 3 convolution and
+    leaky ReLU, halving the channels down to 16, then a 3 x 3 convolution to
+    RGB and tanh). Latents are drawn on the host from a seeded generator, on
+    the unit sphere, and uploaded, so a card run and a CPU run see the same
+    ones."""
+
+    def __init__(self, device, seed: int = 0, latent: int = 512):
+        import torch
+        from torch import nn
+
+        from torchmetrics_tpu_torch.models.inception import random_init_
+
+        widths = (512, 256, 128, 64, 32, 16, 16)
+        layers = [nn.Linear(latent, widths[0] * 16), nn.Unflatten(1, (widths[0], 4, 4))]
+        for c_in, c_out in zip(widths[:-1], widths[1:]):
+            layers += [nn.Upsample(scale_factor=2), nn.Conv2d(c_in, c_out, 3, padding=1), nn.LeakyReLU(0.2)]
+        layers += [nn.Conv2d(widths[-1], 3, 3, padding=1), nn.Tanh()]
+        self.body = random_init_(nn.Sequential(*layers), seed).requires_grad_(False).to(device)
+        self.latent, self.device, self.seed = latent, torch.device(device), seed
+        self._rng = torch.Generator().manual_seed(seed)
+
+    def sample(self, num_samples: int):
+        """Latents on the unit sphere (slerp_unit's domain)."""
+        import torch
+
+        z = torch.randn(num_samples, self.latent, generator=self._rng)
+        return (z / z.norm(dim=1, keepdim=True)).to(self.device)
+
+    def __call__(self, z):
+        from torchmetrics_tpu_torch.functional.image.helper import ieee_fp32_convolutions
+
+        with ieee_fp32_convolutions():
+            return self.body(z * self.latent ** 0.5)  # unit latents back to N(0, 1)'s scale
+
+    def on(self, device) -> "SyntheticGenerator":
+        """A twin on ``device``: the same weights, its latent stream restarted."""
+        import copy
+
+        import torch
+
+        twin = copy.copy(self)
+        twin.body, twin.device = copy.deepcopy(self.body).to(device), torch.device(device)
+        twin._rng = torch.Generator().manual_seed(self.seed)
+        return twin
+
+
+def run_ppl_vgg(card: str, dev, num_samples: int = 2000, batch: int = 100, check: int = 32) -> dict:
+    """Path ``ppl_vgg``: PerceptualPathLength with the VGG16 LPIPS (random
+    backbone, trained heads), epsilon 1e-4, images resized to 64, over
+    ``num_samples`` latent pairs (cut from StyleGAN's 100,000) of
+    :class:`SyntheticGenerator`, with lerp and with slerp_unit: compute ms
+    (the whole evaluation runs in compute), ms per batch of ``batch``,
+    zero captures; ``check`` pairs against a device="cpu" run of the same
+    generator and network."""
+    import copy
+    import warnings
+
+    import torch
+
+    from torchmetrics_tpu_torch.image import PerceptualPathLength
+    from torchmetrics_tpu_torch.models import make_lpips
+
+    label = "ppl_vgg"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        vgg = make_lpips("vgg", rng_seed=1, device=dev)[0]
+    gen = SyntheticGenerator(dev, seed=3)
+    with torch.no_grad():
+        vgg(torch.zeros(batch, 3, 64, 64, device=dev), torch.zeros(batch, 3, 64, 64, device=dev))
+        gen(gen.sample(batch))
+    _sync_dev(dev)
+
+    run = _ModelRun(dev)
+    results, metrics = {}, []
+    for method in ("lerp", "slerp_unit"):
+        metric = PerceptualPathLength(distance_fn=vgg, num_samples=num_samples, batch_size=batch,
+                                      interpolation_method=method, epsilon=1e-4, resize=64, device=dev)
+        metrics.append(metric)
+        t0 = time.perf_counter()
+        metric.update(gen)
+        with torch.no_grad():
+            mean, std, dists = metric.compute()
+        _sync_dev(dev)
+        compute_s = time.perf_counter() - t0
+        if not (torch.isfinite(dists).all() and dists.numel() > 0.9 * num_samples):
+            raise AssertionError(f"{label}: {method} kept {dists.numel()} finite distances of {num_samples}")
+        results[method] = {"mean": float(mean), "std": float(std), "kept": dists.numel(),
+                           "compute_ms": compute_s * 1e3, "ms_per_batch": compute_s * 1e3 / (num_samples / batch)}
+    record = run.close(label, metrics)
+
+    cpu = torch.device("cpu")
+    vgg_cpu = copy.deepcopy(vgg).to(cpu)
+    errs = {}
+    for method in ("lerp", "slerp_unit"):
+        kw = dict(num_samples=check, batch_size=check, interpolation_method=method, epsilon=1e-4, resize=64)
+        card_m = PerceptualPathLength(distance_fn=vgg, **kw, device=dev)
+        cpu_m = PerceptualPathLength(distance_fn=vgg_cpu, **kw, device=cpu)
+        card_m.update(gen.on(dev))
+        cpu_m.update(gen.on(cpu))
+        with torch.no_grad():
+            errs[method] = _hold(label, f"{method} against the CPU run", _rel_err(card_m.compute()[:2],
+                                                                                  cpu_m.compute()[:2]), PPL_CPU_RTOL)
+
+    profile = None
+    if dev.type == "cuda":
+        prof = PerceptualPathLength(distance_fn=vgg, num_samples=batch, batch_size=batch, epsilon=1e-4, resize=64,
+                                    lower_discard=None, upper_discard=None, device=dev)
+        prof.update(gen)
+
+        def step(i):
+            prof._computed = None
+            with torch.no_grad():
+                prof.compute()
+
+        profile = profile_steps(step, range(4))
+    return {"phase": "slice", "path": label, "num_samples": num_samples, "batch": batch,
+            "generator": "SyntheticGenerator: 512 -> 3 x 256 x 256, seed 3", "resize": 64, "epsilon": 1e-4,
+            "network": "LPIPS VGG16 trunk, random init (make_lpips, seed 1), trained heads",
+            "reduced": ["2,000 samples, cut from 100,000", "a synthetic generator and random VGG weights"],
+            "results": results, "cpu_check": {"samples": check, "value_rel_err": errs, "tol": PPL_CPU_RTOL},
+            **record, "profile": profile, "card": card}
+
+
+def model_tf32_check(card: str, dev, images: int = 32) -> dict:
+    """The network pins with TF32 allowed by the caller
+    (torch.backends.cudnn.allow_tf32 = True and
+    torch.set_float32_matmul_precision("high")): Inception's 2048 features
+    and logits within TF32_CHECK_RTOL of the pinned run under the defaults,
+    and the same with the pins taken out, for comparison; KID's Gram
+    product and FID's covariance product under the caller's setting within
+    TF32_CHECK_RTOL of float64."""
+    import torch
+
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+    from torchmetrics_tpu_torch.image import kid as kid_module
+    from torchmetrics_tpu_torch.models import inception as inception_module
+    from torchmetrics_tpu_torch.models import make_fid_inception
+
+    net, _, _ = make_fid_inception((2048, "logits_unbiased"), rng_seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(77)
+    x = _cifar_images(g, dev, images, fake=False)
+    feats = torch.randn(1000, 2048, generator=g, device=dev)
+    with torch.no_grad():
+        pinned = net(x)
+    prev_conv, prev_matmul = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        with torch.no_grad():
+            caller = net(x)
+            gram = kid_module.poly_kernel(feats, feats)
+            fid = FrechetInceptionDistance(feature=lambda t: t, device=dev)
+            fid.update(feats, real=True)
+            cov_sum = fid.real_features_cov_sum
+            pins = (inception_module.ieee_fp32_convolutions, inception_module.highest_fp32_matmuls)
+            inception_module.ieee_fp32_convolutions = inception_module.highest_fp32_matmuls = contextlib.nullcontext
+            try:
+                unpinned = net(x)
+            finally:
+                inception_module.ieee_fp32_convolutions, inception_module.highest_fp32_matmuls = pins
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_conv
+        torch.set_float32_matmul_precision(prev_matmul)
+    f64 = feats.double()
+    gram_err = _hold("model_tf32", "KID's Gram product against float64",
+                     _rel_err(gram, (f64 @ f64.T / 2048 + 1.0) ** 3), TF32_CHECK_RTOL)
+    cov_err = _hold("model_tf32", "FID's covariance product against float64", _rel_err(cov_sum, f64.T @ f64),
+                    TF32_CHECK_RTOL)
+    errs = {str(k): _hold("model_tf32", f"tap {k} with TF32 allowed by the caller", _rel_err(caller[k], pinned[k]),
+                          TF32_CHECK_RTOL) for k in (2048, "logits_unbiased")}
+    unpinned_errs = {str(k): _rel_err(unpinned[k], pinned[k]) for k in (2048, "logits_unbiased")}
+    return {"phase": "model_tf32", "allow_tf32_by_caller": True, "matmul_precision_by_caller": "high",
+            "images": images, "tol": TF32_CHECK_RTOL, "tap_rel_err": errs, "kid_gram_rel_err_f64": gram_err,
+            "fid_cov_rel_err_f64": cov_err,
+            "tap_rel_err_without_the_pins": unpinned_errs, "card": card}
+
+
+def run_model_paths(card: str, dev) -> list:
+    """The three model paths and the TF32 check, one record each."""
+    return [run_cifar10_fid(card, dev), run_bapps_lpips(card, dev), run_ppl_vgg(card, dev),
+            model_tf32_check(card, dev)]
+
+
+# ---------------------------------------------------------------------------
 # phase dist_sync: state sync over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -3357,6 +3945,8 @@ def main() -> int:
         emit(record)
         launches += phase_launches
     emit(sync_free_exact_computes(card))
+    for record in run_model_paths(card, dev):
+        emit(record)
     record, dist_launches = dist_sync(card)
     emit(record)
     launches += dist_launches

@@ -42,7 +42,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "'image', 'image.ssim', 'image.psnr', 'image.simple', 'functional.image', 'functional.image.helper', "
         "'functional.image.ssim', 'functional.image.psnr', 'functional.image.psnrb', 'functional.image.uqi', "
         "'functional.image.vif', 'functional.image.sam', 'functional.image.scc', 'functional.image.d_lambda', "
-        "'functional.image.rmse_sw', 'functional.image.tv', 'functional.image.gradients']\n"
+        "'functional.image.rmse_sw', 'functional.image.tv', 'functional.image.gradients', 'models', "
+        "'models.pretrained', 'models.inception', 'models.lpips', 'image.fid', 'image.kid', 'image.inception', "
+        "'image.mifid', 'image.lpip', 'image.perceptual_path_length', 'functional.image.lpips', "
+        "'functional.image.perceptual_path_length']\n"
         "missing = [m for m in new if 'torchmetrics_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "

@@ -5,23 +5,26 @@ port is tested against; it imports ``torch`` and never ``jax``. Metrics live
 on the CUDA card unless ``device=`` says otherwise, and the counting kernel
 of the classification path is a hand-written CUDA weighted bincount
 (``ops.weighted_bincount``). See README.md, "PyTorch/CUDA port".
+
+``__all__`` is the JAX package's root list less the names not ported yet.
+The task classes (``BinaryAUROC``, ``MulticlassAccuracy``, ...), the sync
+names and the interop helpers are reachable here and from their
+subpackages (``classification``, ``parallel``, ``interop``, ``ops``) but
+are not exported, as in the JAX root.
 """
 from . import functional
 from .aggregation import (CatMetric, DecayedMean, DecayedSum, MaxMetric, MeanMetric, MinMetric, RunningMean,
                           RunningSum, SumMetric, WindowedMax, WindowedMean, WindowedMin, WindowedSum)
 from .buffers import CatBuffer, CatLayoutError
 from .classification import *  # noqa: F401,F403
-from .classification import __all__ as _classification_all
 from .collections import MetricCollection
 from .image import *  # noqa: F401,F403
-from .image import __all__ as _image_all
 from .interop import state_from_numpy, state_to_numpy
 from .metric import CompositionalMetric, Metric
 from .online import DecayedMetric, WindowedMetric
 from .ops import weighted_bincount
 from .parallel import NoSync, Reduction, SyncBackend
 from .regression import *  # noqa: F401,F403
-from .regression import __all__ as _regression_all
 from .retrieval import (RetrievalAUROC, RetrievalFallOut, RetrievalHitRate, RetrievalMAP, RetrievalMRR,
                         RetrievalNormalizedDCG, RetrievalPrecision, RetrievalPrecisionRecallCurve, RetrievalRecall,
                         RetrievalRecallAtFixedPrecision, RetrievalRPrecision)
@@ -32,32 +35,79 @@ from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetr
                        MultitaskWrapper, Running)
 
 __all__ = [
-    *_classification_all,
-    *_regression_all,
-    *_image_all,
+    "AUROC",
+    "Accuracy",
+    "AveragePrecision",
+    "BinaryFairness",
+    "BinaryGroupStatRates",
     "BootStrapper",
     "BufferedMetric",
     "BufferedMetricCollection",
+    "CalibrationError",
     "CatBuffer",
     "CatLayoutError",
     "CatMetric",
     "ClasswiseWrapper",
+    "CohenKappa",
     "CompositionalMetric",
+    "ConcordanceCorrCoef",
+    "ConfusionMatrix",
+    "CosineSimilarity",
+    "CriticalSuccessIndex",
     "DecayedMean",
     "DecayedMetric",
     "DecayedSum",
+    "Dice",
+    "ErrorRelativeGlobalDimensionlessSynthesis",
+    "ExactMatch",
+    "ExplainedVariance",
+    "F1Score",
+    "FBetaScore",
+    "FrechetInceptionDistance",
+    "HammingDistance",
+    "HingeLoss",
+    "InceptionScore",
+    "JaccardIndex",
+    "KLDivergence",
+    "KendallRankCorrCoef",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+    "LogCoshError",
+    "MatthewsCorrCoef",
     "MaxMetric",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
     "MeanMetric",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
+    "MemorizationInformedFrechetInceptionDistance",
     "Metric",
     "MetricCollection",
     "MetricState",
     "MetricTracker",
     "MinMaxMetric",
     "MinMetric",
+    "MinkowskiDistance",
+    "MultiScaleStructuralSimilarityIndexMeasure",
+    "MultilabelCoverageError",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
     "MultioutputWrapper",
     "MultitaskWrapper",
-    "NoSync",
-    "Reduction",
+    "PeakSignalNoiseRatio",
+    "PeakSignalNoiseRatioWithBlockedEffect",
+    "PearsonCorrCoef",
+    "PerceptualPathLength",
+    "Precision",
+    "PrecisionAtFixedRecall",
+    "PrecisionRecallCurve",
+    "QualityWithNoReference",
+    "R2Score",
+    "ROC",
+    "Recall",
+    "RecallAtFixedPrecision",
+    "RelativeAverageSpectralError",
+    "RelativeSquaredError",
     "RetrievalAUROC",
     "RetrievalFallOut",
     "RetrievalHitRate",
@@ -69,11 +119,27 @@ __all__ = [
     "RetrievalRPrecision",
     "RetrievalRecall",
     "RetrievalRecallAtFixedPrecision",
+    "RootMeanSquaredErrorUsingSlidingWindow",
     "Running",
     "RunningMean",
     "RunningSum",
+    "SensitivityAtSpecificity",
+    "SpatialCorrelationCoefficient",
+    "SpatialDistortionIndex",
+    "SpearmanCorrCoef",
+    "Specificity",
+    "SpecificityAtSensitivity",
+    "SpectralAngleMapper",
+    "SpectralDistortionIndex",
+    "StatScores",
+    "StructuralSimilarityIndexMeasure",
     "SumMetric",
-    "SyncBackend",
+    "SymmetricMeanAbsolutePercentageError",
+    "TotalVariation",
+    "TweedieDevianceScore",
+    "UniversalImageQualityIndex",
+    "VisualInformationFidelity",
+    "WeightedMeanAbsolutePercentageError",
     "WindowedMax",
     "WindowedMean",
     "WindowedMetric",
@@ -81,7 +147,4 @@ __all__ = [
     "WindowedSum",
     "functional",
     "label_results",
-    "state_from_numpy",
-    "state_to_numpy",
-    "weighted_bincount",
 ]

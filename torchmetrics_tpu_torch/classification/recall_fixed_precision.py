@@ -56,9 +56,12 @@ class _AtFixed:
     The constraint's value is the first argument after the class or label
     count, by position, as ``min_value`` (the JAX package's multiclass
     name) or by the family's own name (``min_precision``, ``min_recall``,
-    ``min_specificity``, ``min_sensitivity``)."""
+    ``min_specificity``, ``min_sensitivity``).
 
-    higher_is_better = True
+    ``higher_is_better`` is set class by class, as in the JAX package:
+    ``True`` on the binary family only; the multiclass and multilabel
+    classes keep their curve base's ``None``."""
+
     _use_roc = False
     _pick = staticmethod(_recall_precision)
     _objective_first = True
@@ -84,6 +87,8 @@ class _AtFixed:
 
 
 class _BinaryAtFixed(_AtFixed, BinaryPrecisionRecallCurve):
+    higher_is_better = True
+
     def __init__(self, min_value: Optional[float] = None, thresholds: Thresholds = None,
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:
         min_value = self._pop_min(min_value, kwargs, validate_args)

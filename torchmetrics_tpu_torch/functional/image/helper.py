@@ -99,6 +99,25 @@ def ieee_fp32_convolutions():
         conv.fp32_precision = prev
 
 
+@contextmanager
+def highest_fp32_matmuls():
+    """cuBLAS multiplies float32 matmuls in float32 inside the block,
+    whatever the caller set (``torch.set_float32_matmul_precision``, legacy
+    ``allow_tf32`` or per-backend; restored on exit): the counterpart of
+    ``precision=Precision.HIGHEST`` on the JAX package's covariance, Gram
+    and cosine products and network matmuls."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.fp32_precision
+    if prev == "ieee":
+        yield
+        return
+    matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision = prev
+
+
 def depthwise_conv2d(x: Tensor, kernel: Tensor) -> Tensor:
     """x: (N, C, H, W); kernel: (C, 1, kh, kw); valid padding, full float32."""
     with ieee_fp32_convolutions():

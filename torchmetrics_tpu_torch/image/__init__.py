@@ -1,6 +1,11 @@
 """Image metrics. Counterpart of ``torchmetrics_tpu/image/``, with its
-``__all__`` but for the six that need network weights (FID, KID, IS, MiFID,
-LPIPS and PPL), which are not ported yet."""
+``__all__``."""
+from .fid import FrechetInceptionDistance
+from .inception import InceptionScore
+from .kid import KernelInceptionDistance
+from .lpip import LearnedPerceptualImagePatchSimilarity
+from .mifid import MemorizationInformedFrechetInceptionDistance
+from .perceptual_path_length import PerceptualPathLength
 from .psnr import PeakSignalNoiseRatio, PeakSignalNoiseRatioWithBlockedEffect
 from .simple import (ErrorRelativeGlobalDimensionlessSynthesis, QualityWithNoReference, RelativeAverageSpectralError,
                      RootMeanSquaredErrorUsingSlidingWindow, SpatialCorrelationCoefficient, SpatialDistortionIndex,
@@ -10,9 +15,15 @@ from .ssim import MultiScaleStructuralSimilarityIndexMeasure, StructuralSimilari
 
 __all__ = [
     "ErrorRelativeGlobalDimensionlessSynthesis",
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+    "MemorizationInformedFrechetInceptionDistance",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
     "PeakSignalNoiseRatioWithBlockedEffect",
+    "PerceptualPathLength",
     "QualityWithNoReference",
     "RelativeAverageSpectralError",
     "RootMeanSquaredErrorUsingSlidingWindow",

@@ -52,7 +52,7 @@ its identity and the identity of its state tensors, never by their values
 
 Not ported: the XLA executable cache (graphs are per instance, see
 :mod:`~torchmetrics_tpu_torch._capture`); not ported yet: the sharded cat
-layout, quantized and elastic sync, spans/ledger/registry and ``plot``.
+layout (``cat_layout="sharded"`` raises), quantized and elastic sync, spans/ledger/registry and ``plot``.
 """
 from __future__ import annotations
 
@@ -168,6 +168,13 @@ class Metric(torch.nn.Module):
             alone, by a collection's fused update and by :meth:`buffered`
             (default True; a class with ``jittable = False`` is never
             captured).
+        compute_on_cpu: keep ``cat`` states on the host: each update's
+            increments are moved to the CPU after it, as list-layout
+            tensors, and compute reads them there; such a metric never
+            captures its update (JAX ``metric.py:1004-1010,1058``).
+        cat_layout: ``"replicated"`` (the only layout here) keeps each cat
+            state whole on its device; ``"sharded"`` is ROADMAP A13 and
+            raises :class:`NotImplementedError`.
 
     Example (defining a custom metric):
         >>> import torch
@@ -223,12 +230,21 @@ class Metric(torch.nn.Module):
         sync_policy: Optional[SyncPolicy] = None,
         list_layout: str = "padded",
         jit: bool = True,
+        compute_on_cpu: bool = False,
+        cat_layout: str = "replicated",
         **kwargs: Any,
     ) -> None:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
         if list_layout not in ("padded", "list"):
             raise ValueError(f"list_layout must be 'padded' or 'list', got {list_layout!r}")
+        if cat_layout not in ("replicated", "sharded"):
+            raise ValueError(f"cat_layout must be 'replicated' or 'sharded', got {cat_layout!r}")
+        if cat_layout == "sharded":
+            raise NotImplementedError(
+                "cat_layout='sharded' partitions cat states across devices, which torchmetrics_tpu_torch does "
+                "not have yet (ROADMAP A13); use cat_layout='replicated'"
+            )
         super().__init__()
         self._device = resolve_device(device)
         self._list_layout = list_layout
@@ -239,6 +255,7 @@ class Metric(torch.nn.Module):
         self._list_states: set = set()
         self._cat_meta: Dict[str, Tuple[Optional[torch.dtype], Optional[Tuple[int, ...]]]] = {}
 
+        self.compute_on_cpu = bool(compute_on_cpu)
         self.dist_sync_on_step = dist_sync_on_step
         self.sync_on_compute = sync_on_compute
         self.compute_with_cache = compute_with_cache
@@ -250,7 +267,8 @@ class Metric(torch.nn.Module):
         self._is_synced = False
         self._cache: Optional[StateDict] = None
         self._in_pure_update = False
-        self._use_jit = bool(jit) and type(self).jittable
+        # host-resident cat states are moved after each update, which a graph cannot do
+        self._use_jit = bool(jit) and type(self).jittable and not self.compute_on_cpu
         self._apply_epoch = 0  # bumped by device and dtype moves: graphs over the old tensors are stale
         self._update_graphs: Dict[Any, CapturedStep] = {}
 
@@ -433,12 +451,20 @@ class Metric(torch.nn.Module):
         return old_t, old_l
 
     def _pure_update(self, tensor_state: StateDict, args: tuple, kwargs: dict):
-        """Run the subclass update body against the given state; pure."""
+        """Run the subclass update body against the given state; pure.
+
+        A tensor state the body adds (a metric that sizes its states at its
+        first update, as FID does) is returned with the others, and the
+        metric's own slot goes back to its default."""
         old = self._swap_state(tensor_state, {k: [] for k in self._list_states})
+        known = set(self._defaults)
         self._in_pure_update = True
         try:
             self._update_impl(*args, **kwargs)
             new_tensors = {k: self._buffers[k] for k in tensor_state}
+            for k in self._defaults.keys() - known - self._list_states:
+                new_tensors[k] = self._buffers[k]
+                self._buffers[k] = self._defaults[k].clone()
             appends = {k: tuple(self.__dict__[k]) for k in self._list_states}
         finally:
             self._swap_state(*old)
@@ -651,6 +677,7 @@ class Metric(torch.nn.Module):
     def _uses_padded(self, name: str) -> bool:
         return (
             self._list_layout == "padded"
+            and not self.compute_on_cpu
             and name not in self._layout_fallback
             and self._reductions.get(name) == Reduction.CAT
         )
@@ -679,7 +706,14 @@ class Metric(torch.nn.Module):
                 self._layout_fallback.add(name)
                 target = [target.materialize()] if isinstance(target, CatBuffer) and len(target) else list(target)
                 self.__dict__[name] = target
+        if self.compute_on_cpu and isinstance(inc, torch.Tensor):
+            target.append(inc.to("cpu", copy=borrowed))
+            return
         target.append(inc.clone() if borrowed else inc)
+
+    def _cat_device(self) -> torch.device:
+        """Where cat increments live: the host under ``compute_on_cpu``."""
+        return torch.device("cpu") if self.compute_on_cpu else self._device
 
     def _extend_list_states(self, appends: Mapping[str, Sequence], borrowed: bool = False) -> None:
         for k, vs in appends.items():
@@ -896,7 +930,7 @@ class Metric(torch.nn.Module):
         none is), so a rank with no rows sends the group its real layout
         (JAX ``metric.py:1404-1411``). The record survives ``reset``."""
         dtype, trailing = self._cat_meta.get(name, (None, None))
-        return torch.zeros((0, *(trailing or ())), dtype=dtype or torch.float32, device=self._device)
+        return torch.zeros((0, *(trailing or ())), dtype=dtype or torch.float32, device=self._cat_device())
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore cached local states. Parity: reference ``metric.py:534-553``."""
@@ -962,7 +996,7 @@ class Metric(torch.nn.Module):
                 continue
             name = key[len(prefix):]
             if name in self._list_states:
-                self.__dict__[name] = [torch.as_tensor(e).to(self._device) for e in value]
+                self.__dict__[name] = [torch.as_tensor(e).to(self._cat_device()) for e in value]
             elif name in self._defaults:
                 self._buffers[name] = torch.as_tensor(value).to(self._device, self._defaults[name].dtype)
             elif name.split(".", 1)[0] not in self._modules and name not in self._buffers:
@@ -991,8 +1025,9 @@ class Metric(torch.nn.Module):
         self._defaults = {k: v if isinstance(v, list) else fn(v) for k, v in self._defaults.items()}
         self._cat_meta = {k: (dtype if dtype is None else fn(torch.zeros(0, dtype=dtype)).dtype, trailing)
                           for k, (dtype, trailing) in self._cat_meta.items()}
+        cat_fn = (lambda t: fn(t).cpu()) if self.compute_on_cpu else fn  # host cat states stay on the host
         for k in self._list_states:
-            self.__dict__[k] = _apply_cat(self.__dict__[k], fn)
+            self.__dict__[k] = _apply_cat(self.__dict__[k], cat_fn)
         if self._cache is not None:
             self._cache = {k: _apply_cat(v, fn) if k in self._list_states else fn(v) for k, v in self._cache.items()}
         self._device = fn(torch.zeros(1, device=self._device)).device
