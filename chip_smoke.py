@@ -7,7 +7,8 @@ Phases, one JSON line each; any failed check raises, so the exit code is
 not 0 and no result line is printed:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile csrc/bincount.cu with nvcc for sm_90a, timed;
+2. build: compile csrc/bincount.cu and csrc/tdigest.cu with nvcc for
+   sm_90a, one nvcc for each, started together, timed;
 3. kernel: the CUDA kernel through weighted_bincount_batched (the metric
    path's batched calls) and weighted_bincount (1-D), against the plain
    PyTorch versions on the card, at the metric path's shapes, past the
@@ -16,7 +17,13 @@ not 0 and no result line is printed:
    BootStrapper's 3 x 10 rows of the composition path and at edge
    cases; each call must launch once. Timed beside the plain version, torch.bincount (a yardstick only; the package
    never calls it: its device time from a profiler trace, and its host
-   round trip) and the memory-bandwidth bound;
+   round trip) and the memory-bandwidth bound. The t-digest compress kernel
+   (tdigest_compress_sorted) at the sketch paths' shapes, S=1 digest of
+   M=65,664 centroids and S=256 of 4,224: one launch each, bitwise equal to
+   its plain version run on the host on a copy of the inputs, weights
+   bitwise and means within 1e-5 relative of the plain version on the card
+   (whose index_add_ adds with float atomics); timed beside that plain
+   version and its bound (no PyTorch call computes the same function);
 4. paths: each a MetricCollection driven through update -> compute and
    through the pure init_state / update_state / compute_state API, with
    kernel launches counted over each drive, compute groups checked, states
@@ -176,6 +183,35 @@ not 0 and no result line is printed:
      pinned run's within TF32_CHECK_RTOL, and KID's Gram and FID's
      covariance products are within it of float64.
 
+11. sketches (ROADMAP A12), before the model paths, each reporting ms per
+   update and its kernel launches (counts set to 0 before each drive):
+   - latency_quantiles_tdigest: ApproxQuantile(q=(0.5, 0.9, 0.99, 0.999),
+     compression=128) over 200 updates of 65,536 log-normal latencies,
+     eager and captured (digests bitwise), windowed(horizon=64, slots=8)
+     and decayed(halflife=32.0); each estimate's rank in the data it covers
+     within the documented envelope, the exact twin's torch.quantile
+     beside it, the first 3 updates bitwise against a CPU run, and a
+     profile with the compress kernel's device ms;
+   - ctr_reservoir_auroc_ece: ApproxAUROC and ApproxCalibrationError
+     (capacity 65,536, 15 bins) fused in one collection over 100 updates
+     of 65,536 (score, click) pairs at about 3% positive; within
+     3/sqrt(capacity) of the exact twins; reservoirs against a CPU run of
+     the first 25 updates (payload bitwise, keys within 2 ulp: CUDA's logf
+     and the CPU's log differ by an ulp; the rows are counted);
+   - item_popularity_countmin: ApproxFrequency(track=<the 1,000 hottest
+     ids>, depth=4, width=65,536) over 100 updates of 65,536 Zipf(1.1) ids
+     of 1,000,000 items; one bincount launch per update; tables bitwise
+     eager, captured and on the CPU; overestimate-only, excess within
+     e·N/width but for a fraction e^-4;
+   - tenant_fleet: TenantStack of MulticlassAccuracy(1000 classes, macro)
+     over 1,000 tenants (1,024 slots) and of ApproxQuantile over 256
+     tenants; 16 sampled tenants against single metrics (bitwise), one
+     replay and one kernel launch per stacked update, no capture on churn
+     within the capacity and one at growth past it.
+   dist_sync's two gloo ranks also sync ApproxQuantile, ApproxAUROC and
+   ApproxFrequency: both ranks' states bitwise equal to merge_states of
+   the two ranks' local states.
+
 The last lines are the kernels' record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -185,19 +221,25 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
+# past this many rows the torch.bincount yardstick is one call over row-offset
+# indices, not one call (and one host round trip) per row
+LIBRARY_FLAT_ROWS = 32
 SLEEP_CYCLES = 20_000_000  # about 10 ms of the H100's clock
 VALUE_TOL = 1e-6
 # kernel cases timed beside their bound, the plain version and torch.bincount
 TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve_c1000_t64",
                "curve_c1000_t64_1d", "curve_binary_pixel_t64", "curve_multilabel_l80_t64", "past_cluster",
                "unweighted_int32", "random_f32_weights", "confmat_cityscapes", "stat_scores_cityscapes",
-               "confmat_imagenet1k", "calibration_imagenet1k", "fairness_jigsaw", "bootstrap_c100_b10")
+               "confmat_imagenet1k", "calibration_imagenet1k", "fairness_jigsaw", "bootstrap_c100_b10",
+               "countmin_popularity", "ece_ctr_compute", "tenant_stack_c1000")
 # the cases of the confusion, calibration, fairness and bootstrap paths, reported beside the main one in the
 # kernels line
 SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k",
-               "fairness_jigsaw", "bootstrap_c100_b10")
+               "fairness_jigsaw", "bootstrap_c100_b10", "countmin_popularity", "ece_ctr_compute",
+               "tenant_stack_c1000")
 
 
 def emit(obj) -> None:
@@ -268,6 +310,7 @@ def kernel_cases(device):
     city = ints((1, 2_097_152), 0, 361)
     city = torch.where(torch.rand(city.shape, generator=g, device=device) < 0.1, -1, city)
     conf = torch.rand((50_000,), generator=g, device=device)
+    ctr_conf = 0.5 + 0.5 * torch.rand((65_536,), generator=g, device=device)  # binary confidences are >= 0.5
     return [
         # stat scores at bench config 2: S=3 rows of N = batch, bins = C
         ("stat_scores_c100", "batched", ints((3, 1024), 0, 100), mask01((3, 1024)), 100, True),
@@ -325,6 +368,15 @@ def kernel_cases(device):
         # small integers (Poisson draws), so the sums are exact
         ("bootstrap_c100_b10", "batched", ints((3, 1024), 0, 100).repeat(10, 1),
          mask01((30, 1024)) * torch.randint(0, 4, (30, 1024), generator=g, device=device), 100, True),
+        # the sketch paths: a count-min update of item_popularity
+        # (depth 4 rows of 65,536 hashed columns, int32 into 65,536 bins), the
+        # ECE compute of ctr_reservoir (three f32 rows of the 65,536-row
+        # sample over 15 bins) and a stacked update of tenant_fleet (3 rows
+        # of 64 per tenant, 1,024 tenants, per-row indices, 1,000 classes)
+        ("countmin_popularity", "batched", ints((4, 65_536), 0, 65_536), None, 65_536, True),
+        ("ece_ctr_compute", "batched", torch.clamp((ctr_conf * 15).to(torch.int32), 0, 14),
+         torch.stack([torch.ones_like(ctr_conf), ctr_conf, mask01((65_536,))]), 15, False),
+        ("tenant_stack_c1000", "batched", ints((3 * 1024, 64), 0, 1000), mask01((3 * 1024, 64)), 1000, True),
     ]
 
 
@@ -337,24 +389,35 @@ def bound_bytes(idx, w, bins: int) -> int:
     return rows * n * 4 + w_bytes + s * bins * 4
 
 
+def library_call(idx, w, bins: int):
+    """The torch.bincount yardstick for a case, as a zero-argument callable:
+    one call per row, or, past LIBRARY_FLAT_ROWS rows, one call over
+    row-offset indices (bin b of row r at r * bins + b), which counts the
+    same. torch.bincount refuses negative indices: dropped ones count in
+    bin 0."""
+    import torch
+
+    idx64 = idx.long().clamp_min(0)
+    rows = w.shape[0] if w is not None and w.dim() == 2 else (idx.shape[0] if idx.dim() == 2 else 1)
+    if rows > LIBRARY_FLAT_ROWS:
+        offsets = torch.arange(rows, device=idx.device)[:, None] * bins
+        flat = (idx64.expand(rows, idx64.shape[-1]) + offsets).reshape(-1)
+        flat_w = None if w is None else w.reshape(-1)
+        return lambda: torch.bincount(flat, flat_w, minlength=rows * bins)
+    i_rows = [idx64] * rows if idx64.dim() == 1 else list(idx64)
+    w_rows = [None] * rows if w is None else ([w] if w.dim() == 1 else list(w))
+    return lambda: [torch.bincount(i, ww, minlength=bins) for i, ww in zip(i_rows, w_rows)]
+
+
 def library_device_ms(idx, w, bins: int, reps: int = 10) -> float:
-    """Device time of torch.bincount for the same counts, one call per row,
-    summed over the rows: the kernels (and memsets) of a torch.profiler
-    trace, so the host round trip by which torch.bincount sizes its output
-    (a device-to-host copy and a wait) is left out."""
+    """Device time of torch.bincount for the same counts (``library_call``):
+    the kernels (and memsets) of a torch.profiler trace, so the host round
+    trip by which torch.bincount sizes its output (a device-to-host copy and
+    a wait) is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    # torch.bincount refuses negative indices: dropped ones count in bin 0
-    idx64 = idx.long().clamp_min(0)
-    rows = w.shape[0] if w is not None and w.dim() == 2 else (idx.shape[0] if idx.dim() == 2 else 1)
-
-    def call():
-        for r in range(rows):
-            i = idx64 if idx64.dim() == 1 else idx64[r]
-            ww = None if w is None else (w if w.dim() == 1 else w[r])
-            torch.bincount(i, ww, minlength=bins)
-
+    call = library_call(idx, w, bins)
     call()
     torch.cuda.synchronize()
     total_us = 0.0
@@ -416,12 +479,8 @@ def check_kernel(device) -> dict:
             row["library_device_ms"] = library_device_ms(idx, w, bins)
             # torch.bincount reads the largest index back to the host to size
             # its output, so every call waits for the device: this is a host
-            # round trip per row ("library_covered" comes out False)
-            idx64 = idx.long().clamp_min(0)
-            w_rows = [None] * s if w is None else ([w] if w.dim() == 1 else list(w))
-            i_rows = [idx64] * s if idx64.dim() == 1 else list(idx64)
-            row["library_ms"], _, row["library_covered"] = time_ms(
-                lambda: [torch.bincount(i, ww, minlength=bins) for i, ww in zip(i_rows, w_rows)], reps=5)
+            # round trip per call ("library_covered" comes out False)
+            row["library_ms"], _, row["library_covered"] = time_ms(library_call(idx, w, bins), reps=5)
             row["bound_ms"] = bound_bytes(idx, w, bins) / HBM_BYTES_PER_S * 1e3
             row["bound_by"] = "bytes"
         results.append(row)
@@ -1923,6 +1982,7 @@ def profile_steps(step, indices, unit: str = "step") -> dict:
             busy_us += end - reach
             reach = end
     ours = sum(v for k, v in by_name.items() if "histogram_kernel" in k)
+    compress = sum(v for k, v in by_name.items() if "compress_kernel" in k)
     by_short = {}  # kernels whose names share their first 60 characters, summed
     for k, v in by_name.items():
         by_short[k[:60]] = by_short.get(k[:60], 0.0) + v
@@ -1934,6 +1994,7 @@ def profile_steps(step, indices, unit: str = "step") -> dict:
         f"device_busy_ms_per_{unit}": busy_us / n / 1e3 if spans else None,
         "device_idle_share": 1.0 - busy_us / wall_us if spans else None,
         f"bincount_kernel_ms_per_{unit}": ours / n / 1e3 if spans else None,
+        f"tdigest_kernel_ms_per_{unit}": compress / n / 1e3 if spans else None,
         f"device_ops_per_{unit}": len(spans) / n,
         f"top_device_ms_per_{unit}": {k: v / n / 1e3 for k, v in top},
     }
@@ -3516,6 +3577,634 @@ def run_model_paths(card: str, dev) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase sketches: the t-digest, reservoir and count-min metrics, TenantStack
+# ---------------------------------------------------------------------------
+
+LATENCY_QS = (0.5, 0.9, 0.99, 0.999)
+# (S, M, C) of the compress kernel on the sketch paths: one latency update
+# (a 128-slot digest and 65,536 new values), and tenant_fleet (b)'s 256
+# tenants of 4,096 values
+TDIGEST_CASES = ((1, 65_664, 128), (256, 4_224, 128))
+# the kernel's means against the plain version run on the card, whose
+# index_add_ adds each slot's products with float atomics in another order
+TDIGEST_CARD_PLAIN_RTOL = 1e-5
+# reservoir keys log(u)/w: torch's CPU log and CUDA's logf differ by an ulp
+# on some inputs, which moves neither the order nor the kept rows
+RESERVOIR_KEY_ULPS = 2
+
+
+def _latencies(g, dev, shape):
+    """Log-normal request latencies in ms (median about 49 ms)."""
+    import torch
+
+    return torch.exp(3.9 + 0.6 * torch.randn(shape, generator=g, device=dev))
+
+
+def _tdigest_kernel_input(g, dev, s: int, m: int, compression: int):
+    """S sorted centroid lists as an update gives them: a digest's C slots
+    after earlier data (integer weights) and M - C new unit-weight values."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops.tdigest import tdigest_compress_sorted_plain
+    from torchmetrics_tpu_torch.sketches.tdigest import _sort_centroids
+
+    def points():
+        vals = _latencies(g, dev, (s, m - compression))
+        return torch.stack([vals, torch.ones_like(vals)], dim=-1)
+
+    empty = torch.tensor([float("inf"), 0.0], device=dev).expand(s, compression, 2)
+    sort = torch.func.vmap(_sort_centroids)
+    body = tdigest_compress_sorted_plain(sort(torch.cat([empty, points()], dim=1)), compression)
+    return sort(torch.cat([body, points()], dim=1))
+
+
+def check_tdigest_kernel(dev) -> dict:
+    """The compress kernel at the sketch paths' shapes: one launch each;
+    weights and means bitwise equal to the plain version run on the host on
+    a copy of the same inputs; weights bitwise and means within
+    TDIGEST_CARD_PLAIN_RTOL of the plain version run on the card. Timed
+    beside the plain version on the card and the bound."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import tdigest
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases, worst = [], 0.0
+    for s, m, c in TDIGEST_CASES:
+        name = f"tdigest_s{s}_m{m}_c{c}"
+        cent = _tdigest_kernel_input(g, dev, s, m, c)
+        before = tdigest.tdigest_compress_sorted.launches
+        got = tdigest.tdigest_compress_sorted(cent, c)
+        launched = tdigest.tdigest_compress_sorted.launches - before
+        card_plain = tdigest.tdigest_compress_sorted_plain(cent, c)
+        host_plain = tdigest.tdigest_compress_sorted_plain(cent.cpu(), c)
+        torch.cuda.synchronize()
+        if launched != 1:
+            raise AssertionError(f"kernel {name}: {launched} launches, expected 1")
+        if not torch.equal(got.cpu(), host_plain):
+            raise AssertionError(f"kernel {name}: not bitwise equal to the plain version run on the host")
+        if not torch.equal(got[..., 1], card_plain[..., 1]) or not torch.equal(got[..., 1], got[..., 1].round()):
+            raise AssertionError(f"kernel {name}: centroid weights differ from the plain version on the card")
+        finite = torch.isfinite(card_plain[..., 0])
+        if not torch.equal(finite, torch.isfinite(got[..., 0])):
+            raise AssertionError(f"kernel {name}: empty slots differ from the plain version on the card")
+        diff = (got[..., 0] - card_plain[..., 0]).abs()[finite].double()
+        rel = float((diff / card_plain[..., 0].abs()[finite].double()).max())
+        if not rel <= TDIGEST_CARD_PLAIN_RTOL:
+            raise AssertionError(f"kernel {name}: means {rel} off the plain version on the card (relative; "
+                                 f"tolerance {TDIGEST_CARD_PLAIN_RTOL})")
+        err = float(diff.max())
+        worst = max(worst, err)
+        ms, host_ms, covered = time_ms(lambda: tdigest.tdigest_compress_sorted(cent, c))
+        plain_ms = statistics.median(_timed(lambda: tdigest.tdigest_compress_sorted_plain(cent, c))[1]
+                                     for _ in range(3))
+        cases.append({
+            "case": name, "s": s, "m": m, "compression": c, "launches": launched,
+            "bitwise_host_plain": True, "weights_bitwise_card_plain": True, "mean_rel_err_card_plain": rel,
+            "max_abs_err": err, "slots_used": int((got[0, :, 1] > 0).sum()), "ms": ms, "host_ms": host_ms,
+            "ms_covered": covered, "plain_ms": plain_ms,
+            "bound_ms": (s * m + s * c) * 8 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        })
+    return {"cases": cases, "max_abs_err": worst}
+
+
+def _kernel_counts():
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+    from torchmetrics_tpu_torch.ops.tdigest import tdigest_compress_sorted
+
+    return {"weighted_bincount": weighted_bincount.launches, "tdigest_compress": tdigest_compress_sorted.launches}
+
+
+def _zero_kernel_counts() -> None:
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+    from torchmetrics_tpu_torch.ops.tdigest import tdigest_compress_sorted
+
+    weighted_bincount.launches = 0
+    tdigest_compress_sorted.launches = 0
+
+
+def _rank_of(sorted_values, estimates) -> list:
+    """The fraction of ``sorted_values`` at or below each estimate."""
+    import torch
+
+    at = torch.searchsorted(sorted_values, estimates.to(sorted_values.dtype), right=True)
+    return (at.double() / sorted_values.numel()).tolist()
+
+
+def _envelope(q: float, compression: int) -> float:
+    """ApproxQuantile's documented rank-error envelope at ``q``."""
+    delta = 2.0 * (compression - 2)
+    return max(8.0 * q * (1.0 - q) / delta, 4.0 / delta)
+
+
+def _hold_ranks(label: str, what: str, ranks: list, compression: int) -> float:
+    worst = 0.0
+    for q, rank in zip(LATENCY_QS, ranks):
+        err = abs(rank - q)
+        if not err <= _envelope(q, compression):
+            raise AssertionError(f"{label}: {what} estimate at q={q} has rank {rank} (envelope "
+                                 f"{_envelope(q, compression)})")
+        worst = max(worst, err / _envelope(q, compression))
+    return worst
+
+
+def run_latency_quantiles(card: str, dev, updates: int = 200, batch: int = 65_536, compression: int = 128,
+                          cpu_steps: int = 3) -> tuple:
+    """Path ``latency_quantiles_tdigest``: a serving fleet's request-latency
+    quantiles, ApproxQuantile(q=(0.5, 0.9, 0.99, 0.999), compression=128)
+    over 200 updates of 65,536 log-normal latencies (13.1 M values), updated
+    eagerly (jit=False) and captured (one replay per update), digests
+    bitwise equal; each estimate's rank in the data within the documented
+    envelope, and the exact twin's torch.quantile beside it; windowed
+    (horizon 64 in 8 slots: the last 64 updates) and decayed (halflife 32:
+    update i weighs d^(199 - i)) views held the same way against the data
+    they cover; the first ``cpu_steps`` updates' digest bitwise equal to a
+    device="cpu" run. Returns (record, kernel launches)."""
+    import torch
+
+    from torchmetrics_tpu_torch import ApproxQuantile
+    from torchmetrics_tpu_torch._capture import graph_stats
+
+    label = "latency_quantiles_tdigest"
+    g = torch.Generator(device=dev).manual_seed(2024)
+    data = _latencies(g, dev, (updates, batch))
+
+    def mk(device=dev, **kw):
+        return ApproxQuantile(q=LATENCY_QS, compression=compression, device=device, **kw)
+
+    def drive(m, steps, source=data) -> float:
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in steps:
+            m.update(source[i])
+        _sync(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    warm = mk()
+    drive(warm, range(2))
+    del warm
+    launches = dict.fromkeys(("weighted_bincount", "tdigest_compress"), 0)
+    routes, metrics = {}, {}
+    for route, kw in (("eager", {"jit": False}), ("captured", {})):
+        m = mk(**kw)
+        graphs = graph_stats()
+        _zero_kernel_counts()
+        ms = drive(m, range(updates))
+        counts = _kernel_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        after = graph_stats()
+        routes[route] = {"ms_per_update": ms / updates, "compress_launches": counts["tdigest_compress"],
+                         "bincount_launches": counts["weighted_bincount"],
+                         "captures": after["captures"] - graphs["captures"],
+                         "replays_per_update": (after["replays"] - graphs["replays"]) / updates}
+        metrics[route] = m
+    if not torch.equal(metrics["eager"].digest, metrics["captured"].digest):
+        raise AssertionError(f"{label}: the captured digest differs from the eager one")
+    on_card = dev.type == "cuda"
+    if routes["eager"]["compress_launches"] != (updates if on_card else 0) or \
+            routes["captured"]["replays_per_update"] != (1.0 if on_card else 0.0):
+        raise AssertionError(f"{label}: launches or replays {routes}")
+
+    exact = mk(exact=True)
+    drive(exact, range(updates))
+    everything = torch.sort(data.reshape(-1)).values
+    estimates = metrics["captured"].compute()
+    exact_values = exact.compute()
+    worst = {"stream": _hold_ranks(label, "stream", _rank_of(everything, estimates), compression)}
+    rel_to_exact = ((estimates - exact_values).abs() / exact_values).tolist()
+
+    _zero_kernel_counts()
+    windowed = mk().windowed(horizon=64, slots=8)
+    window_ms = drive(windowed, range(updates))
+    decayed = mk().decayed(halflife=32.0)
+    decayed_ms = drive(decayed, range(updates))
+    counts = _kernel_counts()
+    for k in launches:
+        launches[k] += counts[k]
+    covered = torch.sort(data[max(updates - 64, 0):].reshape(-1)).values
+    worst["windowed"] = _hold_ranks(label, "windowed", _rank_of(covered, windowed.compute()), compression)
+    d = decayed.decay_factor
+    weights = torch.tensor(d, dtype=torch.float64, device=dev) ** torch.arange(updates - 1, -1, -1, device=dev)
+    order = torch.argsort(data.reshape(-1))
+    cum_w = torch.cumsum(weights.repeat_interleave(batch)[order], dim=0)
+    at = torch.searchsorted(data.reshape(-1)[order], decayed.compute(), right=True)
+    below = torch.where(at > 0, cum_w[(at - 1).clamp_min(0)], 0.0)
+    decayed_ranks = (below / cum_w[-1]).tolist()
+    worst["decayed"] = _hold_ranks(label, "decayed", decayed_ranks, compression)
+
+    # the first cpu_steps updates on the card and on the CPU: bitwise (the
+    # kernel and the plain version agree bitwise, and so do the sorts)
+    card_head, cpu_head = mk(jit=False), mk(device=torch.device("cpu"))
+    drive(card_head, range(cpu_steps))
+    data_cpu = data[:cpu_steps].cpu()
+    for i in range(cpu_steps):
+        cpu_head.update(data_cpu[i])
+    if not torch.equal(card_head.digest.cpu(), cpu_head.digest):
+        raise AssertionError(f"{label}: the digest after {cpu_steps} updates differs from the CPU run")
+
+    profile = None
+    if dev.type == "cuda":
+        prof = mk()
+        drive(prof, range(2))
+        profile = profile_steps(lambda i: prof.update(data[i]), range(2, 12), "update")
+    record = {"phase": "sketches", "path": label, "updates": updates, "batch": batch, "compression": compression,
+              "q": list(LATENCY_QS), "routes": routes, "estimates": estimates.tolist(),
+              "exact": exact_values.tolist(), "rel_to_exact": rel_to_exact,
+              "rank_err_over_envelope": worst, "windowed_ms_per_update": window_ms / updates,
+              "decayed_ms_per_update": decayed_ms / updates, "cpu_steps_bitwise": cpu_steps,
+              "profile": profile, "card": card}
+    return record, launches
+
+
+def _ctr_inputs(g, dev, updates: int, batch: int):
+    """(scores, clicks): a click-through model's predicted click
+    probabilities and the clicks, about 3% positive."""
+    import torch
+
+    logit = -4.2 + 1.2 * torch.randn(updates, batch, generator=g, device=dev)
+    clicks = (torch.rand(updates, batch, generator=g, device=dev) < torch.sigmoid(logit)).to(torch.float32)
+    scores = torch.sigmoid(logit + 0.3 * torch.randn(updates, batch, generator=g, device=dev))
+    return scores, clicks
+
+
+def _reservoir_rows_agree(label: str, got, want) -> int:
+    """Header and payload rows bitwise, in the same order; keys within
+    RESERVOIR_KEY_ULPS. Returns the number of rows whose key differs."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    if not torch.equal(got[0], want[0]) or not torch.equal(got[1:, 1:], want[1:, 1:]):
+        raise AssertionError(f"{label}: reservoir header or payload rows differ from the CPU run")
+    keys_g, keys_w = got[1:, 0], want[1:, 0]
+    same = keys_g == keys_w
+    ulps = (keys_g.view(torch.int32).long() - keys_w.view(torch.int32).long()).abs()
+    if not bool((same | (ulps <= RESERVOIR_KEY_ULPS)).all()):
+        raise AssertionError(f"{label}: reservoir keys differ from the CPU run by more than {RESERVOIR_KEY_ULPS} ulp")
+    return int((~same).sum())
+
+
+def run_ctr_reservoir(card: str, dev, updates: int = 100, batch: int = 65_536, capacity: int = 65_536,
+                      n_bins: int = 15, cpu_steps: int = 25) -> tuple:
+    """Path ``ctr_reservoir_auroc_ece``: a click-through model's streaming
+    AUROC and calibration, ApproxAUROC and ApproxCalibrationError (capacity
+    65,536, 15 bins) in one MetricCollection, fused (one replay per update),
+    over 100 updates of 65,536 (score, click) pairs at about 3% positive;
+    states bitwise equal to the eager loop's; values within 3/sqrt(capacity)
+    of the exact twins over the 6.55 M rows; the first ``cpu_steps``
+    updates' reservoirs against a device="cpu" run (payload bitwise, keys
+    within RESERVOIR_KEY_ULPS; rows with a differing key reported). The
+    ECE's compute is one bincount launch. Returns (record, kernel launches)."""
+    import torch
+
+    from torchmetrics_tpu_torch import ApproxAUROC, ApproxCalibrationError, MetricCollection
+    from torchmetrics_tpu_torch._capture import graph_stats
+
+    label = "ctr_reservoir_auroc_ece"
+    g = torch.Generator(device=dev).manual_seed(77)
+    scores, clicks = _ctr_inputs(g, dev, updates, batch)
+
+    def mk(device=dev, **kw):
+        return MetricCollection({"auroc": ApproxAUROC(capacity=capacity, device=device, **kw),
+                                 "ece": ApproxCalibrationError(capacity=capacity, n_bins=n_bins, device=device,
+                                                               **kw)})
+
+    def drive(coll, steps, s=scores, c=clicks) -> float:
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in steps:
+            coll.update(s[i], c[i])
+        _sync(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    launches = dict.fromkeys(("weighted_bincount", "tdigest_compress"), 0)
+    routes, colls = {}, {}
+    for route, kw in (("eager", {"jit": False}), ("fused", {})):
+        coll = mk(**kw)
+        graphs = graph_stats()
+        _zero_kernel_counts()
+        ms = drive(coll, range(updates))
+        update_counts = _kernel_counts()
+        values = coll.compute()
+        _sync(dev)
+        counts = _kernel_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        after = graph_stats()
+        routes[route] = {"ms_per_update": ms / updates, "bincount_launches_per_update":
+                         update_counts["weighted_bincount"] / updates,
+                         "bincount_launches_at_compute": counts["weighted_bincount"] - update_counts["weighted_bincount"],
+                         "captures": after["captures"] - graphs["captures"],
+                         "replays_per_update": (after["replays"] - graphs["replays"]) / updates,
+                         "values": {k: float(v) for k, v in values.items()}}
+        colls[route] = coll
+    for name in ("auroc", "ece"):
+        if not torch.equal(colls["eager"][name].sample, colls["fused"][name].sample):
+            raise AssertionError(f"{label}: the fused {name} reservoir differs from the eager one")
+    if routes["fused"]["bincount_launches_at_compute"] != (1 if dev.type == "cuda" else 0) or \
+            routes["fused"]["bincount_launches_per_update"]:
+        raise AssertionError(f"{label}: launches {routes['fused']}")
+
+    exact = mk(exact=True)
+    drive(exact, range(updates))
+    exact_values = {k: float(v) for k, v in exact.compute().items()}
+    bound = 3.0 / capacity ** 0.5
+    gaps = {k: abs(routes["fused"]["values"][k] - exact_values[k]) for k in exact_values}
+    for k, gap in gaps.items():
+        if not gap <= bound:
+            raise AssertionError(f"{label}: {k} {routes['fused']['values'][k]} is {gap} from the exact twin's "
+                                 f"{exact_values[k]} (bound {bound})")
+
+    card_head, cpu_head = mk(jit=False), mk(device=torch.device("cpu"))
+    drive(card_head, range(cpu_steps))
+    s_cpu, c_cpu = scores[:cpu_steps].cpu(), clicks[:cpu_steps].cpu()
+    for i in range(cpu_steps):
+        cpu_head.update(s_cpu[i], c_cpu[i])
+    key_rows = {name: _reservoir_rows_agree(label, card_head[name].sample, cpu_head[name].sample)
+                for name in ("auroc", "ece")}
+    record = {"phase": "sketches", "path": label, "updates": updates, "batch": batch, "capacity": capacity,
+              "n_bins": n_bins, "positive_rate": float(clicks.mean()), "routes": routes, "exact": exact_values,
+              "gap_to_exact": gaps, "bound": bound, "cpu_steps": cpu_steps,
+              "rows_with_key_ulp_differences_vs_cpu": key_rows, "card": card}
+    return record, launches
+
+
+def _zipf_ids(g, dev, shape, items: int, s: float):
+    """Item ids drawn from Zipf(s) over ``items`` ranks, mapped to ids by a
+    seeded permutation; returns (ids int32, the id of each rank)."""
+    import torch
+
+    pmf = torch.arange(1, items + 1, device=dev, dtype=torch.float64) ** -s
+    cdf = torch.cumsum(pmf, dim=0)
+    cdf = cdf / cdf[-1]
+    ranks = torch.searchsorted(cdf, torch.rand(shape, generator=g, device=dev, dtype=torch.float64))
+    id_of_rank = torch.randperm(items, generator=g, device=dev).to(torch.int32)
+    return id_of_rank[ranks.clamp_max(items - 1)], id_of_rank
+
+
+def run_item_popularity(card: str, dev, updates: int = 100, batch: int = 65_536, items: int = 1_000_000,
+                        track: int = 1000, depth: int = 4, width: int = 65_536, zipf_s: float = 1.1) -> tuple:
+    """Path ``item_popularity_countmin``: a recommender's item-popularity
+    counts, ApproxFrequency(track=<the 1,000 hottest ids>, depth=4,
+    width=65,536) over 100 updates of 65,536 ids from Zipf(1.1) over
+    1,000,000 items; one bincount launch per update; the table bitwise equal
+    eager, captured and on the CPU; every estimate at or above the exact
+    count, and the excess within e·N/width for all but a fraction e^-4 of
+    the tracked ids. Returns (record, kernel launches)."""
+    import math
+
+    import torch
+
+    from torchmetrics_tpu_torch import ApproxFrequency
+    from torchmetrics_tpu_torch._capture import graph_stats
+
+    label = "item_popularity_countmin"
+    g = torch.Generator(device=dev).manual_seed(99)
+    ids, id_of_rank = _zipf_ids(g, dev, (updates, batch), items, zipf_s)
+    tracked = id_of_rank[:track].tolist()
+
+    def mk(device=dev, **kw):
+        return ApproxFrequency(track=tracked, depth=depth, width=width, device=device, **kw)
+
+    launches = dict.fromkeys(("weighted_bincount", "tdigest_compress"), 0)
+    routes, metrics = {}, {}
+    for route, kw in (("eager", {"jit": False}), ("captured", {})):
+        m = mk(**kw)
+        graphs = graph_stats()
+        _zero_kernel_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(updates):
+            m.update(ids[i])
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _kernel_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        after = graph_stats()
+        routes[route] = {"ms_per_update": ms / updates, "bincount_launches": counts["weighted_bincount"],
+                         "captures": after["captures"] - graphs["captures"],
+                         "replays_per_update": (after["replays"] - graphs["replays"]) / updates}
+        metrics[route] = m
+    per_update = 1 if dev.type == "cuda" else 0
+    warmups = routes["captured"]["captures"]  # a capture's warm-up runs the update once more
+    if routes["eager"]["bincount_launches"] != per_update * updates or \
+            routes["captured"]["bincount_launches"] != per_update * (updates + warmups):
+        raise AssertionError(f"{label}: bincount launches {routes}, expected one per update")
+    cpu = mk(device=torch.device("cpu"))
+    ids_cpu = ids.cpu()
+    for i in range(updates):
+        cpu.update(ids_cpu[i])
+    for route, m in metrics.items():
+        if m.table.dtype != torch.int32 or not torch.equal(m.table.cpu(), cpu.table):
+            raise AssertionError(f"{label}: the {route} table differs from the CPU run")
+    est = metrics["captured"].compute().long()
+    true = torch.bincount(ids.reshape(-1).long(), minlength=items)[id_of_rank[:track].long()]
+    n = ids.numel()
+    excess = est - true
+    if bool((excess < 0).any()):
+        raise AssertionError(f"{label}: an estimate is below the exact count")
+    eps_n = math.e * n / width
+    over = int((excess > eps_n).sum())
+    if over > math.exp(-depth) * track:
+        raise AssertionError(f"{label}: {over} of {track} estimates exceed e·N/width = {eps_n}")
+    record = {"phase": "sketches", "path": label, "updates": updates, "batch": batch, "items": items,
+              "zipf_s": zipf_s, "tracked": track, "depth": depth, "width": width, "routes": routes,
+              "table_bitwise_cpu": True, "max_excess": int(excess.max()), "mean_excess": float(excess.double().mean()),
+              "eps_n": eps_n, "over_eps_n": over, "hottest_true_count": int(true[0]), "card": card}
+    return record, launches
+
+
+def _timed_updates(fn, steps) -> float:
+    """Host ms of ``fn(i)`` over ``steps``, between two synchronisations."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    total = 0.0
+    for i in steps:
+        sync()
+        t0 = time.perf_counter()
+        fn(i)
+        sync()
+        total += time.perf_counter() - t0
+    return total * 1e3
+
+
+def run_tenant_fleet(card: str, dev, tenants: int = 1000, rows: int = 64, num_classes: int = 1000,
+                     updates: int = 20, sampled: int = 16, q_tenants: int = 256, q_rows: int = 4096,
+                     compression: int = 128, churn: int = 10) -> tuple:
+    """Path ``tenant_fleet``: per-cohort evaluation of one model.
+
+    (a) TenantStack(MulticlassAccuracy(num_classes=1000, average="macro"),
+    tenants=1000), 1,024 slots, 20 updates of 64 rows of float32 logits per
+    tenant; 16 sampled tenants' single metrics updated with their rows:
+    int32 states bitwise, values equal. Then 10 tenants removed and 10
+    added within the capacity, with no new capture at the next update, and
+    25 more added: the 25th doubles the slots to 2,048 and the next update
+    captures once; a tenant added into a freed slot starts from the defaults.
+    (b) TenantStack(ApproxQuantile(q=(0.5, 0.99), compression=128),
+    tenants=256), 20 updates of 4,096 latencies per tenant: one compress
+    launch per update for every tenant; 16 sampled singles' digests bitwise
+    (each CTA computes one digest alone), two of them also on the CPU.
+    Replays and launches per update, and ms per update stacked against a
+    loop over the 16 singles. Returns (record, kernel launches)."""
+    import torch
+
+    from torchmetrics_tpu_torch import ApproxQuantile, TenantStack
+    from torchmetrics_tpu_torch._capture import graph_stats
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+
+    label = "tenant_fleet"
+    g = torch.Generator(device=dev).manual_seed(555)
+    launches = dict.fromkeys(("weighted_bincount", "tdigest_compress"), 0)
+
+    def accuracy(device=dev):
+        return MulticlassAccuracy(num_classes=num_classes, average="macro", device=device)
+
+    def classify_inputs(slots):
+        return (torch.randn(slots, rows, num_classes, generator=g, device=dev),
+                torch.randint(0, num_classes, (slots, rows), generator=g, device=dev))
+
+    # (a) the classifier fleet
+    stack = TenantStack(accuracy(), tenants=range(tenants))
+    picks = torch.randperm(tenants, generator=torch.Generator().manual_seed(1))[:sampled].tolist()
+    singles = {t: accuracy() for t in picks}
+    stack_ms = loop_ms = 0.0
+    stack_graphs = {"captures": 0, "replays": 0}
+    _zero_kernel_counts()
+    single_counts = dict.fromkeys(launches, 0)
+    for _ in range(updates):
+        preds, target = classify_inputs(stack.slots)
+        graphs = graph_stats()
+        stack_ms += _timed_updates(lambda i: stack.update(preds, target), [0])
+        for k, v in graph_stats().items():
+            stack_graphs[k] += v - graphs[k]
+        before = _kernel_counts()
+        loop_ms += _timed_updates(lambda i: [singles[t].update(preds[t], target[t]) for t in picks], [0])
+        after = _kernel_counts()
+        for k in single_counts:
+            single_counts[k] += after[k] - before[k]
+    counts = _kernel_counts()
+    stacked_counts = {k: counts[k] - single_counts[k] for k in counts}
+    for k in launches:
+        launches[k] += counts[k]
+    _zero_kernel_counts()
+    out = stack.compute()
+    state = stack.metric_state
+    for t in picks:
+        for name, value in singles[t].metric_state.items():
+            if not torch.equal(state[name][t], value):
+                raise AssertionError(f"{label}: tenant {t}'s {name} differs from its single metric")
+        _check_value(label, f"tenant {t}'s accuracy", out[t], singles[t].compute())
+    fleet_a = {"tenants": tenants, "slots": stack.slots, "rows": rows, "num_classes": num_classes, "updates": updates,
+               "stack_ms_per_update": stack_ms / updates, "loop_of_sampled_singles_ms_per_update": loop_ms / updates,
+               "stack_bincount_launches_per_update": stacked_counts["weighted_bincount"] / updates,
+               "stack_replays_per_update": stack_graphs["replays"] / updates, "stack_captures": stack_graphs["captures"]}
+    if dev.type == "cuda" and (stack_graphs != {"captures": 1, "replays": updates}
+                               or stacked_counts["weighted_bincount"] != updates + 1):  # + the capture's warm-up
+        raise AssertionError(f"{label}: {stacked_counts['weighted_bincount']} stacked bincount launches over "
+                             f"{updates} updates, expected one per update (and the warm-up)")
+
+    # churn within the capacity: no new capture
+    captures = graph_stats()["captures"]
+    removed = list(range(churn))
+    for t in removed:
+        stack.remove_tenant(t)
+    added = [tenants + i for i in range(churn)]
+    freed = [stack.add_tenant(t) for t in added]
+    preds, target = classify_inputs(stack.slots)
+    stack.update(preds, target)
+    churn_captures = graph_stats()["captures"] - captures
+    if dev.type == "cuda" and churn_captures:
+        raise AssertionError(f"{label}: churn within the capacity captured {churn_captures} new graphs")
+    fresh = accuracy()
+    fresh.update(preds[freed[0]], target[freed[0]])
+    for name, value in fresh.metric_state.items():
+        if not torch.equal(stack.metric_state[name][freed[0]], value):
+            raise AssertionError(f"{label}: a tenant added into a freed slot did not start from the defaults")
+    # past the capacity: one growth, one new capture
+    captures = graph_stats()["captures"]
+    capacity = stack.slots
+    for i in range(capacity - len(stack) + 1):
+        stack.add_tenant(tenants + churn + i)
+    preds, target = classify_inputs(stack.slots)
+    stack.update(preds, target)
+    for k, v in _kernel_counts().items():
+        launches[k] += v
+    grow_captures = graph_stats()["captures"] - captures
+    if stack.slots != 2 * capacity or (dev.type == "cuda" and grow_captures != 1):
+        raise AssertionError(f"{label}: growth gave {stack.slots} slots and {grow_captures} captures")
+    fleet_a.update({"churn_removed": churn, "churn_added": churn, "captures_after_churn": churn_captures,
+                    "slots_after_growth": stack.slots, "captures_after_growth": grow_captures,
+                    "values_sample": [float(out[t]) for t in picks[:4]]})
+    del stack, singles, preds, target, fresh
+
+    # (b) the latency fleet
+    def quantile(device=dev):
+        return ApproxQuantile(q=(0.5, 0.99), compression=compression, device=device)
+
+    qstack = TenantStack(quantile(), tenants=range(q_tenants))
+    qpicks = torch.randperm(q_tenants, generator=torch.Generator().manual_seed(2))[:sampled].tolist()
+    qsingles = {t: quantile() for t in qpicks}
+    cpu_singles = {t: quantile(torch.device("cpu")) for t in qpicks[:2]}
+    stack_ms = loop_ms = 0.0
+    stack_graphs = {"captures": 0, "replays": 0}
+    _zero_kernel_counts()
+    single_counts = dict.fromkeys(launches, 0)
+    for _ in range(updates):
+        lat = _latencies(g, dev, (q_tenants, q_rows))
+        graphs = graph_stats()
+        stack_ms += _timed_updates(lambda i: qstack.update(lat), [0])
+        for k, v in graph_stats().items():
+            stack_graphs[k] += v - graphs[k]
+        before = _kernel_counts()
+        loop_ms += _timed_updates(lambda i: [qsingles[t].update(lat[t]) for t in qpicks], [0])
+        after = _kernel_counts()
+        for k in single_counts:
+            single_counts[k] += after[k] - before[k]
+        for t, m in cpu_singles.items():
+            m.update(lat[t].cpu())
+    counts = _kernel_counts()
+    stacked_counts = {k: counts[k] - single_counts[k] for k in counts}
+    for k in launches:
+        launches[k] += counts[k]
+    if dev.type == "cuda" and (stack_graphs != {"captures": 1, "replays": updates}
+                               or stacked_counts["tdigest_compress"] != updates + 1):  # + the capture's warm-up
+        raise AssertionError(f"{label}: {stacked_counts['tdigest_compress']} stacked compress launches over "
+                             f"{updates} updates, expected one per update (and the warm-up)")
+    qout = qstack.compute()
+    for t in qpicks:
+        if not torch.equal(qstack.digest[t], qsingles[t].digest):
+            raise AssertionError(f"{label}: tenant {t}'s digest differs from its single metric")
+        _check_value(label, f"tenant {t}'s quantiles", qout[t], qsingles[t].compute())
+    for t, m in cpu_singles.items():
+        if not torch.equal(qstack.digest[t].cpu(), m.digest):
+            raise AssertionError(f"{label}: tenant {t}'s digest differs from the CPU run")
+    fleet_b = {"tenants": q_tenants, "rows": q_rows, "compression": compression, "updates": updates,
+               "stack_ms_per_update": stack_ms / updates, "loop_of_sampled_singles_ms_per_update": loop_ms / updates,
+               "stack_compress_launches_per_update": stacked_counts["tdigest_compress"] / updates,
+               "stack_replays_per_update": stack_graphs["replays"] / updates, "stack_captures": stack_graphs["captures"],
+               "cpu_tenants_bitwise": len(cpu_singles),
+               "values_sample": [qout[t].tolist() for t in qpicks[:4]]}
+    record = {"phase": "sketches", "path": label, "sampled": sampled, "classifier_fleet": fleet_a,
+              "latency_fleet": fleet_b, "card": card}
+    return record, launches
+
+
+def run_sketch_paths(card: str, dev) -> tuple:
+    """The four A12 paths; (records, launches of each kernel over them)."""
+    records, launches = [], {"weighted_bincount": 0, "tdigest_compress": 0}
+    for run in (run_latency_quantiles, run_ctr_reservoir, run_item_popularity, run_tenant_fleet):
+        t0 = time.perf_counter()
+        record, counts = run(card, dev)
+        record["seconds"] = time.perf_counter() - t0
+        records.append(record)
+        for k, v in counts.items():
+            launches[k] += v
+    return records, launches
+
+
+# ---------------------------------------------------------------------------
 # phase dist_sync: state sync over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -3571,6 +4260,34 @@ def pearson_retrieval_path(steps: int = 20, batch: int = 4096, queries: int = 50
     return {"make": make, "inputs": inputs, "steps": steps, "moment_members": ("pearson",), "float_tol": 1e-5}
 
 
+def sketch_dist_path(steps: int = 8, batch: int = 4096) -> dict:
+    """ApproxQuantile, ApproxAUROC and ApproxFrequency in one collection,
+    each updated with its own arguments (``member_args``): latencies,
+    (score, click) pairs and Zipf item ids. A merged sketch is not the sketch
+    of all the data in one process, so both ranks' synced states (and pure
+    reduced states) are held bitwise against ``merge_states`` of the two
+    ranks' local states (``merge_check``), which rank 0 makes again from the
+    same inputs."""
+    def make(device):
+        from torchmetrics_tpu_torch import ApproxAUROC, ApproxFrequency, ApproxQuantile, MetricCollection
+        return MetricCollection({"quantile": ApproxQuantile(q=(0.5, 0.99), compression=128, device=device),
+                                 "auroc": ApproxAUROC(capacity=4096, device=device),
+                                 "frequency": ApproxFrequency(track=tuple(range(100)), width=4096, device=device)})
+
+    def inputs(g, dev):
+        import torch
+        latencies = _latencies(g, dev, (steps, batch))
+        scores, clicks = _ctr_inputs(g, dev, steps, batch)
+        items = torch.minimum(torch.floor(1.0 / torch.rand(steps, batch, generator=g, device=dev)), torch.tensor(
+            1e6, device=dev)).to(torch.int32)
+        return {"quantile": (latencies,), "auroc": (scores, clicks), "frequency": (items,)}
+
+    def member_args(name, inputs, i):
+        return tuple(x[i] for x in inputs[name])
+
+    return {"make": make, "inputs": inputs, "steps": steps, "member_args": member_args, "merge_check": True}
+
+
 def _merged_moments(states: dict, members) -> dict:
     """Each named member's synced ``(world,)`` moment stacks merged as its
     compute merges them, as numpy."""
@@ -3589,12 +4306,24 @@ def _dist_paths() -> list:
     return [("bench_config2", multiclass_path(num_classes=100, batch=1024, steps=200)),
             ("imagenet1k_exact", imagenet1k_exact_path()),
             ("aggregation", aggregation_path()),
-            ("pearson_retrieval", pearson_retrieval_path())]
+            ("pearson_retrieval", pearson_retrieval_path()),
+            ("sketches", sketch_dist_path())]
 
 
 def _drive(coll, path: dict, inputs, steps, pure: bool, cat_steps=()):
     """Update ``coll`` (or its pure state) with ``steps``; the aggregation
-    path's CatMetric takes only those also in ``cat_steps``."""
+    path's CatMetric takes only those also in ``cat_steps``; a path with
+    ``member_args`` updates each member with its own arguments."""
+    if "member_args" in path:
+        state = coll.init_state() if pure else None
+        for i in steps:
+            for name, m in coll.items(keep_base=True, copy_state=False):
+                args = path["member_args"](name, inputs, i)
+                if pure:
+                    state[name] = m.update_state(state[name], *args)
+                else:
+                    m.update(*args)
+        return state
     if path.get("cat_rank0_only"):
         values, extra = inputs
         state = coll.init_state() if pure else None
@@ -3703,6 +4432,7 @@ def _dist_rank(rank: int, world: int, init_file: str, out_dir: str, device: str 
                                 timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
         from torchmetrics_tpu_torch.interop import state_to_numpy
         from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+        from torchmetrics_tpu_torch.ops.tdigest import tdigest_compress_sorted
         from torchmetrics_tpu_torch.parallel import HostSync, NoSync, reset_wire_stats, wire_stats
         dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
         report = {"rank": rank, "paths": {}}
@@ -3713,11 +4443,11 @@ def _dist_rank(rank: int, world: int, init_file: str, out_dir: str, device: str 
             mine = range(rank * half, min((rank + 1) * half, path["steps"]))
             cat_steps = range(0, half)  # rank 0's: rank 1 gives CatMetric no rows
             coll = path["make"](dev)
-            weighted_bincount.launches = 0
+            weighted_bincount.launches = tdigest_compress_sorted.launches = 0
             _drive(coll, path, inputs, mine, False, cat_steps)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            launches = weighted_bincount.launches
+            launches, tdigest_launches = weighted_bincount.launches, tdigest_compress_sorted.launches
             members = list(coll.items(keep_base=True))
             backends = {type(m.sync_backend).__name__ for _, m in members}
             synced = {}
@@ -3739,12 +4469,29 @@ def _dist_rank(rank: int, world: int, init_file: str, out_dir: str, device: str 
             _, reduce_ms = _timed(lambda: coll.reduce_state(state))
             reduce_stats = wire_stats()
             wire = ("collectives_issued", "bytes_reduced", "bytes_gathered")
-            row = {"launches": launches, "backends": sorted(backends), "steps": len(mine),
+            row = {"launches": launches, "tdigest_launches": tdigest_launches, "backends": sorted(backends),
+                   "steps": len(mine),
                    "sync_ms": sync_ms, "sync_wire": {k: stats[k] for k in wire},
                    "compute_ms": compute_ms, "reduce_state_ms": reduce_ms,
                    "reduce_state_wire": {k: reduce_stats[k] for k in wire},
                    "synced_digest": _digest(synced), "reduced_digest": _digest(reduced_np)}
-            if rank == 0:
+            if rank == 0 and path.get("merge_check"):
+                locals_, pure_locals = [], []
+                for r in range(world):
+                    theirs = range(r * half, min((r + 1) * half, path["steps"]))
+                    local = path["make"](dev)
+                    for _, m in local.items(keep_base=True, copy_state=False):
+                        m._sync_backend = NoSync()
+                    _drive(local, path, inputs, theirs, False, cat_steps)
+                    locals_.append({n: m._tensor_state() for n, m in local.items(keep_base=True, copy_state=False)})
+                    pure_locals.append(_drive(local, path, inputs, theirs, True, cat_steps))
+                for route, got, per_rank in (("synced", synced, locals_), ("reduced", reduced_np, pure_locals)):
+                    merged = {n: state_to_numpy(m.merge_states([loc[n] for loc in per_rank]))
+                              for n, m in local.items(keep_base=True, copy_state=False)}
+                    _compare_states(f"dist_sync {label}", f"{route} against merge_states", got, merged)
+                row["stateful"] = row["pure"] = {"merge_states": "bitwise"}
+                row["values"] = {k: _summary(v) for k, v in values.items()}
+            elif rank == 0:
                 ref = path["make"](dev)
                 for _, m in ref.items(keep_base=True, copy_state=False):
                     m._sync_backend = NoSync()
@@ -3846,7 +4593,7 @@ def dist_sync_two_ranks_gloo(tmpdir: str, world: int = 2, device: str = "cuda") 
     ``torch.multiprocessing``, over gloo with CUDA tensors (NCCL refuses two
     ranks on one GPU). Joined with a deadline; ranks still running then are
     killed and the phase fails. Returns the phase's record and the ranks'
-    bincount launches."""
+    kernel launches ({kernel: count})."""
     import pathlib
 
     import torch.multiprocessing as mp
@@ -3867,7 +4614,7 @@ def dist_sync_two_ranks_gloo(tmpdir: str, world: int = 2, device: str = "cuda") 
         raise AssertionError(f"dist_sync: ranks failed (hung: {len(hung)}, exit codes "
                              f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
     reports = [json.loads((pathlib.Path(tmpdir) / f"rank{r}.json").read_text()) for r in range(world)]
-    out, launches = {}, 0
+    out, launches = {}, {"weighted_bincount": 0, "tdigest_compress": 0}
     for label in reports[0]["paths"]:
         rows = [rep["paths"][label] for rep in reports]
         for key in ("synced_digest", "reduced_digest"):
@@ -3875,26 +4622,32 @@ def dist_sync_two_ranks_gloo(tmpdir: str, world: int = 2, device: str = "cuda") 
                 raise AssertionError(f"dist_sync {label}: the ranks' {key.split('_')[0]} states differ")
         if any(row["backends"] != ["HostSync"] for row in rows):
             raise AssertionError(f"dist_sync {label}: backends {[row['backends'] for row in rows]}")
-        launches += sum(row["launches"] for row in rows)
+        launches["weighted_bincount"] += sum(row["launches"] for row in rows)
+        launches["tdigest_compress"] += sum(row["tdigest_launches"] for row in rows)
         out[label] = {"launches_per_rank": [row["launches"] for row in rows],
+                      "tdigest_launches_per_rank": [row["tdigest_launches"] for row in rows],
                       "steps_per_rank": [row["steps"] for row in rows],
                       **{k: [row[k] for row in rows] for k in ("sync_ms", "compute_ms", "reduce_state_ms")},
                       "sync_wire": rows[0]["sync_wire"], "reduce_state_wire": rows[0]["reduce_state_wire"],
                       "stateful": rows[0]["stateful"], "pure": rows[0]["pure"], "values": rows[0]["values"]}
     if not any(row["launches"] for rep in reports for row in rep["paths"].values()):
         raise AssertionError("dist_sync: no rank launched the bincount kernel")
+    if device == "cuda" and not launches["tdigest_compress"]:
+        raise AssertionError("dist_sync: no rank launched the t-digest compress kernel")
     return out, launches
 
 
 def dist_sync(card: str) -> tuple:
-    """Phase dist_sync: part (a), then part (b); any failure raises."""
+    """Phase dist_sync: part (a), then part (b); any failure raises.
+    Returns the record and each kernel's launches."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmpdir:
         one_rank, launches_a = dist_sync_one_rank_nccl(tmpdir)
         two_ranks, launches_b = dist_sync_two_ranks_gloo(tmpdir)
+    launches_b["weighted_bincount"] += launches_a
     return {"phase": "dist_sync", "card": card, "nccl_world_1": one_rank,
-            "gloo_two_ranks_one_card": two_ranks}, launches_a + launches_b
+            "gloo_two_ranks_one_card": two_ranks}, launches_b
 
 
 def main() -> int:
@@ -3904,19 +4657,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import torchmetrics_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.ops import bincount, tdigest
 
     card = card_line()
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    lib = bincount.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc for each source, started together
+        libs = list(pool.map(lambda build: build(), (bincount.build, tdigest.build)))
     bincount._library()
-    emit({"phase": "build", "library": lib.name, "seconds": time.perf_counter() - t0})
+    tdigest._library()
+    emit({"phase": "build", "libraries": [lib.name for lib in libs], "seconds": time.perf_counter() - t0})
 
     kernel = check_kernel(torch.device("cuda"))
-    emit({"phase": "kernel", "card": card, **kernel})
+    tdigest_kernel = check_tdigest_kernel(torch.device("cuda"))
+    emit({"phase": "kernel", "card": card, **kernel, "tdigest_compress": tdigest_kernel})
 
     dev = torch.device("cuda")
     paths = [
@@ -3945,13 +4701,20 @@ def main() -> int:
         emit(record)
         launches += phase_launches
     emit(sync_free_exact_computes(card))
+    sketch_records, sketch_launches = run_sketch_paths(card, dev)
+    for record in sketch_records:
+        emit(record)
+    launches += sketch_launches["weighted_bincount"]
+    tdigest_launches = sketch_launches["tdigest_compress"]
     for record in run_model_paths(card, dev):
         emit(record)
     record, dist_launches = dist_sync(card)
     emit(record)
-    launches += dist_launches
+    launches += dist_launches["weighted_bincount"]
+    tdigest_launches += dist_launches["tdigest_compress"]
 
     main_case = next(c for c in kernel["cases"] if c["case"] == "curve_c1000_t64")
+    td_main = tdigest_kernel["cases"][0]
     emit({"kernels": [{
         "name": "weighted_bincount",
         "route": "cuda",
@@ -3972,6 +4735,24 @@ def main() -> int:
         "slice_cases": {c["case"]: {k: c[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_device_ms",
                                                       "max_abs_err", "plan")}
                         for c in kernel["cases"] if c["case"] in SLICE_CASES},
+    }, {
+        "name": "tdigest_compress",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/tdigest.cu",
+        "replaces": "torchmetrics_tpu/sketches/tdigest.py:86 (lax.scan)",
+        "launches": tdigest_launches,
+        "max_abs_err": tdigest_kernel["max_abs_err"],
+        "ms": td_main["ms"],
+        "plain_ms": td_main["plain_ms"],
+        "bound_ms": td_main["bound_ms"],
+        "bound_by": td_main["bound_by"],
+        "library_ms": None,
+        "library_ms_is": "null: no single PyTorch call computes the greedy k1 slot scan and its per-slot sums",
+        "host_ms": td_main["host_ms"],
+        "shape": {"s": td_main["s"], "m": td_main["m"], "compression": td_main["compression"]},
+        "cases": {c["case"]: {k: c[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "max_abs_err",
+                                                "mean_rel_err_card_plain", "slots_used")}
+                  for c in tdigest_kernel["cases"]},
     }]})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,14 +21,17 @@ from .collections import MetricCollection
 from .image import *  # noqa: F401,F403
 from .interop import state_from_numpy, state_to_numpy
 from .metric import CompositionalMetric, Metric
+from .multitenant import TenantStack
 from .online import DecayedMetric, WindowedMetric
 from .ops import weighted_bincount
 from .parallel import NoSync, Reduction, SyncBackend
+from .parallel.reduction import SketchReduction
 from .regression import *  # noqa: F401,F403
 from .retrieval import (RetrievalAUROC, RetrievalFallOut, RetrievalHitRate, RetrievalMAP, RetrievalMRR,
                         RetrievalNormalizedDCG, RetrievalPrecision, RetrievalPrecisionRecallCurve, RetrievalRecall,
                         RetrievalRecallAtFixedPrecision, RetrievalRPrecision)
-from .state import MetricState
+from .sketches import ApproxAUROC, ApproxCalibrationError, ApproxFrequency, ApproxQuantile
+from .state import MetricState, StackedMerge
 from .streaming import BufferedMetric, BufferedMetricCollection
 from .utils.data import label_results
 from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetric, MultioutputWrapper,
@@ -37,6 +40,10 @@ from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetr
 __all__ = [
     "AUROC",
     "Accuracy",
+    "ApproxAUROC",
+    "ApproxCalibrationError",
+    "ApproxFrequency",
+    "ApproxQuantile",
     "AveragePrecision",
     "BinaryFairness",
     "BinaryGroupStatRates",
@@ -124,6 +131,7 @@ __all__ = [
     "RunningMean",
     "RunningSum",
     "SensitivityAtSpecificity",
+    "SketchReduction",
     "SpatialCorrelationCoefficient",
     "SpatialDistortionIndex",
     "SpearmanCorrCoef",
@@ -131,10 +139,12 @@ __all__ = [
     "SpecificityAtSensitivity",
     "SpectralAngleMapper",
     "SpectralDistortionIndex",
+    "StackedMerge",
     "StatScores",
     "StructuralSimilarityIndexMeasure",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
+    "TenantStack",
     "TotalVariation",
     "TweedieDevianceScore",
     "UniversalImageQualityIndex",

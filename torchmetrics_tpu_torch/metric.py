@@ -517,6 +517,10 @@ class Metric(torch.nn.Module):
                 merged[name] = torch.maximum(glob, batch)
             elif red == Reduction.MIN:
                 merged[name] = torch.minimum(glob, batch)
+            elif callable(red) and getattr(red, "mergeable", False):
+                # a sketch reduction (t-digest, reservoir) is the n-way merge
+                # over a leading stack axis (JAX metric.py:777-780)
+                merged[name] = red(torch.stack([glob, batch]))
             else:  # NONE / custom: the batch value; metrics whose update reads
                 # global state set full_state_update=True
                 merged[name] = batch
@@ -544,7 +548,8 @@ class Metric(torch.nn.Module):
 
         The JAX package computes the S per-step batch states in parallel with
         ``vmap``; here they come from a Python loop over the steps, then merge
-        by reduction tag exactly as there (``metric.py:850-866``).
+        by reduction tag exactly as there (``metric.py:850-866``); a sketch
+        state merges the prior state and the S steps in one n-way merge.
 
         ``update_count`` is the number of updates already folded into
         ``state``; MEAN states weight the prior value by it. With the default
@@ -552,10 +557,10 @@ class Metric(torch.nn.Module):
         package's documented behaviour, kept as it is).
         """
         for red in self._reductions.values():
-            if not isinstance(red, Reduction) or red == Reduction.NONE:
+            if red == Reduction.NONE or (not isinstance(red, Reduction) and not getattr(red, "mergeable", False)):
                 raise TorchMetricsUserError(
                     f"{type(self).__name__} has a custom/None reduction state; "
-                    "update_state_batched requires associative (sum/mean/max/min/cat) reductions."
+                    "update_state_batched requires associative (sum/mean/max/min/cat/sketch) reductions."
                 )
         self._check_inputs(args, kwargs)
         tensor_args = [a for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)]
@@ -592,6 +597,8 @@ class Metric(torch.nn.Module):
                 out[name] = torch.maximum(state[name], torch.amax(v, dim=0))
             elif red == Reduction.MIN:
                 out[name] = torch.minimum(state[name], torch.amin(v, dim=0))
+            elif callable(red):  # a mergeable sketch: the n-way merge of the prior state and the steps
+                out[name] = red(torch.cat([state[name][None], v]))
         return out
 
     def compute_state(self, state: StateDict) -> Any:

@@ -17,19 +17,20 @@ metric with fixed-shape states:
 - :class:`DecayedMetric` (``Metric.decayed(halflife=...)``): each update
   first scales the state by ``d = float32(0.5 ** (1 / halflife))``, then
   adds the batch, so an observation ``halflife`` updates old carries half
-  its weight. Float leaves become ``x * d`` in float32; integer leaves
+  its weight. Float SUM leaves become ``x * d`` in float32; integer leaves
   ``floor(float32(x) * d)``, cast back, exactly as the JAX package computes
-  them, so int32 states agree bitwise.
+  them, so int32 states agree bitwise. A sketch leaf decays through its
+  reduction's hook (reservoir keys divide by ``d``, t-digest centroid
+  weights scale by it).
 
-Both are ordinary metrics whose states carry elementwise reduction tags
-(slots with the base's tags, the cursor MAX, the counts SUM), so ``sync``,
-``reduce_state``, ``state_dict`` and ``.to()`` work unchanged.
-
-Not ported: the sketch reductions and their branches (``_SlotwiseMerge``,
-the decay hook; JAX ``online.py:80-106, 277-288``) come with the sketches
-(ROADMAP A12); until then a reduction that is not SUM, MEAN, MAX or MIN is
-refused. The counters of :func:`online_stats` are a plain dict until the
-registry is ported (A14).
+Both are ordinary metrics whose states carry the base's tags (slots with
+elementwise tags, or a sketch tag lifted per slot by :class:`_SlotwiseMerge`;
+the cursor MAX, the counts SUM), so ``sync``, ``reduce_state``,
+``state_dict`` and ``.to()`` work unchanged. ``windowed()`` takes SUM, MEAN,
+MAX, MIN and mergeable sketch states and its compute merges a sketch's
+slots with one n-way merge; ``decayed()`` takes SUM and decay-capable
+sketch states. The counters of :func:`online_stats` are a plain dict until
+the registry is ported (A14).
 """
 from typing import Any, Dict
 
@@ -55,6 +56,34 @@ _ONLINE_STATS: Dict[str, int] = {
 _WINDOWABLE = (Reduction.SUM, Reduction.MEAN, Reduction.MAX, Reduction.MIN)
 
 
+class _SlotwiseMerge:
+    """Per-slot n-way merge of a ``(slots, ...)`` stacked sketch leaf (JAX
+    ``online.py:83-106``): a gathered ``(n, slots, ...)`` stack merges slot
+    by slot, ``torch.func.vmap`` over the slot axis, so the sync layers see
+    one more mergeable callable."""
+
+    mergeable = True
+
+    def __init__(self, inner: Any) -> None:
+        self.inner = inner
+
+    def __call__(self, stack: Tensor) -> Tensor:
+        return torch.func.vmap(self.inner, in_dims=1, out_dims=0)(stack)
+
+    def __repr__(self) -> str:
+        return f"_SlotwiseMerge({self.inner!r})"
+
+    def __str__(self) -> str:
+        return f"slotwise:{self.inner}"
+
+    def __reduce__(self):
+        return (_SlotwiseMerge, (self.inner,))
+
+
+def _mergeable(red: Any) -> bool:
+    return callable(red) and getattr(red, "mergeable", False)
+
+
 def online_stats() -> Dict[str, int]:
     """Snapshot of the online-evaluation counters."""
     return dict(_ONLINE_STATS)
@@ -71,7 +100,7 @@ def _check_online_base(base: Metric, verb: str) -> None:
     if base._list_states:
         raise ValueError(
             f"cannot {verb} {type(base).__name__}: cat/list states grow without bound; "
-            "a sketch-backed state is the way to bound them (not ported yet)."
+            "use a sketch-backed state (reservoir/tdigest/countmin) for unbounded streams."
         )
     if base.update_count:
         raise ValueError(
@@ -117,8 +146,9 @@ class WindowedMetric(Metric):
         if not (isinstance(horizon, int) and horizon >= slots and horizon % slots == 0):
             raise ValueError(f"horizon must be a positive multiple of slots={slots}, got {horizon}")
         for red in base._reductions.values():
-            if red not in _WINDOWABLE:
-                raise ValueError(f"cannot window a {red!r} state; windowed() needs sum/mean/max/min reductions.")
+            if not (red in _WINDOWABLE or _mergeable(red)):
+                raise ValueError(f"cannot window a {red!r} state; windowed() needs mergeable "
+                                 "(sum/mean/max/min/sketch) reductions.")
         self.base = base
         self.horizon = horizon
         self.slots = slots
@@ -127,8 +157,9 @@ class WindowedMetric(Metric):
         for name, default in base._defaults.items():
             if name in reserved:
                 raise ValueError(f"state name {name!r} collides with WindowedMetric internals")
+            red = base._reductions[name]
             stacked = default.unsqueeze(0).expand(slots, *default.shape).clone()
-            self.add_state(name, default=stacked, dist_reduce_fx=base._reductions[name])
+            self.add_state(name, default=stacked, dist_reduce_fx=_SlotwiseMerge(red) if _mergeable(red) else red)
         self.add_state("_win_cursor", default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="max")
         self.add_state("_win_count", default=torch.zeros(slots, dtype=torch.int32), dist_reduce_fx="sum")
         _ONLINE_STATS["windowed_metrics"] += 1
@@ -180,13 +211,17 @@ class WindowedMetric(Metric):
                 merged[name] = torch.where(total > 0, mean, base._defaults[name])
             elif red == Reduction.MAX:
                 merged[name] = torch.amax(stacked, dim=0)
-            else:  # MIN (validated in __init__)
+            elif red == Reduction.MIN:
                 merged[name] = torch.amin(stacked, dim=0)
+            else:  # a mergeable sketch: the n-way merge over the slot axis
+                # (an empty slot holds the sketch's default, a merge identity)
+                merged[name] = red(stacked)
         return base._pure_compute(merged, {})
 
 
 class DecayedMetric(Metric):
-    """Exponentially decayed view of a base metric whose states are all SUM.
+    """Exponentially decayed view of a base metric whose states are SUM or
+    decay-capable sketches.
 
     Built with ``base.decayed(halflife=...)``; see the module docstring.
 
@@ -210,10 +245,11 @@ class DecayedMetric(Metric):
         if not halflife > 0:
             raise ValueError(f"halflife must be positive, got {halflife}")
         for name, red in base._reductions.items():
-            if red != Reduction.SUM:
+            if not (red == Reduction.SUM or (_mergeable(red) and getattr(red, "supports_decay", False))):
                 raise ValueError(
                     f"cannot decay state {name!r} with reduction {red!r}: exponential decay is defined "
-                    "for SUM states; wrap max/min/mean-style metrics with windowed() instead."
+                    "for SUM and decay-capable sketch states; wrap max/min/mean-style metrics with "
+                    "windowed() instead."
                 )
         self.base = base
         self.halflife = float(halflife)
@@ -237,11 +273,13 @@ class DecayedMetric(Metric):
         base = self.base
         d = self.decay_factor
         decayed: Dict[str, Tensor] = {}
-        for name in base._defaults:
+        for name, red in base._reductions.items():
             x = getattr(self, name)
-            if x.is_floating_point():
+            if not isinstance(red, Reduction):  # a sketch decays through its own hook
+                decayed[name] = red.decay(x, d)
+            elif x.is_floating_point():
                 decayed[name] = x * d
-            else:  # integer counters: scale in float32, then floor
+            else:  # integer counters (count-min tables too): scale in float32, then floor
                 decayed[name] = torch.floor(x.to(torch.float32) * d).to(x.dtype)
         batch, _ = base._pure_update(dict(base._defaults), args, kwargs)
         merged = base._merge_tensor_states(decayed, batch, 1)

@@ -5,6 +5,7 @@ from .bincount import (
     weighted_bincount_batched_plain,
     weighted_bincount_plain,
 )
+from .tdigest import tdigest_compress_sorted, tdigest_compress_sorted_plain
 
-__all__ = ["weighted_bincount", "weighted_bincount_batched", "weighted_bincount_batched_plain",
-           "weighted_bincount_plain"]
+__all__ = ["tdigest_compress_sorted", "tdigest_compress_sorted_plain", "weighted_bincount",
+           "weighted_bincount_batched", "weighted_bincount_batched_plain", "weighted_bincount_plain"]

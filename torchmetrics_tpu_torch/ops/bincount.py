@@ -15,13 +15,18 @@ The kernel is built at first use, by ``nvcc`` for ``sm_90a``, from the
 source in this package into ``_build/`` beside it (``.gitignore`` lists it),
 keyed by a hash of the source and flags, and loaded with ``ctypes``.
 
+Both entries call custom operators (``torch.library.custom_op``) whose
+``torch.func.vmap`` rules fold the vmapped axis into the batched kernel's
+rows: the counterpart of the Pallas call's ``def_vmap`` (JAX :100-110).
+
 Launch counts under CUDA graphs: ``weighted_bincount.launches`` is a host
 counter, bumped where ``_launch`` enqueues the kernel. Inside a graph
 capture that host code runs once and the kernel does not run at all, and a
 replay runs the kernel with no host code. :func:`recording_launches` takes
-the capture's counts back off and keeps them as the graph's launches per
-replay; :func:`count_replayed_launches` adds them at every replay, so the
-counter stays the number of kernels that ran.
+the capture's counts back off, for every wrapper in ``COUNTED_KERNELS``, and
+keeps them as the graph's launches per replay; :func:`count_replayed_launches`
+adds them at every replay, so each counter stays the number of kernels that
+ran.
 """
 import contextlib
 import ctypes
@@ -77,7 +82,7 @@ SPARSE_BINS_PER_INPUT = 2
 SPARSE_INPUTS_PER_CTA = 512
 
 
-def _nvcc() -> str:
+def _nvcc(source: Path = SOURCE) -> str:
     candidates = []
     if os.environ.get("CUDA_HOME"):
         candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
@@ -86,21 +91,22 @@ def _nvcc() -> str:
         if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
     raise RuntimeError(
-        "nvcc not found: the weighted_bincount CUDA kernel is built from "
-        f"{SOURCE} at first use and needs the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)"
+        f"nvcc not found: the CUDA kernel in {source} is built at first use and needs the CUDA toolkit "
+        "(set CUDA_HOME or put nvcc on PATH)"
     )
 
 
-def build() -> Path:
-    """Compile ``csrc/bincount.cu`` unless a build of this exact source exists.
+def build_library(source: Path, stem: str) -> Path:
+    """Compile ``source`` into ``_build/lib{stem}_{hash}.so`` unless a build of
+    this exact source and these flags exists.
 
     The library is written to a temporary file and renamed into place, so
     concurrent processes never load a half-written file. A failed ``nvcc``
     raises with its stderr.
     """
-    src = SOURCE.read_bytes()
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libtm_bincount_{tag}.so"
+    lib = BUILD_DIR / f"lib{stem}_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
@@ -108,15 +114,20 @@ def build() -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)], capture_output=True, text=True
+            [_nvcc(source), *NVCC_FLAGS, "-o", tmp, str(source)], capture_output=True, text=True
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE} (exit {proc.returncode}):\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed to build {source} (exit {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build() -> Path:
+    """Compile ``csrc/bincount.cu`` (see :func:`build_library`)."""
+    return build_library(SOURCE, "tm_bincount")
 
 
 class _PlanStruct(ctypes.Structure):
@@ -345,6 +356,86 @@ def _on_kernel_device(idx: torch.Tensor) -> bool:
     return True
 
 
+# The two entries run as custom operators, so that ``torch.func.vmap``
+# batches through them by the rules below (the counterpart of the Pallas
+# call's ``def_vmap``, JAX ``ops/bincount.py:100-110``): the vmapped axis is
+# folded into the batched entry's S rows, so one launch covers the whole
+# vmapped axis (every tenant of a ``TenantStack``). Each operator's body
+# takes the plain version for CPU tensors and launches the kernel for CUDA
+# ones, and counts the launch there.
+@torch.library.custom_op("torchmetrics_tpu_torch::weighted_bincount", mutates_args=())
+def _bincount_op(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: int) -> torch.Tensor:
+    if not _on_kernel_device(idx):
+        return weighted_bincount_plain(idx, weights, num_bins)
+    return _launch(idx, None if weights is None else weights.view(1, -1), num_bins, 1).view(num_bins)
+
+
+@torch.library.custom_op("torchmetrics_tpu_torch::weighted_bincount_batched", mutates_args=())
+def _bincount_batched_op(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: int) -> torch.Tensor:
+    if not _on_kernel_device(idx):
+        return weighted_bincount_batched_plain(idx, weights, num_bins)
+    rows = idx.shape[0] if weights is None else weights.shape[0]
+    return _launch(idx, weights, num_bins, rows)
+
+
+@_bincount_op.register_fake
+def _(idx, weights, num_bins):
+    return idx.new_empty((num_bins,), dtype=torch.int32 if weights is None else torch.float32)
+
+
+@_bincount_batched_op.register_fake
+def _(idx, weights, num_bins):
+    rows = idx.shape[0] if weights is None else weights.shape[0]
+    return idx.new_empty((rows, num_bins), dtype=torch.int32 if weights is None else torch.float32)
+
+
+def _batched_first(x: Optional[torch.Tensor], dim: Optional[int], size: int) -> Optional[torch.Tensor]:
+    """``x`` with its vmapped axis first, or broadcast along a new first axis."""
+    if x is None:
+        return None
+    return x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
+
+
+@_bincount_op.register_vmap
+def _(info, in_dims, idx, weights, num_bins):
+    """B 1-D calls are one batched call of B rows: over the shared index when
+    only the weights are batched, else over B rows of indices."""
+    idx_dim, w_dim = in_dims[:2]
+    if idx_dim is None:  # one index shared by B weight rows: read once
+        return _bincount_batched_op(idx, weights.movedim(w_dim, 0), num_bins), 0
+    rows = idx.movedim(idx_dim, 0)
+    return _bincount_batched_op(rows, _batched_first(weights, w_dim, info.batch_size), num_bins), 0
+
+
+@_bincount_batched_op.register_vmap
+def _(info, in_dims, idx, weights, num_bins):
+    """B batched calls of S rows are one call of B * S rows; an index shared
+    by the S rows of each call stays shared when it is not batched."""
+    b = info.batch_size
+    idx_dim, w_dim = in_dims[:2]
+    if weights is None:
+        rows = idx.movedim(idx_dim, 0)
+        s, n = rows.shape[1], rows.shape[2]
+        return _bincount_batched_op(rows.reshape(b * s, n), None, num_bins).view(b, s, num_bins), 0
+    w = _batched_first(weights, w_dim, b)
+    s, n = w.shape[1], w.shape[2]
+    if idx_dim is None and idx.dim() == 1:  # one index for every row of every call
+        out = _bincount_batched_op(idx, w.reshape(b * s, n), num_bins)
+    else:
+        rows = _batched_first(idx, idx_dim, b)
+        rows = rows.unsqueeze(1).expand(b, s, n) if rows.dim() == 2 else rows
+        out = _bincount_batched_op(rows.reshape(b * s, n), w.reshape(b * s, n), num_bins)
+    return out.view(b, s, num_bins), 0
+
+
+def _weights_of(weights: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Float32 weights on the indices' device, cut off from autograd (the
+    kernel has no gradient, and a state must not hold a graph)."""
+    if weights.device != idx.device:
+        raise ValueError(f"weights on {weights.device} but indices on {idx.device}")
+    return weights.detach().to(torch.float32)
+
+
 def weighted_bincount_batched(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
                               num_bins: int = 0) -> torch.Tensor:
     """S weighted bincounts in one kernel launch: ``jax.vmap`` of
@@ -357,7 +448,8 @@ def weighted_bincount_batched(idx: torch.Tensor, weights: Optional[torch.Tensor]
     zeros, ``num_bins <= 0`` raises.
 
     CPU tensors take :func:`weighted_bincount_batched_plain`; CUDA tensors
-    launch the kernel, and ``weighted_bincount.launches`` counts it.
+    launch the kernel, and ``weighted_bincount.launches`` counts it. Under
+    ``torch.func.vmap`` the vmapped calls are one call of more rows.
     """
     if num_bins <= 0:
         raise ValueError(f"num_bins must be positive, got {num_bins}")
@@ -365,20 +457,15 @@ def weighted_bincount_batched(idx: torch.Tensor, weights: Optional[torch.Tensor]
     if weights is None:
         if idx.dim() != 2:
             raise ValueError(f"weights=None needs (S, N) indices, got shape {tuple(idx.shape)}")
-        rows = idx.shape[0]
     else:
         if weights.dim() != 2:
             raise ValueError(f"weights must be (S, N), got shape {tuple(weights.shape)}")
         rows, n = weights.shape
         if tuple(idx.shape) not in ((n,), (rows, n)):
             raise ValueError(f"indices of shape {tuple(idx.shape)} for weights of shape {(rows, n)}")
-        if weights.device != idx.device:
-            raise ValueError(f"weights on {weights.device} but indices on {idx.device}")
-        if weights.dtype != torch.float32:
-            weights = weights.to(torch.float32)
-    if not _on_kernel_device(idx):
-        return weighted_bincount_batched_plain(idx, weights, num_bins)
-    return _launch(idx, weights, num_bins, rows)
+        weights = _weights_of(weights, idx)
+    _on_kernel_device(idx)
+    return _bincount_batched_op(idx, weights, num_bins)
 
 
 def weighted_bincount(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
@@ -392,50 +479,58 @@ def weighted_bincount(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
 
     CPU tensors take :func:`weighted_bincount_plain`; CUDA tensors launch the
     kernel (the batched one at S = 1), and ``weighted_bincount.launches``
-    counts those launches, the batched entry's included.
+    counts those launches, the batched entry's included. Under
+    ``torch.func.vmap`` the vmapped calls are one batched launch.
     """
     if num_bins <= 0:
         raise ValueError(f"num_bins must be positive, got {num_bins}")
     idx = _as_int32_indices(idx.reshape(-1))
     if weights is not None:
-        if weights.device != idx.device:
-            raise ValueError(f"weights on {weights.device} but indices on {idx.device}")
-        weights = weights.reshape(-1)
+        weights = _weights_of(weights, idx).reshape(-1)
         if weights.numel() != idx.numel():
             raise ValueError(f"{weights.numel()} weights for {idx.numel()} indices")
-        if weights.dtype != torch.float32:
-            weights = weights.to(torch.float32)
-    if not _on_kernel_device(idx):
-        return weighted_bincount_plain(idx, weights, num_bins)
-    return _launch(idx, None if weights is None else weights.view(1, -1), num_bins, 1).view(num_bins)
+    _on_kernel_device(idx)
+    return _bincount_op(idx, weights, num_bins)
 
 
 weighted_bincount.launches = 0
 
+# every kernel's wrapper whose ``launches`` a CUDA graph records and replays
+# (ops.tdigest adds its own)
+COUNTED_KERNELS = [weighted_bincount]
+
 
 class LaunchRecord:
-    """The kernel launches a CUDA graph recorded at capture: each replay runs them."""
+    """The kernel launches a CUDA graph recorded at capture: each replay runs
+    them. ``counts`` is per counted wrapper; ``count`` the bincount's."""
 
-    __slots__ = ("count",)
+    __slots__ = ("counts",)
 
     def __init__(self) -> None:
-        self.count = 0
+        self.counts = {}
+
+    @property
+    def count(self) -> int:
+        return self.counts.get(weighted_bincount, 0)
 
 
 @contextlib.contextmanager
 def recording_launches():
     """Around a CUDA graph capture: the launches counted inside the block
-    were recorded, not run, so the block leaves ``weighted_bincount.launches``
-    as it found it and reports them in the yielded :class:`LaunchRecord`."""
+    were recorded, not run, so the block leaves every counter of
+    ``COUNTED_KERNELS`` as it found it and reports them in the yielded
+    :class:`LaunchRecord`."""
     record = LaunchRecord()
-    before = weighted_bincount.launches
+    before = {fn: fn.launches for fn in COUNTED_KERNELS}
     try:
         yield record
     finally:
-        record.count = weighted_bincount.launches - before
-        weighted_bincount.launches = before
+        for fn, n in before.items():
+            record.counts[fn] = fn.launches - n
+            fn.launches = n
 
 
 def count_replayed_launches(record: LaunchRecord) -> None:
     """One replay of a captured graph ran the launches it recorded."""
-    weighted_bincount.launches += record.count
+    for fn, n in record.counts.items():
+        fn.launches += n

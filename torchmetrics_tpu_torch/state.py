@@ -7,13 +7,56 @@ carries, beside the leaves, each leaf's :class:`Reduction` tag and the set
 of list (``cat``) states, for layers that read a state without its metric:
 ``reduce_state_in_graph(state)`` syncs one with no ``reductions`` mapping and
 gives a MetricState back.
+
+``StackedMerge`` is the companion reduction for a state stacked along a
+leading axis (tenant slots, window slots): it wraps a mergeable sketch
+reduction so that a gathered ``(n, stack, ...)`` pile merges stack element
+by stack element, and the sync layers see one more mergeable callable.
 """
 from collections.abc import MutableMapping
 from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Union
 
+import torch
+
 from .parallel.reduction import Reduction
 
-__all__ = ["MetricState"]
+__all__ = ["MetricState", "StackedMerge"]
+
+
+class StackedMerge:
+    """Per-element n-way merge of a leaf stacked along a leading axis.
+
+    Counterpart of JAX ``state.py:35-69``: ``torch.func.vmap(inner,
+    in_dims=1)`` over a gathered ``(n, stack, ...)`` pile, so a sketch whose
+    merge runs a kernel (the t-digest's compress) runs it once for every
+    stack element together. ``decay`` maps the inner sketch's decay over the
+    stack axis the same way. ``__str__`` names the inner reduction, and the
+    object pickles with it (a sketch reduction pickles by its registry name).
+    """
+
+    mergeable = True
+
+    def __init__(self, inner: Any) -> None:
+        self.inner = inner
+
+    def __call__(self, stack: torch.Tensor) -> torch.Tensor:
+        return torch.func.vmap(self.inner, in_dims=1, out_dims=0)(stack)
+
+    def decay(self, x: torch.Tensor, d: Any) -> torch.Tensor:
+        return torch.func.vmap(lambda e: self.inner.decay(e, d))(x)
+
+    @property
+    def supports_decay(self) -> bool:
+        return bool(getattr(self.inner, "supports_decay", False))
+
+    def __repr__(self) -> str:
+        return f"StackedMerge({self.inner!r})"
+
+    def __str__(self) -> str:
+        return f"stacked:{self.inner}"
+
+    def __reduce__(self):
+        return (StackedMerge, (self.inner,))
 
 
 class MetricState(MutableMapping):

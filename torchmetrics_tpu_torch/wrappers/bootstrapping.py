@@ -32,8 +32,9 @@ Two routes:
   through its normal update with its resampled batch
   (``np.repeat(arange(N), c_b)``, or its multinomial indices), so its own
   kernels launch. The JAX package's generic Poisson route vmaps a
-  one-sample update instead; ``torch.func.vmap`` cannot batch through the
-  kernel's ctypes launch, so the port loops. Integer states stay bitwise
+  one-sample update instead. ``torch.func.vmap`` does batch through the
+  kernels (their custom operators' vmap rules, ``ops/bincount.py``), but
+  the port keeps the copy loop until ROADMAP S2 replaces it. Integer states stay bitwise
   equal; a float state (a mean over a resample) sums in another order.
   A Poisson resample has a new size at almost every update, so its copies
   update eagerly (``_use_jit = False``): a graph per batch size would be
