@@ -211,6 +211,42 @@ not 0 and no result line is printed:
    dist_sync's two gloo ranks also sync ApproxQuantile, ApproxAUROC and
    ApproxFrequency: both ranks' states bitwise equal to merge_states of
    the two ranks' local states.
+12. a11a (ROADMAP A11.a), after the sketches, each path's bincount
+   launches counted from 0 (phase kernel also holds their five shapes:
+   contingency, nominal update, cluster counts, cluster sums with the
+   (D, N) copy they need timed beside them, and Fleiss kappa's count):
+   - imagenet_clustering_labels: the nine label scores (MI, NMI, AMI,
+     Rand, ARI, FMI, homogeneity, completeness, V-measure) in one
+     MetricCollection over ImageNet-1k val's 50,000 images in 50 updates
+     of 1,000 (clusters are the classes permuted, 30% scattered); updates
+     append only, eager and replayed, cat states bitwise against a CPU
+     run; each member's compute one launch (its 1,000 x 1,000 contingency)
+     with its ms and peak MB, AMI's EMI timed apart over its feasible
+     terms; scores within A11A_RTOL of float64 numpy/scipy, the EMI within
+     EMI_RTOL;
+   - imagenet_clustering_embeddings: Calinski-Harabasz, Davies-Bouldin and
+     Dunn over 50,000 x 2,048 float32 features of a seeded mixture of 1,000
+     Gaussians (50 updates of 1,000 rows, 410 MB of cat states); 2, 3 and 2
+     launches per compute, each compute's peak under half the 8.2 GB
+     (k, k, D) array, scores within A11A_RTOL of float64 on the card;
+   - model_agreement_nominal: Cramer's V, Tschuprow's T, Pearson's C and
+     Theil's U at 1,000 classes between two classifiers' top-1 labels on
+     ImageNet-1k val (50 updates of 1,000): one compute group, one launch
+     per update after discovery, tables bitwise eager, replayed and on the
+     CPU, values within NOMINAL_RTOL of float64; FleissKappa over
+     CIFAR-10H's shape (10,000 images, 10 classes, 51 ratings) in both
+     modes, counts bitwise, one launch per "probs" update; the four
+     *_matrix functionals over a 48,842-row table of UCI Adult's nine
+     categorical columns with its missing values, both NaN strategies, one
+     launch per column pair, against a CPU run;
+   - pairwise_gallery: cosine, Euclidean and linear for 10,000 queries
+     against a 50,000 x 2,048 gallery (2 GB outputs, one at a time),
+     Manhattan and Minkowski (p = 3) for 1,000 queries against 10,000;
+     ms, peak MB, sampled blocks against float64 on the card;
+   - brats_surface: erosion, dilation, mask_edges (spacing 1 mm) and the
+     neighbour codes of 240 x 240 x 155 tumour masks bitwise against a CPU
+     run; distance_transform and surface_distance over the 155 axial slices
+     against scipy's float64 distance_transform_edt.
 
 The last lines are the kernels' record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -234,12 +270,14 @@ TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve
                "curve_c1000_t64_1d", "curve_binary_pixel_t64", "curve_multilabel_l80_t64", "past_cluster",
                "unweighted_int32", "random_f32_weights", "confmat_cityscapes", "stat_scores_cityscapes",
                "confmat_imagenet1k", "calibration_imagenet1k", "fairness_jigsaw", "bootstrap_c100_b10",
-               "countmin_popularity", "ece_ctr_compute", "tenant_stack_c1000")
-# the cases of the confusion, calibration, fairness and bootstrap paths, reported beside the main one in the
-# kernels line
+               "countmin_popularity", "ece_ctr_compute", "tenant_stack_c1000", "contingency_imagenet1k",
+               "nominal_update_c1000", "cluster_counts_imagenet1k", "cluster_sums_imagenet1k", "fleiss_cifar10h")
+# the cases of the confusion, calibration, fairness, bootstrap, sketch and A11.a paths, reported beside the
+# main one in the kernels line
 SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k",
                "fairness_jigsaw", "bootstrap_c100_b10", "countmin_popularity", "ece_ctr_compute",
-               "tenant_stack_c1000")
+               "tenant_stack_c1000", "contingency_imagenet1k", "nominal_update_c1000", "cluster_counts_imagenet1k",
+               "cluster_sums_imagenet1k", "fleiss_cifar10h")
 
 
 def emit(obj) -> None:
@@ -377,6 +415,21 @@ def kernel_cases(device):
         ("ece_ctr_compute", "batched", torch.clamp((ctr_conf * 15).to(torch.int32), 0, 14),
          torch.stack([torch.ones_like(ctr_conf), ctr_conf, mask01((65_536,))]), 15, False),
         ("tenant_stack_c1000", "batched", ints((3 * 1024, 64), 0, 1000), mask01((3 * 1024, 64)), 1000, True),
+        # the A11.a paths: the contingency matrix of ImageNet-1k clustering
+        # (50,000 joint labels into 1,000 x 1,000 cells, the sparse plan), a
+        # nominal update (1,000 pairs of top-1 labels into 1,000 x 1,000
+        # cells), the per-cluster counts (50,000 labels, 1,000 clusters), the
+        # per-cluster sums of 50,000 x 2,048 float32 features (2,048 weight
+        # rows over one shared index) and Fleiss kappa's "probs" count over
+        # CIFAR-10H (10,000 images x 51 raters into 10,000 x 10 bins)
+        ("contingency_imagenet1k", "1d", ints((50_000,), 0, 1000) * 1000 + ints((50_000,), 0, 1000), None,
+         1_000_000, True),
+        ("nominal_update_c1000", "1d", ints((1000,), 0, 1000) * 1000 + ints((1000,), 0, 1000), None, 1_000_000, True),
+        ("cluster_counts_imagenet1k", "1d", ints((50_000,), 0, 1000), None, 1000, True),
+        ("cluster_sums_imagenet1k", "batched", ints((50_000,), 0, 1000),
+         torch.randn((2048, 50_000), generator=g, device=device), 1000, False),
+        ("fleiss_cifar10h", "1d", (torch.arange(10_000, device=device, dtype=torch.int32)[:, None] * 10
+                                   + ints((10_000, 51), 0, 10)).reshape(-1), None, 100_000, True),
     ]
 
 
@@ -455,8 +508,13 @@ def check_kernel(device) -> dict:
         want = plain()
         torch.cuda.synchronize()
         n = idx.shape[-1]
-        if n and launched != 1:
-            raise AssertionError(f"kernel {name}: {launched} launches, expected 1")
+        rows = idx.shape[0] if idx.dim() == 2 else 1
+        s = w.shape[0] if w is not None and w.dim() == 2 else rows
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        # a shared index with more weight rows than one launch stages takes one launch per group of rows
+        group = bincount.shared_rows_per_launch(n, s, bins) if rows == 1 and s > 1 and w is not None else s
+        if n and launched != -(-s // group):
+            raise AssertionError(f"kernel {name}: {launched} launches, expected {-(-s // group)}")
         if exact:
             # int32 counts and sums of 0/1 weights are exact in any order
             if got.dtype != want.dtype or not torch.equal(got, want):
@@ -467,11 +525,9 @@ def check_kernel(device) -> dict:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
         max_abs_err = max(max_abs_err, err)
-        rows = idx.shape[0] if idx.dim() == 2 else 1
-        s = w.shape[0] if w is not None and w.dim() == 2 else rows
-        plan = bincount.launch_plan(n, rows, s, bins, w is not None, torch.cuda.get_device_properties(0).multi_processor_count)
+        plan = bincount.launch_plan(n, rows, group, bins, w is not None, sms)
         row = {"case": name, "entry": entry, "s": s, "n": n, "bins": bins, "shared_idx": rows == 1 and s > 1,
-               "weighted": w is not None, "plan": plan._asdict(), "launches": launched,
+               "weighted": w is not None, "plan": plan._asdict(), "rows_per_launch": group, "launches": launched,
                "bitwise": bool(torch.equal(got, want)), "max_abs_err": err}
         if n and name in TIMED_CASES:
             row["ms"], row["host_ms"], row["ms_covered"] = time_ms(call)
@@ -483,6 +539,12 @@ def check_kernel(device) -> dict:
             row["library_ms"], _, row["library_covered"] = time_ms(library_call(idx, w, bins), reps=5)
             row["bound_ms"] = bound_bytes(idx, w, bins) / HBM_BYTES_PER_S * 1e3
             row["bound_by"] = "bytes"
+        if name == "cluster_sums_imagenet1k":
+            # the per-cluster sums take the (N, D) features as D weight rows:
+            # the (D, N) copy that the kernel's contiguous rows need, timed alike
+            features = w.T.contiguous()
+            row["transpose_ms"], row["transpose_host_ms"], _ = time_ms(lambda f=features: f.T.contiguous())
+            del features
         results.append(row)
     return {"cases": results, "max_abs_err": max_abs_err}
 
@@ -4205,6 +4267,707 @@ def run_sketch_paths(card: str, dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# A11.a: clustering, nominal association, pairwise distances, segmentation
+# ---------------------------------------------------------------------------
+
+LABEL_SCORES = ("MutualInfoScore", "NormalizedMutualInfoScore", "AdjustedMutualInfoScore", "RandScore",
+                "AdjustedRandScore", "FowlkesMallowsIndex", "HomogeneityScore", "CompletenessScore", "VMeasureScore")
+EMBEDDING_SCORES = ("CalinskiHarabaszScore", "DaviesBouldinScore", "DunnIndex")
+NOMINAL_TABLES = ("CramersV", "TschuprowsT", "PearsonsContingencyCoefficient", "TheilsU")
+# float32 scores against float64 references, relative to max(1, |reference|)
+A11A_RTOL = 1e-5
+# the nominal statistics sum float32 chi-squared terms over up to 10^6 cells
+NOMINAL_RTOL = 1e-4
+# the EMI in float64 on the card (torch.lgamma) against scipy's gammaln
+EMI_RTOL = 1e-8
+# UCI Adult's categorical columns: workclass, education, marital-status,
+# occupation, relationship, race, sex, native-country, income; and the share
+# of rows whose value is missing (NaN) in each
+ADULT_CATEGORIES = (8, 16, 7, 14, 6, 5, 2, 41, 2)
+ADULT_MISSING = {0: 0.057, 3: 0.058, 7: 0.018}
+
+
+def _timed_peak(dev, fn):
+    """(fn(), host ms between two synchronisations, peak device MB above the
+    memory allocated before the call; None on the CPU)."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda else None
+    return out, ms, peak
+
+
+def _hold_f64(label: str, what: str, got, want: float, rtol: float = A11A_RTOL) -> float:
+    """A float32 result against its float64 reference, relative to max(1, |want|)."""
+    got = float(got)
+    err = abs(got - want) / max(1.0, abs(want))
+    if not err <= rtol:
+        raise AssertionError(f"{label}: {what} = {got}, float64 reference {want} (relative {err}, tolerance {rtol})")
+    return err
+
+
+def _drive_collection(coll, steps, args_of, dev) -> dict:
+    """Update ``coll`` over ``steps``: ms per update (median of the updates
+    after the first two, and the first two), the bincount launches over all
+    updates and over the steady ones (from the third), graph captures and
+    replays per update."""
+    from torchmetrics_tpu_torch._capture import graph_stats
+
+    graphs = graph_stats()
+    _zero_kernel_counts()
+    times, steady_from = [], 0
+    for i in range(steps):
+        if i == 2:
+            steady_from = _kernel_counts()["weighted_bincount"]
+        _sync(dev)
+        t0 = time.perf_counter()
+        coll.update(*args_of(i))
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _kernel_counts()["weighted_bincount"]
+    after = graph_stats()
+    return {"ms_per_update": statistics.median(times[2:]) if steps > 2 else times[-1], "first_ms": times[:2],
+            "bincount_launches": launches, "steady_launches_per_update": (launches - steady_from) / max(steps - 2, 1),
+            "captures": after["captures"] - graphs["captures"],
+            "replays_per_update": (after["replays"] - graphs["replays"]) / steps}
+
+
+def _member_computes(coll, dev) -> tuple:
+    """Each member's compute, timed alone: (values, {name: {ms, peak_mb,
+    bincount_launches}})."""
+    values, costs = {}, {}
+    for name, m in coll.items():
+        _zero_kernel_counts()
+        values[name], ms, peak = _timed_peak(dev, m.compute)
+        costs[name] = {"ms": ms, "peak_mb": peak, "bincount_launches": _kernel_counts()["weighted_bincount"]}
+    return values, costs
+
+
+def _warm_computes(coll, args) -> int:
+    """One update and compute of a throwaway collection at one batch, so the
+    timed computes leave out first calls (library handles, lazy imports);
+    returns its bincount launches."""
+    _zero_kernel_counts()
+    coll.update(*args)
+    coll.compute()
+    return _kernel_counts()["weighted_bincount"]
+
+
+def _cat_equal(a, b) -> bool:
+    from torchmetrics_tpu_torch.utils.data import dim_zero_cat
+
+    a, b = dim_zero_cat(a), dim_zero_cat(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a.cpu() == b.cpu()).all())
+
+
+def _imagenet_cluster_labels(g, dev, classes: int, per_class: int, noise: float):
+    """ImageNet-1k val's 50 images of each of 1,000 classes in a seeded
+    order; the predicted cluster of an image is its class under a fixed
+    permutation, or, for a share ``noise`` of the images, a random cluster."""
+    import torch
+
+    n = classes * per_class
+    target = torch.arange(classes, device=dev).repeat_interleave(per_class)[torch.randperm(n, generator=g, device=dev)]
+    preds = torch.randperm(classes, generator=g, device=dev)[target]
+    scattered = torch.rand(n, generator=g, device=dev) < noise
+    preds = torch.where(scattered, torch.randint(0, classes, (n,), generator=g, device=dev), preds)
+    return preds.to(torch.int32), target.to(torch.int32)
+
+
+def _np_label_scores(preds, target) -> tuple:
+    """float64 numpy/scipy definitions of the nine label scores (sklearn's,
+    average_method="arithmetic"), the EMI by a loop over rows with each
+    row's feasible nij; returns (scores, emi, feasible terms)."""
+    import numpy as np
+    from scipy.special import gammaln
+
+    _, p = np.unique(preds, return_inverse=True)
+    _, t = np.unique(target, return_inverse=True)
+    r, c = int(p.max()) + 1, int(t.max()) + 1
+    cont = np.bincount(p * c + t, minlength=r * c).reshape(r, c).astype(np.float64)
+    a, b, n = cont.sum(1), cont.sum(0), cont.sum()
+    nz = cont > 0
+    mi = float(np.sum(cont[nz] / n * (np.log(cont[nz]) + np.log(n) - np.log(np.outer(a, b)[nz]))))
+
+    def entropy(x):
+        x = x[x > 0] / n
+        return float(-np.sum(x * np.log(x)))
+
+    h_p, h_t = entropy(a), entropy(b)
+    big_n = int(n)
+    logfact = gammaln(np.arange(big_n + 1, dtype=np.float64) + 1.0)  # log(k!)
+    ai_all, bj = a.astype(np.int64), b.astype(np.int64)
+    emi, terms = 0.0, 0
+    for ai in ai_all:
+        lo = np.maximum(1, ai + bj - big_n)
+        hi = np.minimum(ai, bj)
+        nij = np.arange(1, int(hi.max()) + 1)[None, :]
+        feasible = (nij >= lo[:, None]) & (nij <= hi[:, None])
+        terms += int(feasible.sum())
+        k = np.where(feasible, nij, 1)
+        log_p = (logfact[ai] + logfact[bj][:, None] + logfact[big_n - ai] + logfact[big_n - bj][:, None]
+                 - logfact[big_n] - logfact[k] - logfact[np.maximum(ai - k, 0)]
+                 - logfact[np.maximum(bj[:, None] - k, 0)] - logfact[np.maximum(big_n - ai - bj[:, None] + k, 0)])
+        term = k / n * (np.log(n) + np.log(k) - np.log(float(ai) * bj[:, None]))
+        emi += float(np.sum(np.where(feasible, term * np.exp(log_p), 0.0)))
+
+    def comb2(x):
+        return float(np.sum(x * (x - 1.0) / 2.0))
+
+    cells, rows, cols, total = comb2(cont), comb2(a), comb2(b), comb2(np.array([n]))
+    expected = rows * cols / total
+    mean_h = 0.5 * (h_p + h_t)
+    homogeneity, completeness = mi / h_t, mi / h_p
+    scores = {"MutualInfoScore": mi, "NormalizedMutualInfoScore": mi / mean_h,
+              "AdjustedMutualInfoScore": (mi - emi) / (mean_h - emi),
+              "RandScore": (total + 2.0 * cells - rows - cols) / total,
+              "AdjustedRandScore": (cells - expected) / (0.5 * (rows + cols) - expected),
+              "FowlkesMallowsIndex": cells / np.sqrt(rows * cols), "HomogeneityScore": homogeneity,
+              "CompletenessScore": completeness,
+              "VMeasureScore": 2.0 * homogeneity * completeness / (homogeneity + completeness)}
+    return scores, emi, terms
+
+
+def run_imagenet_clustering_labels(card: str, dev, classes: int = 1000, per_class: int = 50, batch: int = 1000,
+                                   noise: float = 0.3) -> tuple:
+    """Path ``imagenet_clustering_labels``: deep-clustering evaluation of
+    ImageNet-1k val as DeepCluster and SCAN report it (NMI, AMI, ARI and the
+    rest): the nine label scores in one MetricCollection over 50 updates of
+    1,000 (predicted cluster, class) pairs. Updates append only (no launch);
+    each member's compute builds its 1,000 x 1,000 contingency matrix (one
+    launch, the sparse plan) and AMI's EMI visits its feasible terms. Cat
+    states bitwise equal eager, replayed and on the CPU; every score within
+    A11A_RTOL of a float64 numpy/scipy reference. Returns (record, launches)."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.clustering.extrinsic import _contingency
+    from torchmetrics_tpu_torch.functional.clustering.utils import expected_mutual_info
+
+    label = "imagenet_clustering_labels"
+    g = torch.Generator(device=dev).manual_seed(131)
+    preds, target = _imagenet_cluster_labels(g, dev, classes, per_class, noise)
+    steps = preds.numel() // batch
+
+    def make(device, jit=True):
+        return tm.MetricCollection({name: getattr(tm, name)(device=device, jit=jit) for name in LABEL_SCORES})
+
+    def args_of(i):
+        return preds[i * batch:(i + 1) * batch], target[i * batch:(i + 1) * batch]
+
+    launches, routes, colls = 0, {}, {}
+    for route, jit in (("eager", False), ("replayed", True)):
+        colls[route] = make(dev, jit)
+        routes[route] = _drive_collection(colls[route], steps, args_of, dev)
+        launches += routes[route]["bincount_launches"]
+        if routes[route]["bincount_launches"]:
+            raise AssertionError(f"{label}: the {route} updates launched the bincount")
+    if len(colls["replayed"].compute_groups) != 1:
+        raise AssertionError(f"{label}: groups {colls['replayed'].compute_groups}, expected one")
+    cpu = make(torch.device("cpu"))
+    for i in range(steps):
+        cpu.update(*(x.cpu() for x in args_of(i)))
+    rep = colls["replayed"]["MutualInfoScore"]
+    for other, what in ((colls["eager"]["MutualInfoScore"], "eager"), (cpu["MutualInfoScore"], "CPU")):
+        for state in ("preds", "target"):
+            if not _cat_equal(getattr(rep, state), getattr(other, state)):
+                raise AssertionError(f"{label}: the replayed {state} state differs from the {what} run's")
+    launches += _warm_computes(make(dev), args_of(0))
+    values, computes = _member_computes(colls["replayed"], dev)
+    for name, cost in computes.items():
+        launches += cost["bincount_launches"]
+        if cost["bincount_launches"] != 1:
+            raise AssertionError(f"{label}: {name}'s compute launched {cost['bincount_launches']}, expected 1")
+    _zero_kernel_counts()
+    cont = _contingency(preds, target)  # the EMI's input, timed alone
+    launches += _kernel_counts()["weighted_bincount"]
+    emi, emi_ms, emi_peak = _timed_peak(dev, lambda: expected_mutual_info(cont))
+    want, want_emi, terms = _np_label_scores(preds.cpu().numpy(), target.cpu().numpy())
+    errors = {name: _hold_f64(label, name, values[name], want[name]) for name in LABEL_SCORES}
+    errors["emi"] = _hold_f64(label, "EMI", emi, want_emi, rtol=EMI_RTOL)
+    r, c = cont.shape
+    record = {"phase": "a11a", "path": label, "samples": preds.numel(), "batch": batch, "updates": steps,
+              "classes": classes, "noise": noise, "routes": routes, "cat_states_bitwise": ["eager", "cpu"],
+              "compute": computes, "emi": {"ms": emi_ms, "peak_mb": emi_peak, "value": float(emi),
+                                           "feasible_terms": terms, "jax_grid_entries": r * c * int(preds.numel())},
+              "values": {k: float(v) for k, v in values.items()}, "max_rel_err_f64": errors, "card": card}
+    return record, launches
+
+
+def _f64_intrinsic(data, labels) -> dict:
+    """float64 definitions of the three embedding scores on the card (the
+    centroid distances in float64 without the matmul expansion)."""
+    import torch
+
+    x = data.double()
+    _, lbl = torch.unique(labels, sorted=True, return_inverse=True)
+    k = int(lbl.max()) + 1
+    n = x.shape[0]
+    counts = torch.zeros(k, dtype=torch.float64, device=x.device).index_add_(0, lbl, torch.ones_like(x[:, 0]))
+    means = torch.zeros((k, x.shape[1]), dtype=torch.float64, device=x.device).index_add_(0, lbl, x) / counts[:, None]
+    resid = x - means[lbl]
+    bgss = torch.sum(counts * torch.sum((means - x.mean(0)) ** 2, dim=1))
+    wgss = torch.sum(resid**2)
+    dist = torch.linalg.vector_norm(resid, dim=1)
+    del resid
+    scatter = torch.zeros(k, dtype=torch.float64, device=x.device).index_add_(0, lbl, dist) / counts
+    centre = torch.cdist(means, means, compute_mode="donot_use_mm_for_euclid_dist")
+    eye = torch.eye(k, dtype=torch.bool, device=x.device)
+    ratio = torch.where(eye, -torch.inf, (scatter[:, None] + scatter[None, :]) / centre)
+    widest = torch.full((k,), -torch.inf, dtype=torch.float64, device=x.device)
+    widest.scatter_reduce_(0, lbl, dist, "amax", include_self=False)
+    return {"CalinskiHarabaszScore": float(bgss / wgss * (n - k) / (k - 1)),
+            "DaviesBouldinScore": float(torch.mean(torch.max(ratio, dim=1).values)),
+            "DunnIndex": float(torch.min(torch.where(eye, torch.inf, centre)) / torch.max(widest))}
+
+
+def run_imagenet_clustering_embeddings(card: str, dev, classes: int = 1000, per_class: int = 50, dim: int = 2048,
+                                       batch: int = 1000) -> tuple:
+    """Path ``imagenet_clustering_embeddings``: Calinski-Harabasz,
+    Davies-Bouldin and Dunn over 50,000 x 2,048 float32 features (ResNet-50's
+    pooled width) from a seeded mixture of 1,000 Gaussians, with their 1,000
+    labels: 50 updates of 1,000 rows (cat states of 410 MB). Each compute
+    counts (one int32 launch) and sums (2,048 float32 rows over the shared
+    labels) per cluster; Davies-Bouldin adds one launch for its scatter. The peak
+    device memory of each compute stays under half the (k, k, D) array the
+    JAX formula builds. Scores within A11A_RTOL of float64 on the card.
+    (The sums are 36 launches of 57 rows on the card: a launch stages every
+    weight row of a shared index, see ``ops.bincount.shared_rows_per_launch``.)
+    Returns (record, launches)."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    label = "imagenet_clustering_embeddings"
+    g = torch.Generator(device=dev).manual_seed(132)
+    n = classes * per_class
+    labels = torch.arange(classes, device=dev).repeat_interleave(per_class)[torch.randperm(n, generator=g, device=dev)]
+    centres = 2.0 * torch.randn((classes, dim), generator=g, device=dev)
+    data = torch.randn((n, dim), generator=g, device=dev).add_(centres[labels])
+    labels = labels.to(torch.int32)
+    del centres
+    steps = n // batch
+    coll = tm.MetricCollection({name: getattr(tm, name)(device=dev) for name in EMBEDDING_SCORES})
+    drive = _drive_collection(coll, steps, lambda i: (data[i * batch:(i + 1) * batch],
+                                                      labels[i * batch:(i + 1) * batch]), dev)
+    if drive["bincount_launches"]:
+        raise AssertionError(f"{label}: the updates launched the bincount")
+    if len(coll.compute_groups) != 1:
+        raise AssertionError(f"{label}: groups {coll.compute_groups}, expected one")
+    if not _cat_equal(coll["DunnIndex"].data, data):
+        raise AssertionError(f"{label}: the data state differs from the features")
+    launches = _warm_computes(tm.MetricCollection({name: getattr(tm, name)(device=dev) for name in EMBEDDING_SCORES}),
+                              (data[:batch], labels[:batch]))
+    values, computes = _member_computes(coll, dev)
+    # the counts are one launch; the D sums rows over the shared label index take one launch per group of
+    # rows the kernel stages (the plain version on the CPU is one call)
+    sums = 1
+    if dev.type == "cuda":
+        from torchmetrics_tpu_torch.ops.bincount import shared_rows_per_launch
+
+        sums = -(-dim // shared_rows_per_launch(n, dim, classes))
+    want_launches = {"CalinskiHarabaszScore": 1 + sums, "DaviesBouldinScore": 2 + sums, "DunnIndex": 1 + sums}
+    kkd_mb = classes * classes * dim * 4 / 2**20
+    for name, cost in computes.items():
+        launches += cost["bincount_launches"]
+        if cost["bincount_launches"] != want_launches[name]:
+            raise AssertionError(f"{label}: {name}'s compute launched {cost['bincount_launches']}, "
+                                 f"expected {want_launches[name]}")
+        if cost["peak_mb"] is not None and cost["peak_mb"] >= kkd_mb / 2:
+            raise AssertionError(f"{label}: {name}'s compute peaked at {cost['peak_mb']} MB, the (k, k, D) array "
+                                 f"is {kkd_mb} MB")
+    want, ref_ms, _ = _timed_peak(dev, lambda: _f64_intrinsic(data, labels))
+    errors = {name: _hold_f64(label, name, values[name], want[name]) for name in EMBEDDING_SCORES}
+    record = {"phase": "a11a", "path": label, "samples": n, "dim": dim, "clusters": classes, "batch": batch,
+              "updates": steps, "update": drive, "state_mb": n * dim * 4 / 2**20, "compute": computes,
+              "kkd_array_mb": kkd_mb, "values": {k: float(v) for k, v in values.items()},
+              "f64": want, "f64_ms": ref_ms, "max_rel_err_f64": errors, "card": card}
+    return record, launches
+
+
+def _np_nominal(confmat) -> dict:
+    """float64 numpy definitions of the four table statistics of a
+    (preds x target) table: empty rows and columns dropped, chi-squared with
+    Yates' correction at one degree of freedom, bias-corrected V and T."""
+    import numpy as np
+
+    m = np.asarray(confmat, dtype=np.float64)
+    m = m[m.sum(1) != 0]
+    m = m[:, m.sum(0) != 0]
+    n = m.sum()
+    expected = np.outer(m.sum(1), m.sum(0)) / n
+    r, c = m.shape
+    obs = m
+    if (r - 1) * (c - 1) == 1:
+        diff = expected - m
+        obs = m + np.sign(diff) * np.minimum(0.5, np.abs(diff))
+    phi2 = np.sum((obs - expected) ** 2 / expected) / n
+    phi2c = max(0.0, phi2 - (r - 1) * (c - 1) / (n - 1))
+    rc, cc = r - (r - 1) ** 2 / (n - 1), c - (c - 1) ** 2 / (n - 1)
+    p_xy = m.T / n  # Theil's U conditions on the rows of the target-by-preds table
+    p_y = np.broadcast_to(p_xy.sum(1, keepdims=True), p_xy.shape)
+    nz = p_xy > 0
+    s_xy = np.sum(p_xy[nz] * np.log(p_y[nz] / p_xy[nz]))
+    p_x = p_xy.sum(0)
+    s_x = -np.sum(p_x[p_x > 0] * np.log(p_x[p_x > 0]))
+    return {"CramersV": min(1.0, np.sqrt(phi2c / min(rc - 1, cc - 1))),
+            "TschuprowsT": min(1.0, np.sqrt(phi2c / np.sqrt((rc - 1) * (cc - 1)))),
+            "PearsonsContingencyCoefficient": np.sqrt(phi2 / (1 + phi2)),
+            "TheilsU": (s_x - s_xy) / s_x}
+
+
+def _adult_table(g, dev, rows: int):
+    """A (rows, 9) float32 table of UCI Adult's categorical shape: each
+    column draws from a shared latent class with probability 0.6 (so columns
+    associate), else uniformly; NaN at Adult's missing rates."""
+    import torch
+
+    latent = torch.randint(0, 12, (rows,), generator=g, device=dev)
+    cols = []
+    for j, k in enumerate(ADULT_CATEGORIES):
+        tied = (latent * (j + 5)) % k
+        col = torch.where(torch.rand(rows, generator=g, device=dev) < 0.6, tied,
+                          torch.randint(0, k, (rows,), generator=g, device=dev)).to(torch.float32)
+        if j in ADULT_MISSING:
+            col = torch.where(torch.rand(rows, generator=g, device=dev) < ADULT_MISSING[j], torch.nan, col)
+        cols.append(col)
+    return torch.stack(cols, 1)
+
+
+def _cifar10h_ratings(g, dev, images: int, classes: int, raters: int):
+    """CIFAR-10H's shape (Peterson et al., 2019): each of ``raters`` picks the
+    image's class with probability 0.9, else a random class. Returns the
+    (images, classes) int32 counts and (images, classes, raters) float32
+    scores whose argmax over classes is each rater's pick."""
+    import torch
+
+    truth = torch.randint(0, classes, (images, 1), generator=g, device=dev)
+    picks = torch.where(torch.rand((images, raters), generator=g, device=dev) < 0.9, truth,
+                        torch.randint(0, classes, (images, raters), generator=g, device=dev))
+    onehot = picks[:, None, :] == torch.arange(classes, device=dev)[None, :, None]
+    counts = onehot.sum(2).to(torch.int32)
+    probs = 0.5 * torch.rand((images, classes, raters), generator=g, device=dev) + onehot.to(torch.float32)
+    return counts, probs
+
+
+def _np_fleiss(counts) -> float:
+    import numpy as np
+
+    c = np.asarray(counts, dtype=np.float64)
+    raters = c.sum(1).max()
+    p_i = c.sum(0) / (c.shape[0] * raters)
+    p_j = (np.sum(c**2, 1) - raters) / (raters * (raters - 1))
+    pe = np.sum(p_i**2)
+    return float((p_j.mean() - pe) / (1 - pe + 1e-5))
+
+
+def run_model_agreement_nominal(card: str, dev, classes: int = 1000, samples: int = 50_000, batch: int = 1000,
+                                images: int = 10_000, raters: int = 51, cifar_classes: int = 10,
+                                fleiss_batch: int = 1000, adult_rows: int = 48_842) -> tuple:
+    """Path ``model_agreement_nominal``: Cramer's V, Tschuprow's T, Pearson's
+    C and Theil's U at num_classes=1000 between two classifiers' top-1
+    predictions on ImageNet-1k val (76% accurate, agreeing on 85%), 50
+    updates of 1,000 in one MetricCollection: one compute group, one
+    launch per update of it (the 1,000 x 1,000 table, the sparse plan)
+    after discovery; tables bitwise eager, replayed and on the CPU; values
+    within NOMINAL_RTOL of float64. FleissKappa over CIFAR-10H's shape
+    (10,000 images, 10 classes, 51 ratings), counts and probs (one launch
+    per probs update), counts bitwise, kappa against float64. The four
+    ``*_matrix`` functionals over a table of UCI Adult's shape under both
+    NaN strategies: one launch per column pair, against a CPU run, and
+    Cramer's V against float64. Returns (records, launches)."""
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional import nominal as nf
+
+    label = "model_agreement_nominal"
+    g = torch.Generator(device=dev).manual_seed(133)
+    target = torch.randint(0, classes, (samples,), generator=g, device=dev)
+    model_a = torch.where(torch.rand(samples, generator=g, device=dev) < 0.76, target,
+                          torch.randint(0, classes, (samples,), generator=g, device=dev)).to(torch.int32)
+    model_b = torch.where(torch.rand(samples, generator=g, device=dev) < 0.85, model_a,
+                          torch.randint(0, classes, (samples,), generator=g, device=dev)).to(torch.int32)
+    steps = samples // batch
+
+    def make(device, jit=True):
+        return tm.MetricCollection({name: getattr(tm, name)(num_classes=classes, device=device, jit=jit)
+                                    for name in NOMINAL_TABLES})
+
+    def args_of(i):
+        return model_a[i * batch:(i + 1) * batch], model_b[i * batch:(i + 1) * batch]
+
+    launches, routes, colls = 0, {}, {}
+    members = len(NOMINAL_TABLES)
+    for route, jit in (("eager", False), ("replayed", True)):
+        colls[route] = make(dev, jit)
+        routes[route] = _drive_collection(colls[route], steps, args_of, dev)
+        r = routes[route]
+        launches += r["bincount_launches"]
+        # group discovery runs every member once; a capture's warm-up runs the group's update once more
+        want = members + (steps - 1) + r["captures"]
+        if r["bincount_launches"] != want or r["steady_launches_per_update"] != 1:
+            raise AssertionError(f"{label}: {route} launches {r}, expected {want} and 1 per update")
+        if len(colls[route].compute_groups) != 1:
+            raise AssertionError(f"{label}: groups {colls[route].compute_groups}, expected one")
+    cpu = make(torch.device("cpu"))
+    for i in range(steps):
+        cpu.update(*(x.cpu() for x in args_of(i)))
+    table = colls["replayed"]["CramersV"].confmat
+    for other, what in ((colls["eager"]["CramersV"].confmat, "eager"), (cpu["CramersV"].confmat, "CPU")):
+        if table.dtype != torch.float32 or not torch.equal(table.cpu(), other.cpu()):
+            raise AssertionError(f"{label}: the replayed table differs from the {what} run's")
+    launches += _warm_computes(make(dev), args_of(0))
+    values, computes = _member_computes(colls["replayed"], dev)
+    want = _np_nominal(table.cpu().numpy())
+    errors = {name: _hold_f64(label, name, values[name], want[name], NOMINAL_RTOL) for name in NOMINAL_TABLES}
+    records = [{"phase": "a11a", "path": label, "samples": samples, "batch": batch, "updates": steps,
+                "classes": classes, "routes": routes, "table_bitwise": ["eager", "cpu"], "compute": computes,
+                "values": {k: float(v) for k, v in values.items()}, "f64": want, "max_rel_err_f64": errors,
+                "card": card}]
+
+    # Fleiss kappa over CIFAR-10H's shape, both modes
+    counts, probs = _cifar10h_ratings(g, dev, images, cifar_classes, raters)
+    fleiss = {}
+    for mode, ratings in (("counts", counts), ("probs", probs)):
+        m = tm.FleissKappa(mode=mode, device=dev)
+        drive = _drive_collection(m, images // fleiss_batch,
+                                  lambda i, r=ratings: (r[i * fleiss_batch:(i + 1) * fleiss_batch],), dev)
+        launches += drive["bincount_launches"]
+        per_update = 1 if mode == "probs" else 0
+        if drive["bincount_launches"] != per_update * (images // fleiss_batch + drive["captures"]):
+            raise AssertionError(f"{label}: FleissKappa({mode}) launches {drive}")
+        if not _cat_equal(m.counts, counts):
+            raise AssertionError(f"{label}: FleissKappa({mode})'s counts differ from the ratings' counts")
+        value, ms, peak = _timed_peak(dev, m.compute)
+        fleiss[mode] = {"update": drive, "compute_ms": ms, "compute_peak_mb": peak, "value": float(value),
+                        "max_rel_err_f64": _hold_f64(label, f"FleissKappa({mode})", value, _np_fleiss(counts.cpu()))}
+    if fleiss["counts"]["value"] != fleiss["probs"]["value"]:
+        raise AssertionError(f"{label}: FleissKappa differs between the modes: {fleiss}")
+    records.append({"phase": "a11a", "path": label + "_fleiss_cifar10h", "images": images, "classes": cifar_classes,
+                    "raters": raters, "batch": fleiss_batch, "modes": fleiss, "card": card})
+
+    # the matrix functionals over a table of UCI Adult's shape
+    adult = _adult_table(g, dev, adult_rows)
+    adult_cpu = adult.cpu()
+    pairs = len(ADULT_CATEGORIES) * (len(ADULT_CATEGORIES) - 1) // 2
+    matrices = {}
+    for name in ("cramers_v_matrix", "tschuprows_t_matrix", "pearsons_contingency_coefficient_matrix",
+                 "theils_u_matrix"):
+        for strategy in ("replace", "drop"):
+            fn = getattr(nf, name)
+            _zero_kernel_counts()
+            got, ms, peak = _timed_peak(dev, lambda fn=fn, s=strategy: fn(adult, nan_strategy=s))
+            n_launch = _kernel_counts()["weighted_bincount"]
+            launches += n_launch
+            if n_launch != pairs:
+                raise AssertionError(f"{label}: {name}({strategy}) launched {n_launch}, expected {pairs}")
+            err = _check_value(label, f"{name}({strategy}) against the CPU", got, fn(adult_cpu, nan_strategy=strategy),
+                               A11A_RTOL)
+            matrices[f"{name}_{strategy}"] = {"ms": ms, "peak_mb": peak, "launches": n_launch,
+                                              "max_abs_err_cpu": err, "off_diagonal_mean": float(
+                                                  (got.sum() - got.diagonal().sum()) / (got.numel() - got.shape[0]))}
+            if name == "cramers_v_matrix" and strategy == "drop":
+                a_np = adult_cpu.numpy()
+                f64_err = 0.0
+                for i in range(a_np.shape[1]):
+                    for j in range(i + 1, a_np.shape[1]):
+                        keep = ~(np.isnan(a_np[:, i]) | np.isnan(a_np[:, j]))
+                        x, y = a_np[keep, i].astype(np.int64), a_np[keep, j].astype(np.int64)
+                        k = int(max(x.max(), y.max())) + 1
+                        tab = np.bincount(x * k + y, minlength=k * k).reshape(k, k)
+                        f64_err = max(f64_err, _hold_f64(label, f"cramers_v_matrix[{i}, {j}]", got[i, j],
+                                                         _np_nominal(tab)["CramersV"]))
+                matrices[f"{name}_{strategy}"]["max_rel_err_f64"] = f64_err
+    records.append({"phase": "a11a", "path": label + "_adult_matrices", "rows": adult_rows,
+                    "categories": list(ADULT_CATEGORIES), "missing": {str(k): v for k, v in ADULT_MISSING.items()},
+                    "column_pairs": pairs, "matrices": matrices, "card": card})
+    return records, launches
+
+
+def run_pairwise_gallery(card: str, dev, gallery: int = 50_000, queries: int = 10_000, dim: int = 2048,
+                         l1_queries: int = 1000, l1_gallery: int = 10_000, block: int = 16) -> tuple:
+    """Path ``pairwise_gallery``: image-retrieval similarity against an
+    ImageNet-1k val gallery of 50,000 x 2,048 features (non-negative, as
+    pooled ReLU features are): cosine, Euclidean and linear for 10,000
+    queries (a 2 GB output each, one at a time), Manhattan and Minkowski
+    (p = 3) for 1,000 queries against 10,000 gallery rows. ms (a second
+    call, after one that warms the libraries up) and peak MB; sampled
+    blocks of 16 rows by 512 columns against float64 on the card within
+    A11A_RTOL of the block's largest magnitude. No bincount launch.
+    Returns (record, launches)."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional import pairwise as pw
+
+    label = "pairwise_gallery"
+    g = torch.Generator(device=dev).manual_seed(134)
+    feats = torch.relu(torch.randn((gallery, dim), generator=g, device=dev) + 0.5)
+    q_feats = torch.relu(torch.randn((queries, dim), generator=g, device=dev) + 0.5)
+
+    def cosine64(x, y):
+        return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)) @ (y / torch.linalg.vector_norm(y, dim=1,
+                                                                                                     keepdim=True)).T
+
+    def diff64(x, y, p):
+        return torch.sum(torch.abs(x[:, None, :] - y[None, :, :]) ** p, dim=-1) ** (1.0 / p)
+
+    cases = (("pairwise_cosine_similarity", {}, q_feats, feats, cosine64),
+             ("pairwise_euclidean_distance", {}, q_feats, feats, lambda x, y: diff64(x, y, 2.0)),
+             ("pairwise_linear_similarity", {}, q_feats, feats, lambda x, y: x @ y.T),
+             ("pairwise_manhattan_distance", {}, q_feats[:l1_queries], feats[:l1_gallery],
+              lambda x, y: diff64(x, y, 1.0)),
+             ("pairwise_minkowski_distance", {"exponent": 3}, q_feats[:l1_queries], feats[:l1_gallery],
+              lambda x, y: diff64(x, y, 3.0)))
+    _zero_kernel_counts()
+    results = {}
+    for name, kw, x, y, ref in cases:
+        fn = getattr(pw, name)
+        fn(x, y, **kw)  # warms the libraries up; its output is dropped at once
+        out, ms, peak = _timed_peak(dev, lambda fn=fn, x=x, y=y, kw=kw: fn(x, y, **kw))
+        rows = torch.randint(0, x.shape[0], (block,), generator=g, device=dev)
+        cols = torch.randint(0, y.shape[0], (512,), generator=g, device=dev)
+        want = ref(x[rows].double(), y[cols].double())
+        err = _hold(label, name, _rel_err(out[rows][:, cols], want), A11A_RTOL)
+        results[name] = {"queries": x.shape[0], "gallery": y.shape[0], "ms": ms, "peak_mb": peak,
+                         "output_mb": out.numel() * 4 / 2**20, "max_rel_err_f64_block": err}
+        del out
+    launches = _kernel_counts()["weighted_bincount"]
+    if launches:
+        raise AssertionError(f"{label}: the pairwise functionals launched the bincount")
+    return {"phase": "a11a", "path": label, "dim": dim, "functionals": results, "card": card}, launches
+
+
+def _tumour_masks(g, dev, shape):
+    """Seeded tumour masks of a BraTS volume: the target a union of three
+    ellipsoids, the prediction the same ellipsoids moved by a few voxels and
+    scaled by up to 10%."""
+    import torch
+
+    axes = [torch.arange(s, device=dev, dtype=torch.float32) for s in shape]
+    grid = torch.meshgrid(*axes, indexing="ij")
+    size = torch.tensor(shape, dtype=torch.float32, device=dev)
+    target = torch.zeros(shape, dtype=torch.bool, device=dev)
+    preds = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for _ in range(3):
+        centre = size * (0.3 + 0.4 * torch.rand(3, generator=g, device=dev))
+        radii = 6.0 + 20.0 * torch.rand(3, generator=g, device=dev)
+        shift = 4.0 * torch.rand(3, generator=g, device=dev) - 2.0
+        scale = 0.9 + 0.2 * torch.rand(3, generator=g, device=dev)
+        for mask, c, r in ((target, centre, radii), (preds, centre + shift, radii * scale)):
+            mask |= sum(((grid[d] - c[d]) / r[d]) ** 2 for d in range(3)) <= 1.0
+    return preds.to(torch.int32), target.to(torch.int32)
+
+
+def _edt_slices(target_slices):
+    """float64 scipy distances, slice by slice, to each slice's target
+    foreground (inf where a slice has none), as ``surface_distance`` defines
+    them, and each slice's transform of its own foreground."""
+    import numpy as np
+    from scipy import ndimage
+
+    to_target = np.stack([ndimage.distance_transform_edt(1 - s) if s.any() else np.full(s.shape, np.inf)
+                          for s in target_slices])
+    transform = np.stack([ndimage.distance_transform_edt(s) for s in target_slices])
+    return to_target, transform
+
+
+def run_brats_surface(card: str, dev, shape=(240, 240, 155)) -> tuple:
+    """Path ``brats_surface``: the segmentation toolbox on BraTS 2021 volumes
+    (240 x 240 x 155 at 1 mm): binary_erosion and binary_dilation of a
+    (1, 1, 240, 240, 155) mask, mask_edges with spacing (1, 1, 1) on a pair
+    of seeded tumour masks (and the neighbour codes under it), and
+    distance_transform and surface_distance on the 155 axial slices of
+    240 x 240. Erosions, dilations, edges, areas and codes bitwise against a
+    CPU run; distances within A11A_RTOL relative of scipy's float64
+    distance_transform_edt. No bincount launch. Returns (record, launches)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.functional import segmentation as seg
+    from torchmetrics_tpu_torch.functional.segmentation.utils import neighbour_codes
+
+    label = "brats_surface"
+    g = torch.Generator(device=dev).manual_seed(135)
+    preds, target = _tumour_masks(g, dev, shape)
+    cpu_preds, cpu_target = preds.cpu(), target.cpu()
+    _zero_kernel_counts()
+    ops = {}
+    volume = target.to(torch.float32)[None, None]
+    for name, fn in (("binary_erosion", seg.binary_erosion), ("binary_dilation", seg.binary_dilation)):
+        out, ms, peak = _timed_peak(dev, lambda fn=fn: fn(volume))
+        if not torch.equal(out.cpu(), fn(volume.cpu())):
+            raise AssertionError(f"{label}: {name} differs from the CPU run")
+        ops[name] = {"ms": ms, "peak_mb": peak, "foreground": int(out.sum()), "bitwise_cpu": True}
+    edges, ms, peak = _timed_peak(dev, lambda: seg.mask_edges(preds, target, spacing=(1, 1, 1)))
+    cpu_edges = seg.mask_edges(cpu_preds, cpu_target, spacing=(1, 1, 1))
+    for i, (got, want) in enumerate(zip(edges, cpu_edges)):
+        if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{label}: mask_edges output {i} differs from the CPU run")
+    _, again_ms, _ = _timed_peak(dev, lambda: seg.mask_edges(preds, target, spacing=(1, 1, 1)))
+    ops["mask_edges"] = {"ms": ms, "ms_table_built": again_ms, "peak_mb": peak,
+                         "edge_voxels": [int(edges[0].sum()), int(edges[1].sum())],
+                         "surface_mm2": [float(edges[2].double().sum()), float(edges[3].double().sum())],
+                         "bitwise_cpu": True}
+    _, kernel = seg.get_neighbour_tables((1.0, 1.0, 1.0), device=dev)
+    padded = F.pad(torch.stack([preds, target]), (1, 1) * 3)
+    codes = neighbour_codes(padded, kernel)
+    if not torch.equal(codes.cpu(), neighbour_codes(padded.cpu(), kernel.cpu())):
+        raise AssertionError(f"{label}: the neighbour codes differ from the CPU run")
+    ops["neighbour_codes"] = {"shape": list(codes.shape), "distinct": int(torch.unique(codes).numel()),
+                              "bitwise_cpu": True}
+    p_slices = preds.permute(2, 0, 1).contiguous()
+    t_slices = target.permute(2, 0, 1).contiguous()
+    to_target, transform = _edt_slices(t_slices.cpu().numpy())
+    dt, ms, peak = _timed_peak(dev, lambda: seg.distance_transform(t_slices))
+    err = float(np.max(np.abs(dt.cpu().numpy().astype(np.float64) - transform) / np.maximum(transform, 1.0)))
+    _hold(label, "distance_transform", err, A11A_RTOL)
+    ops["distance_transform"] = {"slices": list(t_slices.shape), "ms": ms, "peak_mb": peak,
+                                 "max_rel_err_scipy": err}
+    sd, ms, peak = _timed_peak(dev, lambda: seg.surface_distance(p_slices, t_slices))
+    want = to_target[p_slices.cpu().numpy().astype(bool)]
+    got = sd.cpu().numpy().astype(np.float64)
+    finite = np.isfinite(want)
+    if got.shape != want.shape or not np.array_equal(np.isfinite(got), finite):
+        raise AssertionError(f"{label}: surface_distance has {got.shape} values, scipy {want.shape}")
+    err = float(np.max(np.abs(got[finite] - want[finite]) / np.maximum(want[finite], 1.0), initial=0.0))
+    _hold(label, "surface_distance", err, A11A_RTOL)
+    ops["surface_distance"] = {"ms": ms, "peak_mb": peak, "distances": int(got.size),
+                               "mean_mm": float(got[finite].mean()) if finite.any() else None,
+                               "max_rel_err_scipy": err}
+    launches = _kernel_counts()["weighted_bincount"]
+    if launches:
+        raise AssertionError(f"{label}: the segmentation toolbox launched the bincount")
+    return {"phase": "a11a", "path": label, "shape": list(shape), "voxels": int(np.prod(shape)),
+            "tumour_voxels": [int(preds.sum()), int(target.sum())], "ops": ops, "card": card}, launches
+
+
+def run_a11a_paths(card: str, dev) -> tuple:
+    """The five A11.a paths; (records, bincount launches over them)."""
+    records, launches = [], 0
+    for run in (run_imagenet_clustering_labels, run_imagenet_clustering_embeddings, run_model_agreement_nominal,
+                run_pairwise_gallery, run_brats_surface):
+        t0 = time.perf_counter()
+        out, n = run(card, dev)
+        out = out if isinstance(out, list) else [out]
+        out[0]["seconds"] = time.perf_counter() - t0
+        out[0]["bincount_launches"] = n
+        records += out
+        launches += n
+    return records, launches
+
+
+# ---------------------------------------------------------------------------
 # phase dist_sync: state sync over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -4706,6 +5469,10 @@ def main() -> int:
         emit(record)
     launches += sketch_launches["weighted_bincount"]
     tdigest_launches = sketch_launches["tdigest_compress"]
+    a11a_records, a11a_launches = run_a11a_paths(card, dev)
+    for record in a11a_records:
+        emit(record)
+    launches += a11a_launches
     for record in run_model_paths(card, dev):
         emit(record)
     record, dist_launches = dist_sync(card)
@@ -4733,7 +5500,8 @@ def main() -> int:
         "shape": {"s": main_case["s"], "n": main_case["n"], "bins": main_case["bins"], "shared_idx": True,
                   "weighted": True},
         "slice_cases": {c["case"]: {k: c[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_device_ms",
-                                                      "max_abs_err", "plan")}
+                                                      "library_ms", "max_abs_err", "plan", "transpose_ms")
+                                    if k in c}
                         for c in kernel["cases"] if c["case"] in SLICE_CASES},
     }, {
         "name": "tdigest_compress",

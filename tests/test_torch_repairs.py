@@ -93,15 +93,33 @@ def test_functional_all_is_a_subset_of_the_jax_functional():
 
 def test_root_lacks_only_the_names_of_later_slices():
     missing = set(J.__all__) - set(P.__all__)
-    assert len(missing) == 54
-    # A11's domains, A14's observability, A15's version; A12's sketches and tenants are in
+    assert len(missing) == 37
+    # A11.b's and later domains, A14's observability, A15's version; A12's
+    # sketches and tenants and A11.a's clustering and nominal classes are in
     later = {"observability", "__version__"}
     assert later <= missing
     a12 = {"SketchReduction", "StackedMerge", "TenantStack", "ApproxAUROC", "ApproxCalibrationError",
            "ApproxFrequency", "ApproxQuantile"}
     assert not (a12 & missing)
+    a11a = {"AdjustedMutualInfoScore", "AdjustedRandScore", "CalinskiHarabaszScore", "CompletenessScore",
+            "DaviesBouldinScore", "DunnIndex", "FowlkesMallowsIndex", "HomogeneityScore", "MutualInfoScore",
+            "NormalizedMutualInfoScore", "RandScore", "VMeasureScore", "CramersV", "FleissKappa",
+            "PearsonsContingencyCoefficient", "TheilsU", "TschuprowsT"}
+    assert not (a11a & missing)
     image = set(importlib.import_module("torchmetrics_tpu.image").__all__)
     assert not (missing & image)
+
+
+def test_functional_lacks_only_the_names_of_later_slices():
+    missing = set(JF.__all__) - set(PF.__all__)
+    assert len(missing) == 24
+    a11a = {"clustering", "nominal", "pairwise", "segmentation", "cramers_v", "cramers_v_matrix", "fleiss_kappa",
+            "pearsons_contingency_coefficient", "pearsons_contingency_coefficient_matrix", "theils_u",
+            "theils_u_matrix", "tschuprows_t", "tschuprows_t_matrix", "pairwise_cosine_similarity",
+            "pairwise_euclidean_distance", "pairwise_linear_similarity", "pairwise_manhattan_distance",
+            "pairwise_minkowski_distance"}
+    assert not (a11a & missing)
+    assert {"audio", "detection", "text", "multimodal"} <= missing
 
 
 def test_image_lists_equal_the_jax_lists():

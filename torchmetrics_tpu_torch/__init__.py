@@ -17,11 +17,13 @@ from .aggregation import (CatMetric, DecayedMean, DecayedSum, MaxMetric, MeanMet
                           RunningSum, SumMetric, WindowedMax, WindowedMean, WindowedMin, WindowedSum)
 from .buffers import CatBuffer, CatLayoutError
 from .classification import *  # noqa: F401,F403
+from .clustering import *  # noqa: F401,F403
 from .collections import MetricCollection
 from .image import *  # noqa: F401,F403
 from .interop import state_from_numpy, state_to_numpy
 from .metric import CompositionalMetric, Metric
 from .multitenant import TenantStack
+from .nominal import *  # noqa: F401,F403
 from .online import DecayedMetric, WindowedMetric
 from .ops import weighted_bincount
 from .parallel import NoSync, Reduction, SyncBackend
@@ -40,6 +42,8 @@ from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetr
 __all__ = [
     "AUROC",
     "Accuracy",
+    "AdjustedMutualInfoScore",
+    "AdjustedRandScore",
     "ApproxAUROC",
     "ApproxCalibrationError",
     "ApproxFrequency",
@@ -51,28 +55,36 @@ __all__ = [
     "BufferedMetric",
     "BufferedMetricCollection",
     "CalibrationError",
+    "CalinskiHarabaszScore",
     "CatBuffer",
     "CatLayoutError",
     "CatMetric",
     "ClasswiseWrapper",
     "CohenKappa",
+    "CompletenessScore",
     "CompositionalMetric",
     "ConcordanceCorrCoef",
     "ConfusionMatrix",
     "CosineSimilarity",
+    "CramersV",
     "CriticalSuccessIndex",
+    "DaviesBouldinScore",
     "DecayedMean",
     "DecayedMetric",
     "DecayedSum",
     "Dice",
+    "DunnIndex",
     "ErrorRelativeGlobalDimensionlessSynthesis",
     "ExactMatch",
     "ExplainedVariance",
     "F1Score",
     "FBetaScore",
+    "FleissKappa",
+    "FowlkesMallowsIndex",
     "FrechetInceptionDistance",
     "HammingDistance",
     "HingeLoss",
+    "HomogeneityScore",
     "InceptionScore",
     "JaccardIndex",
     "KLDivergence",
@@ -101,9 +113,12 @@ __all__ = [
     "MultilabelRankingLoss",
     "MultioutputWrapper",
     "MultitaskWrapper",
+    "MutualInfoScore",
+    "NormalizedMutualInfoScore",
     "PeakSignalNoiseRatio",
     "PeakSignalNoiseRatioWithBlockedEffect",
     "PearsonCorrCoef",
+    "PearsonsContingencyCoefficient",
     "PerceptualPathLength",
     "Precision",
     "PrecisionAtFixedRecall",
@@ -111,6 +126,7 @@ __all__ = [
     "QualityWithNoReference",
     "R2Score",
     "ROC",
+    "RandScore",
     "Recall",
     "RecallAtFixedPrecision",
     "RelativeAverageSpectralError",
@@ -145,9 +161,12 @@ __all__ = [
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "TenantStack",
+    "TheilsU",
     "TotalVariation",
+    "TschuprowsT",
     "TweedieDevianceScore",
     "UniversalImageQualityIndex",
+    "VMeasureScore",
     "VisualInformationFidelity",
     "WeightedMeanAbsolutePercentageError",
     "WindowedMax",

@@ -189,6 +189,11 @@ class LaunchPlan(NamedTuple):
     sparse: bool = False
 
 
+class NoLaunchPlan(ValueError):
+    """No layout of the kernel fits a call in shared memory (a shared index
+    with more weight rows than a cluster can stage)."""
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -240,6 +245,12 @@ def launch_plan(n: int, rows: int, out_rows: int, num_bins: int, weighted: bool,
         return whole._replace(clusters=max(1, clusters))
     if n * SPARSE_BINS_PER_INPUT <= num_bins:
         return whole._replace(clusters=max(1, min(sm_count, _cdiv(inputs, SPARSE_INPUTS_PER_CTA))), sparse=True)
+    # a cluster stages every input stream (the index and each weight row of a
+    # shared index): the smallest cluster plan, two CTAs of 4 bins each with
+    # the least stages, must fit, or no number of tiles does
+    if smem_bytes(LaunchPlan(1, 2, 1, 8, 4, MIN_STAGE_VECTORS), out_rows, streams) > SMEM_BYTES:
+        raise NoLaunchPlan(f"no kernel plan for {out_rows} weight rows over one shared index of {n} inputs into "
+                           f"{num_bins} bins: a cluster cannot stage {streams} input streams")
     tiles = 1
     while True:
         tile_bins = _align4(_cdiv(num_bins, tiles))
@@ -260,6 +271,30 @@ def launch_plan(n: int, rows: int, out_rows: int, num_bins: int, weighted: bool,
         if best is not None:
             return best
         tiles += 1
+
+
+@functools.lru_cache(maxsize=None)
+def shared_rows_per_launch(n: int, out_rows: int, num_bins: int) -> int:
+    """The most of ``out_rows`` weight rows over one shared index of ``n``
+    inputs that one launch takes: all of them when the kernel has a plan for
+    them, else the most whose counters fit one CTA (the plan without a
+    cluster, which stages nothing), else the most a cluster can stage, at
+    least 1. A call of more rows is this many rows per launch. Whether a
+    plan exists does not depend on the SM count (it sets only how many
+    clusters a plan has), so any count serves to ask."""
+    try:
+        launch_plan(n, 1, out_rows, num_bins, True, 1)
+        return out_rows
+    except NoLaunchPlan:
+        pass
+    rows = min(out_rows - 1, (SMEM_BYTES - 16) // ((_align4(num_bins) + 4) * 4))
+    while rows > 1:
+        try:
+            launch_plan(n, 1, rows, num_bins, True, 1)
+            return rows
+        except NoLaunchPlan:
+            rows //= 2
+    return 1
 
 
 def slice_magic(bs: int) -> int:
@@ -375,6 +410,11 @@ def _bincount_batched_op(idx: torch.Tensor, weights: Optional[torch.Tensor], num
     if not _on_kernel_device(idx):
         return weighted_bincount_batched_plain(idx, weights, num_bins)
     rows = idx.shape[0] if weights is None else weights.shape[0]
+    if weights is not None and idx.dim() == 1 and rows > 1:
+        group = shared_rows_per_launch(idx.shape[0], rows, num_bins)
+        if group < rows:  # more weight rows than one launch stages: one launch per group of rows
+            return torch.cat([_launch(idx, weights[r:r + group], num_bins, min(group, rows - r))
+                              for r in range(0, rows, group)])
     return _launch(idx, weights, num_bins, rows)
 
 
@@ -438,12 +478,16 @@ def _weights_of(weights: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def weighted_bincount_batched(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
                               num_bins: int = 0) -> torch.Tensor:
-    """S weighted bincounts in one kernel launch: ``jax.vmap`` of
-    ``weighted_bincount`` over a leading axis.
+    """S weighted bincounts in one kernel launch (see below for a shared
+    index with many weight rows): ``jax.vmap`` of ``weighted_bincount`` over
+    a leading axis.
 
     ``weights`` is (S, N) or ``None`` for int32 counts; ``idx`` is (S, N),
     or (N,) shared by all S weight rows, whose indices the kernel then reads
-    once for all of them. Returns (S, num_bins). The 1-D contract holds per
+    once for all of them. Returns (S, num_bins). A shared index with more
+    weight rows than one launch stages (``shared_rows_per_launch``: 2,048
+    rows over 1,000 bins take 36 launches of 57 rows) takes one launch per
+    group of rows. The 1-D contract holds per
     row: indices cast to int32, out-of-range ones dropped, ``N == 0`` gives
     zeros, ``num_bins <= 0`` raises.
 
