@@ -8,7 +8,8 @@ not 0 and no result line is printed:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile csrc/bincount.cu and csrc/tdigest.cu with nvcc for
-   sm_90a, one nvcc for each, started together, timed;
+   sm_90a and the host library csrc/tm_native.cpp with g++ (the JAX
+   package's flags), one compiler for each, started together, timed;
 3. kernel: the CUDA kernel through weighted_bincount_batched (the metric
    path's batched calls) and weighted_bincount (1-D), against the plain
    PyTorch versions on the card, at the metric path's shapes, past the
@@ -248,8 +249,37 @@ not 0 and no result line is printed:
      run; distance_transform and surface_distance over the 155 axial slices
      against scipy's float64 distance_transform_edt.
 
-The last lines are the kernels' record, the card's name and power limit,
-and {"ok": true, "device": {...}}.
+13. a11b (ROADMAP A11.b), after a11a, each path's bincount launches counted
+   from 0 (phase kernel also holds the panoptic table's shape: one 1024 x
+   2048 image's 2,097,152 pixel pairs into its P·T bins):
+   - coco_val2017_bbox: MeanAveragePrecision(iou_type="bbox",
+     class_metrics=True) over 5,000 seeded COCO val2017-like images, 80
+     classes, 100 detections an image, 36,800 or so ground-truth boxes
+     (41/34/25% small/medium/large, 1% crowd), updates of 16 images under
+     set_sync_debug_mode("error"); compute split into the host copy, the
+     IoU batch, the stage match and the accumulation; every output key on
+     the first 500 images bitwise against device="cpu"; no launch;
+   - coco_iou_family: IoU, GIoU, DIoU and CIoU (respect_labels,
+     class_metrics) on those boxes, updates sync-free, values on the first
+     500 images within 1e-6 of device="cpu";
+   - coco_val2017_segm: MeanAveragePrecision(iou_type="segm") over 500
+     images of 480 x 640 with 20 detection and 8 ground-truth dense bool
+     masks an image (3.9 GB on the card), every tenth image as RLE
+     dicts with pycocotools' compressed strings; compute with its mask
+     intersections (one float64 product per image on the card); bitwise
+     against device="cpu" on the first 50 images;
+   - cityscapes_panoptic: PanopticQuality and ModifiedPanopticQuality (8
+     thing and 11 stuff categories, unknown predictions allowed) over 500
+     seeded 1024 x 2048 images, batch 1: ms and host synchronisations an
+     update, one bincount launch an update (the table of intersections,
+     its bins reported), the four states bitwise against device="cpu" on
+     the first 4 images.
+   The native line gives the g++ build's seconds, each host-library entry
+   point the paths called (calls and seconds) and a check of the library
+   against its plain numpy versions on this machine.
+
+The last lines are the native record, the kernels' record, the card's name
+and power limit, and {"ok": true, "device": {...}}.
 """
 import contextlib
 import json
@@ -271,13 +301,14 @@ TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve
                "unweighted_int32", "random_f32_weights", "confmat_cityscapes", "stat_scores_cityscapes",
                "confmat_imagenet1k", "calibration_imagenet1k", "fairness_jigsaw", "bootstrap_c100_b10",
                "countmin_popularity", "ece_ctr_compute", "tenant_stack_c1000", "contingency_imagenet1k",
-               "nominal_update_c1000", "cluster_counts_imagenet1k", "cluster_sums_imagenet1k", "fleiss_cifar10h")
-# the cases of the confusion, calibration, fairness, bootstrap, sketch and A11.a paths, reported beside the
-# main one in the kernels line
+               "nominal_update_c1000", "cluster_counts_imagenet1k", "cluster_sums_imagenet1k", "fleiss_cifar10h",
+               "panoptic_intersections_cityscapes")
+# the cases of the confusion, calibration, fairness, bootstrap, sketch, A11.a and A11.b paths, reported beside
+# the main one in the kernels line
 SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k",
                "fairness_jigsaw", "bootstrap_c100_b10", "countmin_popularity", "ece_ctr_compute",
                "tenant_stack_c1000", "contingency_imagenet1k", "nominal_update_c1000", "cluster_counts_imagenet1k",
-               "cluster_sums_imagenet1k", "fleiss_cifar10h")
+               "cluster_sums_imagenet1k", "fleiss_cifar10h", "panoptic_intersections_cityscapes")
 
 
 def emit(obj) -> None:
@@ -348,6 +379,9 @@ def kernel_cases(device):
     city = ints((1, 2_097_152), 0, 361)
     city = torch.where(torch.rand(city.shape, generator=g, device=device) < 0.1, -1, city)
     conf = torch.rand((50_000,), generator=g, device=device)
+    # one Cityscapes image's panoptic table of intersections (its own generator)
+    pan_idx, pan_bins = _panoptic_pair_index(*_cityscapes_panoptic(torch.Generator(device=device).manual_seed(150),
+                                                                   device))
     ctr_conf = 0.5 + 0.5 * torch.rand((65_536,), generator=g, device=device)  # binary confidences are >= 0.5
     return [
         # stat scores at bench config 2: S=3 rows of N = batch, bins = C
@@ -430,6 +464,9 @@ def kernel_cases(device):
          torch.randn((2048, 50_000), generator=g, device=device), 1000, False),
         ("fleiss_cifar10h", "1d", (torch.arange(10_000, device=device, dtype=torch.int32)[:, None] * 10
                                    + ints((10_000, 51), 0, 10)).reshape(-1), None, 100_000, True),
+        # the A11.b path: panoptic quality's table of intersections of one
+        # 1024 x 2048 image, int32 counts of 2,097,152 pixel pairs into P·T bins
+        ("panoptic_intersections_cityscapes", "1d", pan_idx, None, pan_bins, True),
     ]
 
 
@@ -4968,6 +5005,589 @@ def run_a11a_paths(card: str, dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# A11.b: the host C++ library and detection
+# ---------------------------------------------------------------------------
+
+# the host library's public entry points, counted and timed over the run
+NATIVE_ENTRY_POINTS = ("edit_distance_batch", "edit_distance_counts_batch", "linear_sum_assignment",
+                       "rle_from_coco_string", "rle_to_coco_string", "rle_encode", "rle_decode", "rle_area",
+                       "rle_iou", "box_iou", "box_iou_batch", "coco_match", "coco_stage_match_batch")
+COCO_CLASSES = 80
+COCO_SIZE = (480, 640)  # (height, width) of most COCO val2017 images
+# COCO val2017: 36,781 boxes over 5,000 images, about 1% crowd, areas about
+# 41 / 34 / 24% small / medium / large (side below 32, 32 to 96, above 96)
+COCO_GT_PER_IMAGE = 36_781 / 5_000
+COCO_AREA_SHARES = (0.41, 0.34, 0.25)
+COCO_SIDES = (4.0, 32.0, 96.0, 400.0)
+COCO_CROWD = 0.01
+# Cityscapes' panoptic label ids: 8 thing and 11 stuff categories; 0
+# (unlabeled) is void; UNKNOWN_CATEGORY is painted into predictions only
+CITYSCAPES_THINGS = (24, 25, 26, 27, 28, 31, 32, 33)
+CITYSCAPES_STUFFS = (7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23)
+UNKNOWN_CATEGORY = 99
+IOU_FAMILY = ("IntersectionOverUnion", "GeneralizedIntersectionOverUnion", "DistanceIntersectionOverUnion",
+              "CompleteIntersectionOverUnion")
+# the IoU family's float64 means, card against CPU (the tests' tolerance against JAX)
+IOU_MEAN_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def _timed_calls(targets):
+    """Wrap each ``(owner, attribute)`` for the block: every call adds one
+    to ``totals[attribute][0]`` and its host seconds to ``[1]``."""
+    totals = {name: [0, 0.0] for _, name in targets}
+    saved = []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                totals[_name][0] += 1
+                totals[_name][1] += time.perf_counter() - t0
+
+        setattr(owner, name, wrapped)
+        saved.append((owner, name, fn))
+    try:
+        yield totals
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _log_uniform(g, dev, n: int, lo, hi):
+    import torch
+
+    lo, hi = torch.as_tensor(lo, device=dev), torch.as_tensor(hi, device=dev)
+    return torch.exp(torch.log(lo) + (torch.log(hi) - torch.log(lo)) * torch.rand(n, generator=g, device=dev))
+
+
+def _coco_scene(g, dev, images: int, dets: int = 100, classes: int = COCO_CLASSES) -> tuple:
+    """Seeded COCO val2017-like boxes on the card: (preds, targets) lists of
+    per-image dicts and the ground-truth count of each image. Ground truth:
+    a Poisson number of xyxy boxes an image (mean 36,781 / 5,000), sides
+    log-uniform within the small / medium / large ranges in COCO's shares,
+    aspect ratios up to 2:1, a quarter of the labels the first class
+    (person), the rest uniform, 1% crowd. Detections: ``dets`` scored boxes
+    an image; the first two per ground-truth box jitter it (90% keep its
+    label, scores in [0.3, 1)), the rest are random boxes (scores in
+    [0, 0.6)). One host read (the counts), at set-up."""
+    import torch
+
+    h, w = COCO_SIZE
+    n_gt = torch.poisson(torch.full((images,), COCO_GT_PER_IMAGE, device=dev), generator=g).to(torch.int64)
+    n_gt = torch.clamp(n_gt, max=dets // 2)
+    counts = n_gt.tolist()
+    total = sum(counts)
+    size = torch.multinomial(torch.tensor(COCO_AREA_SHARES, device=dev), max(total, 1), replacement=True,
+                             generator=g)[:total]
+    sides = torch.tensor(COCO_SIDES, device=dev)
+    side = _log_uniform(g, dev, total, sides[size], sides[size + 1])
+    ratio = torch.exp((torch.rand(total, generator=g, device=dev) - 0.5) * 1.4).sqrt()
+    bw, bh = torch.clamp(side * ratio, max=w - 1.0), torch.clamp(side / ratio, max=h - 1.0)
+    x1 = torch.rand(total, generator=g, device=dev) * (w - bw)
+    y1 = torch.rand(total, generator=g, device=dev) * (h - bh)
+    gt_boxes = torch.stack([x1, y1, x1 + bw, y1 + bh], 1)
+    probs = torch.full((classes,), 0.75 / (classes - 1), device=dev)
+    probs[0] = 0.25
+    gt_labels = torch.multinomial(probs, max(total, 1), replacement=True, generator=g)[:total]
+    crowd = (torch.rand(total, generator=g, device=dev) < COCO_CROWD).to(torch.int64)
+
+    slot = torch.arange(dets, device=dev)[None, :]
+    first = torch.cumsum(n_gt, 0) - n_gt
+    tp = slot < 2 * n_gt[:, None]
+    base = torch.where(tp, first[:, None] + slot % torch.clamp(n_gt[:, None], min=1), 0)
+    base = torch.clamp(base, max=max(total - 1, 0))
+    src = gt_boxes[base] if total else torch.zeros((images, dets, 4), device=dev)
+    wh = (src[..., 2:] - src[..., :2]).repeat(1, 1, 2)
+    jittered = src + (torch.rand((images, dets, 4), generator=g, device=dev) - 0.5) * 0.3 * wh
+    r_side = _log_uniform(g, dev, images * dets, 8.0, 300.0).reshape(images, dets)
+    rx = torch.rand((images, dets), generator=g, device=dev) * (w - r_side).clamp(min=1.0)
+    ry = torch.rand((images, dets), generator=g, device=dev) * (h - r_side).clamp(min=1.0)
+    random_boxes = torch.stack([rx, ry, rx + r_side, ry + r_side], -1)
+    det_boxes = torch.where(tp[..., None], jittered, random_boxes)
+    det_boxes[..., 2:] = torch.maximum(det_boxes[..., 2:], det_boxes[..., :2] + 1.0)
+    keep = tp & (torch.rand((images, dets), generator=g, device=dev) < 0.9)
+    rand_labels = torch.randint(0, classes, (images, dets), generator=g, device=dev)
+    det_labels = torch.where(keep, gt_labels[base] if total else rand_labels, rand_labels)
+    u = torch.rand((images, dets), generator=g, device=dev)
+    det_scores = torch.where(tp, 0.3 + 0.7 * u, 0.6 * u)
+    preds = [{"boxes": b, "scores": s, "labels": lab}
+             for b, s, lab in zip(det_boxes.unbind(0), det_scores.unbind(0), det_labels.unbind(0))]
+    targets = [{"boxes": b, "labels": lab, "iscrowd": c}
+               for b, lab, c in zip(torch.split(gt_boxes, counts), torch.split(gt_labels, counts),
+                                    torch.split(crowd, counts))]
+    return preds, targets, counts
+
+
+def _on_cpu_items(items) -> list:
+    return [{k: (v.cpu() if hasattr(v, "cpu") else v) for k, v in d.items()} for d in items]
+
+
+def _results_bitwise(label: str, got: dict, want: dict) -> int:
+    """Every key of two compute results (tensors, or dicts of them) bitwise
+    equal; returns the number of tensors compared."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: result keys differ: {sorted(got)} and {sorted(want)}")
+    n = 0
+    for k, w in want.items():
+        pairs = [(got[k][kk], w[kk]) for kk in w] if isinstance(w, dict) else [(got[k], w)]
+        for a, b in pairs:
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+                raise AssertionError(f"{label}: {k} differs from the device='cpu' run: {a} and {b}")
+            n += 1
+    return n
+
+
+def _timed_detection_updates(metrics, batches, dev, sync_free: bool) -> list:
+    """Update each metric with each ``(preds, targets)`` batch; host ms of
+    each update (all metrics), under set_sync_debug_mode("error") when
+    ``sync_free`` on the card."""
+    times = []
+    for preds, targets in batches:
+        _sync(dev)
+        t0 = time.perf_counter()
+        with _sync_debug("error", sync_free and dev.type == "cuda"):
+            for m in metrics:
+                m.update(preds, targets)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _batches(preds, targets, batch: int, images: int) -> list:
+    return [(preds[i:i + batch], targets[i:i + batch]) for i in range(0, images, batch)]
+
+
+def _peak_reset(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_mb(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**20 if dev.type == "cuda" else None
+
+
+def run_coco_bbox(card: str, dev, scene, batch: int = 16, check: int = 500) -> tuple:
+    """Path ``coco_val2017_bbox``: MeanAveragePrecision(iou_type="bbox",
+    class_metrics=True) over COCO val2017's 5,000 images (``scene`` from
+    :func:`_coco_scene`), 80 classes, 100 detections an image, in updates of
+    ``batch`` images under set_sync_debug_mode("error"); compute timed and
+    split into the host copy of the states, the IoU batch, the stage match
+    and the accumulation; every output key on the first ``check`` images
+    bitwise against device="cpu". No bincount launch. Returns (record, launches)."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import _native
+    from torchmetrics_tpu_torch.functional.detection import coco_eval
+
+    label = "coco_val2017_bbox"
+    preds, targets, counts = scene
+    images = len(preds)
+    _zero_kernel_counts()
+    _peak_reset(dev)
+    metric = tm.MeanAveragePrecision(iou_type="bbox", class_metrics=True, device=dev)
+    times = _timed_detection_updates([metric], _batches(preds, targets, batch, images), dev, sync_free=True)
+    stages = ((tm.MeanAveragePrecision, "_host_states"), (_native, "box_iou_batch"),
+              (_native, "coco_stage_match_batch"), (coco_eval, "accumulate"))
+    with _timed_calls(stages) as spent:
+        t0 = time.perf_counter()
+        result = metric.compute()
+        compute_s = time.perf_counter() - t0
+    peak = _peak_mb(dev)
+    launches = _kernel_counts()["weighted_bincount"]
+    if launches:
+        raise AssertionError(f"{label}: mAP launched the bincount")
+    card_sub = tm.MeanAveragePrecision(iou_type="bbox", class_metrics=True, device=dev)
+    cpu_sub = tm.MeanAveragePrecision(iou_type="bbox", class_metrics=True, device="cpu")
+    for p, t in _batches(preds, targets, batch, check):
+        card_sub.update(p, t)
+        cpu_sub.update(_on_cpu_items(p), _on_cpu_items(t))
+    compared = _results_bitwise(label, card_sub.compute(), cpu_sub.compute())
+    return {"phase": "a11b", "path": label, "images": images, "classes": COCO_CLASSES, "detections_per_image": 100,
+            "ground_truth": sum(counts), "batch": batch, "updates": len(times),
+            "update_ms_per_image": statistics.median(times) / batch, "first_update_ms": times[0],
+            # any host read raises under set_sync_debug_mode("error")
+            "update_host_reads": 0 if dev.type == "cuda" else None,
+            "compute_s": compute_s, "compute_split_s": {name: spent[name][1] for _, name in stages},
+            "peak_mb": peak, "values": {k: float(result[k]) for k in ("map", "map_50", "map_75", "map_small",
+                                                                       "map_medium", "map_large", "mar_100")},
+            "bitwise_cpu": {"images": check, "tensors": compared}, "card": card}, launches
+
+
+def run_coco_iou_family(card: str, dev, scene, batch: int = 16, check: int = 500) -> tuple:
+    """Path ``coco_iou_family``: IoU, GIoU, DIoU and CIoU with
+    respect_labels=True and class_metrics=True on ``coco_val2017_bbox``'s
+    boxes, updates of ``batch`` images under set_sync_debug_mode("error"),
+    each compute timed; on the first ``check`` images every value within
+    IOU_MEAN_RTOL of device="cpu". No bincount launch. Returns (record, launches)."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    label = "coco_iou_family"
+    preds, targets, _ = scene
+    images = len(preds)
+    _zero_kernel_counts()
+    _peak_reset(dev)
+    make = {name: (lambda device, name=name: getattr(tm, name)(respect_labels=True, class_metrics=True,
+                                                               device=device)) for name in IOU_FAMILY}
+    metrics = {name: mk(dev) for name, mk in make.items()}
+    times = _timed_detection_updates(list(metrics.values()), _batches(preds, targets, batch, images), dev, sync_free=True)
+    computes, values = {}, {}
+    for name, m in metrics.items():
+        values[name], ms, peak = _timed_peak(dev, m.compute)
+        computes[name] = {"ms": ms, "peak_mb": peak, "entries": int(sum(x.numel() for x in m.iou_matrix))}
+    peak = _peak_mb(dev)
+    launches = _kernel_counts()["weighted_bincount"]
+    if launches:
+        raise AssertionError(f"{label}: the IoU family launched the bincount")
+    errors = {}
+    for name, mk in make.items():
+        card_sub, cpu_sub = mk(dev), mk(torch.device("cpu"))
+        for p, t in _batches(preds, targets, batch, check):
+            card_sub.update(p, t)
+            cpu_sub.update(_on_cpu_items(p), _on_cpu_items(t))
+        got, want = card_sub.compute(), cpu_sub.compute()
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{label}: {name}'s keys differ from the CPU run's")
+        err = 0.0
+        for k in want:
+            a, b = float(got[k]), float(want[k])
+            if a != b:
+                err = max(err, abs(a - b) / abs(b))
+        errors[name] = _hold(label, f"{name} against device='cpu'", err, IOU_MEAN_RTOL)
+    return {"phase": "a11b", "path": label, "images": images, "batch": batch, "metrics": list(IOU_FAMILY),
+            "update_ms_per_image_all_four": statistics.median(times) / batch,
+            "update_host_reads": 0 if dev.type == "cuda" else None, "compute": computes, "peak_mb": peak,
+            "values": {n: float(v[metrics[n]._iou_type]) for n, v in values.items()},
+            "classes_reported": {n: len(v) - 1 for n, v in values.items()},
+            "max_rel_err_cpu": errors, "cpu_images": check, "card": card}, launches
+
+
+def _coco_masks(g, dev, images: int, height: int, width: int, dets: int = 20, gts: int = 8) -> tuple:
+    """Seeded instance masks on the card: per image ``gts`` ground-truth
+    ellipses and ``dets`` detections (each ground truth jittered, the rest
+    random), (N, H, W) bool, labels over 80 classes, scores; ~1% crowd."""
+    import torch
+
+    ys = torch.arange(height, device=dev, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(width, device=dev, dtype=torch.float32)[None, None, :]
+
+    def ellipses(params):
+        cx, cy, ax, ay = params.unbind(1)
+        return ((xs - cx[:, None, None]) / ax[:, None, None]) ** 2 + \
+               ((ys - cy[:, None, None]) / ay[:, None, None]) ** 2 <= 1.0
+
+    extra = dets - gts
+    preds, targets = [], []
+    for _ in range(images):
+        ax = _log_uniform(g, dev, gts, 6.0, width / 4)
+        ay = ax * torch.exp((torch.rand(gts, generator=g, device=dev) - 0.5) * 1.2)
+        gt = torch.stack([torch.rand(gts, generator=g, device=dev) * width,
+                          torch.rand(gts, generator=g, device=dev) * height, ax, ay], 1)
+        jit = gt + (torch.rand((gts, 4), generator=g, device=dev) - 0.5) * 0.3 * gt[:, 2:].repeat(1, 2)
+        rnd = torch.stack([torch.rand(extra, generator=g, device=dev) * width,
+                           torch.rand(extra, generator=g, device=dev) * height,
+                           _log_uniform(g, dev, extra, 6.0, width / 4), _log_uniform(g, dev, extra, 6.0, width / 4)], 1)
+        dt = torch.cat([jit, rnd])
+        g_labels = torch.randint(0, COCO_CLASSES, (gts,), generator=g, device=dev)
+        keep = torch.rand(gts, generator=g, device=dev) < 0.9
+        d_labels = torch.cat([torch.where(keep, g_labels, torch.randint(0, COCO_CLASSES, (gts,), generator=g,
+                                                                        device=dev)),
+                              torch.randint(0, COCO_CLASSES, (extra,), generator=g, device=dev)])
+        u = torch.rand(dets, generator=g, device=dev)
+        scores = torch.where(torch.arange(dets, device=dev) < gts, 0.3 + 0.7 * u, 0.6 * u)
+        crowd = (torch.rand(gts, generator=g, device=dev) < COCO_CROWD).to(torch.int64)
+        preds.append({"masks": ellipses(dt), "scores": scores, "labels": d_labels})
+        targets.append({"masks": ellipses(gt), "labels": g_labels, "iscrowd": crowd})
+    return preds, targets
+
+
+def _as_coco_rle(masks) -> list:
+    """Dense (N, H, W) bool masks as pycocotools' RLE dicts with compressed strings."""
+    from torchmetrics_tpu_torch import _native
+
+    host = masks.cpu().numpy().astype("uint8")
+    return [{"size": list(m.shape), "counts": _native.rle_to_coco_string(_native.rle_encode(m))} for m in host]
+
+
+def run_coco_segm(card: str, dev, images: int = 500, height: int = 480, width: int = 640, batch: int = 8,
+                  check: int = 50, rle_every: int = 10) -> tuple:
+    """Path ``coco_val2017_segm``: MeanAveragePrecision(iou_type="segm") over
+    ``images`` images of ``height`` x ``width`` with 20 dense bool detection
+    masks and 8 ground-truth masks an image (3.9 GB of dense states on the
+    card at 500 images of 480 x 640); every ``rle_every``-th
+    image's masks given as RLE dicts with pycocotools' compressed strings.
+    Update ms, compute seconds (of which the dense-mask intersections, one
+    float64 product per image on the card), peak memory; every output key
+    on the first ``check`` images bitwise against device="cpu". Returns
+    (record, launches)."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.detection import coco_eval
+
+    label = "coco_val2017_segm"
+    g = torch.Generator(device=dev).manual_seed(141)
+    t0 = time.perf_counter()
+    preds, targets = _coco_masks(g, dev, images, height, width)
+    for i in range(0, images, rle_every):
+        preds[i] = {**preds[i], "masks": _as_coco_rle(preds[i]["masks"])}
+        targets[i] = {**targets[i], "masks": _as_coco_rle(targets[i]["masks"])}
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+    dense_bytes = sum(d["masks"].numel() for d in preds + targets if isinstance(d["masks"], torch.Tensor))
+    _zero_kernel_counts()
+    _peak_reset(dev)
+    metric = tm.MeanAveragePrecision(iou_type="segm", device=dev)
+    times = _timed_detection_updates([metric], _batches(preds, targets, batch, images), dev, sync_free=True)
+    with _timed_calls(((coco_eval, "dense_mask_overlaps"),)) as spent:
+        t0 = time.perf_counter()
+        result = metric.compute()
+        compute_s = time.perf_counter() - t0
+    peak = _peak_mb(dev)
+    launches = _kernel_counts()["weighted_bincount"]
+    if launches:
+        raise AssertionError(f"{label}: mAP launched the bincount")
+    card_sub = tm.MeanAveragePrecision(iou_type="segm", device=dev)
+    cpu_sub = tm.MeanAveragePrecision(iou_type="segm", device="cpu")
+    for p, t in _batches(preds, targets, batch, check):
+        card_sub.update(p, t)
+        cpu_sub.update(_on_cpu_items(p), _on_cpu_items(t))
+    compared = _results_bitwise(label, card_sub.compute(), cpu_sub.compute())
+    return {"phase": "a11b", "path": label, "images": images, "height": height, "width": width, "batch": batch,
+            "masks": {"detections": sum(len(p["labels"]) for p in preds),
+                      "ground_truth": sum(len(t["labels"]) for t in targets),
+                      "rle_images": len(range(0, images, rle_every)), "dense_state_bytes": dense_bytes},
+            "setup_s": setup_s, "update_ms_per_image": statistics.median(times) / batch,
+            "update_host_reads": 0 if dev.type == "cuda" else None, "compute_s": compute_s,
+            "mask_intersections_s": spent["dense_mask_overlaps"][1],
+            "mask_intersection_calls": spent["dense_mask_overlaps"][0], "peak_mb": peak,
+            "values": {k: float(result[k]) for k in ("map", "map_50", "map_75", "mar_100")},
+            "bitwise_cpu": {"images": check, "tensors": compared}, "card": card}, launches
+
+
+def _cityscapes_panoptic(g, dev, height: int = 1024, width: int = 2048, instances: int = 20, cell: int = 32):
+    """One seeded Cityscapes-like (1, H, W, 2) target and prediction on the
+    card. Stuff: ``cell``-pixel cells drawn by height band (sky and
+    buildings above, vegetation and structures, then sidewalk and road),
+    4% void (unlabeled) cells; things: ``instances`` boxes of the 8 thing
+    categories, sides log-uniform from 16 to 400 pixels, later ones on top.
+    The prediction redraws 10% of the stuff cells, shifts each instance by
+    up to 8 pixels, drops two and adds one, and paints 2% of its cells an
+    unknown category."""
+    import torch
+
+    gh, gw = height // cell, width // cell
+    bands = torch.tensor([[23, 23, 11, 11], [11, 21, 17, 20], [21, 22, 12, 13], [7, 7, 8, 19]], device=dev)
+    band = (torch.arange(gh, device=dev) * bands.shape[0] // gh)[:, None].expand(gh, gw)
+
+    def stuff_cells():
+        return bands[band, torch.randint(0, bands.shape[1], (gh, gw), generator=g, device=dev)]
+
+    t_cells = torch.where(torch.rand((gh, gw), generator=g, device=dev) < 0.04, 0, stuff_cells())
+    p_cells = torch.where(torch.rand((gh, gw), generator=g, device=dev) < 0.1, stuff_cells(), t_cells)
+    p_cells = torch.where(torch.rand((gh, gw), generator=g, device=dev) < 0.02, UNKNOWN_CATEGORY, p_cells)
+    things = torch.tensor(CITYSCAPES_THINGS, device=dev)
+    cats = things[torch.randint(0, len(CITYSCAPES_THINGS), (instances + 1,), generator=g, device=dev)]
+    bw, bh = _log_uniform(g, dev, instances + 1, 16.0, 400.0), _log_uniform(g, dev, instances + 1, 16.0, 400.0)
+    x1 = torch.rand(instances + 1, generator=g, device=dev) * (width - bw)
+    y1 = torch.rand(instances + 1, generator=g, device=dev) * (height - bh)
+    boxes = torch.stack([x1, y1, x1 + bw, y1 + bh], 1)
+    shifted = boxes + ((torch.rand((instances + 1, 2), generator=g, device=dev) - 0.5) * 16).repeat(1, 2)
+    ys = torch.arange(height, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(width, device=dev, dtype=torch.float32)[None, :]
+
+    def paint(cells, bxs, present):
+        top = torch.zeros((height, width), dtype=torch.int64, device=dev)
+        for k in range(len(bxs)):  # later boxes on top
+            inside = (xs >= bxs[k, 0]) & (xs < bxs[k, 2]) & (ys >= bxs[k, 1]) & (ys < bxs[k, 3]) & present[k]
+            top = torch.where(inside, k + 1, top)
+        stuff = cells.repeat_interleave(cell, 0).repeat_interleave(cell, 1)
+        cat = torch.where(top > 0, cats[torch.clamp(top - 1, min=0)], stuff)
+        return torch.stack([cat, top], -1)[None].to(torch.int64)
+
+    t_present = torch.arange(instances + 1, device=dev) < instances
+    p_present = torch.arange(instances + 1, device=dev) >= 2  # two dropped, one extra
+    return paint(p_cells, shifted, p_present), paint(t_cells, boxes, t_present)
+
+
+def _panoptic_pair_index(pred, target):
+    """The int32 pair index of one sample's table of intersections and its
+    bins (P·T), as ``functional.detection.panoptic_quality`` forms it."""
+    import torch
+
+    dev = pred.device
+    cats = torch.tensor(sorted(CITYSCAPES_THINGS + CITYSCAPES_STUFFS), device=dev)
+    p, t = pred.reshape(-1, 2), target.reshape(-1, 2)
+    offset = torch.cat([p[:, 1], t[:, 1], torch.zeros(1, dtype=torch.int64, device=dev)]).max() + 2
+    pk = torch.where(torch.isin(p[:, 0], cats), p[:, 0] * offset + p[:, 1], -1)
+    tk = torch.where(torch.isin(t[:, 0], cats), t[:, 0] * offset + t[:, 1], -1)
+    _, p_inv = torch.unique(pk, sorted=True, return_inverse=True)
+    t_keys, t_inv = torch.unique(tk, sorted=True, return_inverse=True)
+    n_t = t_keys.numel()
+    bins = (int(p_inv.max()) + 1) * n_t
+    return (p_inv * n_t + t_inv).to(torch.int32), bins
+
+
+def run_cityscapes_panoptic(card: str, dev, images: int = 500, height: int = 1024, width: int = 2048,
+                            check: int = 4) -> tuple:
+    """Path ``cityscapes_panoptic``: PanopticQuality and
+    ModifiedPanopticQuality (Cityscapes' 8 thing and 11 stuff categories,
+    allow_unknown_preds_category=True) over ``images`` seeded images of
+    ``height`` x ``width`` (:func:`_cityscapes_panoptic`), batch 1: update
+    ms an image, host synchronisations an update, bincount launches an
+    update (one: the table of intersections) and the table's bins an image;
+    the four states of both metrics after the first ``check`` images
+    bitwise against device="cpu". Returns (record, launches)."""
+    import importlib
+
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    label = "cityscapes_panoptic"
+    pq_mod = importlib.import_module("torchmetrics_tpu_torch.functional.detection.panoptic_quality")
+    g = torch.Generator(device=dev).manual_seed(151)
+    kw = dict(things=set(CITYSCAPES_THINGS), stuffs=set(CITYSCAPES_STUFFS), allow_unknown_preds_category=True)
+    metrics = {"PanopticQuality": tm.PanopticQuality(**kw, device=dev),
+               "ModifiedPanopticQuality": tm.ModifiedPanopticQuality(**kw, device=dev)}
+    cpu = {name: type(m)(**kw, device="cpu") for name, m in metrics.items()}
+    states = ("iou_sum", "true_positives", "false_positives", "false_negatives")
+    bins, times, reads = [], {name: [] for name in metrics}, {}
+    setup_s = 0.0
+    _zero_kernel_counts()
+    _peak_reset(dev)
+    real = pq_mod.weighted_bincount
+
+    def recording(idx, weights=None, num_bins=0):
+        bins.append(num_bins)
+        return real(idx, weights, num_bins)
+
+    pq_mod.weighted_bincount = recording
+    try:
+        for i in range(images):
+            t0 = time.perf_counter()
+            pred, target = _cityscapes_panoptic(g, dev, height, width)
+            _sync(dev)
+            setup_s += time.perf_counter() - t0
+            for name, m in metrics.items():
+                if i == 2 and dev.type == "cuda":
+                    _, reads[name], _ = count_host_reads(lambda m=m: m.update(pred, target))
+                    continue
+                _sync(dev)
+                t0 = time.perf_counter()
+                m.update(pred, target)
+                _sync(dev)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            if i < check:
+                for c in cpu.values():
+                    c.update(pred.cpu(), target.cpu())
+            if i == check - 1:
+                for name, m in metrics.items():
+                    for s in states:
+                        a, b = getattr(m, s).cpu(), getattr(cpu[name], s)
+                        if a.dtype != b.dtype or not torch.equal(a, b):
+                            raise AssertionError(f"{label}: {name}.{s} differs from the device='cpu' run")
+    finally:
+        pq_mod.weighted_bincount = real
+    launches = _kernel_counts()["weighted_bincount"]
+    if dev.type == "cuda" and launches != 2 * images:
+        raise AssertionError(f"{label}: {launches} bincount launches over {images} images of two metrics, "
+                             f"expected one an update")
+    values, computes = {}, {}
+    for name, m in metrics.items():
+        values[name], ms, _ = _timed_peak(dev, m.compute)
+        computes[name] = ms
+    return {"phase": "a11b", "path": label, "images": images, "height": height, "width": width, "batch": 1,
+            "pixels": height * width, "setup_s": setup_s,
+            "update_ms_per_image": {n: statistics.median(t) for n, t in times.items()},
+            "host_syncs_per_update": reads or None, "launches_per_update": launches / (2 * images),
+            "table_bins": {"min": min(bins), "median": statistics.median(bins), "max": max(bins)},
+            "table_calls": len(bins), "compute_ms": computes, "peak_mb": _peak_mb(dev),
+            "values": {n: float(v) for n, v in values.items()},
+            "states_bitwise_cpu": {"images": check, "states": list(states)}, "card": card}, launches
+
+
+def native_check() -> dict:
+    """The host library on this machine against its plain numpy versions
+    on seeded inputs: box IoU within 4 float64 ulp (the FMA ``-march=native``
+    may contract), the rest equal. Returns the largest errors."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch import _native
+
+    rng = np.random.RandomState(0)
+    dt, gt = rng.rand(200, 4) * 500, rng.rand(60, 4) * 500
+    dt[:, 2:] += dt[:, :2] + 1
+    gt[:, 2:] += gt[:, :2] + 1
+    crowd = rng.rand(60) < 0.1
+    got, want = _native.box_iou(dt, gt, crowd), _native.box_iou_plain(dt, gt, crowd)
+    ulps = float(np.max(np.abs(got - want) / np.spacing(np.maximum(np.abs(want), np.finfo(float).tiny))))
+    if ulps > 4:
+        raise AssertionError(f"native: box_iou is {ulps} ulp off its plain version")
+    ious = [np.round(rng.rand(d, g), 2) for d, g in rng.randint(0, 12, (40, 2))]
+    args = (ious, [rng.rand(len(i)) for i in ious], [rng.rand(len(i)) * 1e4 for i in ious],
+            [rng.rand(i.shape[1]) * 1e4 for i in ious], [(rng.rand(i.shape[1]) < 0.2).astype(np.uint8) for i in ious],
+            np.array([0.0, 0.0, 1024.0, 9216.0]), np.array([1e10, 1024.0, 9216.0, 1e10]),
+            np.linspace(0.5, 0.95, 10), 100)
+    for a_cell, b_cell in zip(_native.coco_stage_match_batch(*args), _native.coco_stage_match_batch_plain(*args)):
+        if not all(np.array_equal(a, b) for a, b in zip(a_cell, b_cell)):
+            raise AssertionError("native: coco_stage_match_batch differs from its plain version")
+    words = [[f"w{t}" for t in rng.randint(0, 8, rng.randint(0, 20))] for _ in range(64)]
+    refs = [[f"w{t}" for t in rng.randint(0, 8, rng.randint(0, 20))] for _ in range(64)]
+    if not np.array_equal(_native.edit_distance_counts_batch(words, refs),
+                          _native.edit_distance_counts_batch_plain(words, refs)):
+        raise AssertionError("native: edit_distance_counts_batch differs from its plain version")
+    cost = rng.rand(30, 40)
+    r, c = _native.linear_sum_assignment(cost)
+    pr, pc = _native.linear_sum_assignment_plain(cost)
+    if not (np.array_equal(r, pr) and np.array_equal(c, pc)):
+        raise AssertionError("native: linear_sum_assignment differs from scipy's")
+    return {"box_iou_max_ulps": ulps, "stage_match_cells": len(ious), "edit_pairs": len(words),
+            "assignment": list(cost.shape)}
+
+
+def run_a11b_paths(card: str, dev, images: int = 5000, segm_images: int = 500, panoptic_images: int = 500,
+                   coco_check: int = 500) -> tuple:
+    """The four A11.b paths; (records, bincount launches over them, the host
+    library's calls and seconds per entry point over them)."""
+    import torch
+
+    from torchmetrics_tpu_torch import _native
+
+    records, launches = [], 0
+    with _timed_calls(tuple((_native, name) for name in NATIVE_ENTRY_POINTS)) as native:
+        g = torch.Generator(device=dev).manual_seed(140)
+        t0 = time.perf_counter()
+        scene = _coco_scene(g, dev, images)
+        _sync(dev)
+        scene_s = time.perf_counter() - t0
+        runs = ((run_coco_bbox, (scene,), {"check": coco_check}),
+                (run_coco_iou_family, (scene,), {"check": coco_check}),
+                (run_coco_segm, (), {"images": segm_images}),
+                (run_cityscapes_panoptic, (), {"images": panoptic_images}))
+        for run, args, kwargs in runs:
+            t0 = time.perf_counter()
+            record, n = run(card, dev, *args, **kwargs)
+            record["seconds"] = time.perf_counter() - t0
+            record["bincount_launches"] = n
+            records.append(record)
+            launches += n
+        records[0]["scene_setup_s"] = scene_s
+    calls = {name: {"calls": c, "seconds": s} for name, (c, s) in native.items() if c}
+    return records, launches, calls
+
+
+# ---------------------------------------------------------------------------
 # phase dist_sync: state sync over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -5420,18 +6040,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import torchmetrics_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from torchmetrics_tpu_torch import _native
     from torchmetrics_tpu_torch.ops import bincount, tdigest
 
     card = card_line()
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
 
+    def timed(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc for each source, started together
-        libs = list(pool.map(lambda build: build(), (bincount.build, tdigest.build)))
+    # one nvcc for each CUDA source and g++ for the host library, started together
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(timed, (bincount.build, tdigest.build, _native.build)))
     bincount._library()
     tdigest._library()
-    emit({"phase": "build", "libraries": [lib.name for lib in libs], "seconds": time.perf_counter() - t0})
+    _native._library()
+    native_build_s = libs[2][1]
+    emit({"phase": "build", "libraries": [lib.name for lib, _ in libs], "seconds": time.perf_counter() - t0,
+          "each_seconds": [s for _, s in libs]})
 
     kernel = check_kernel(torch.device("cuda"))
     tdigest_kernel = check_tdigest_kernel(torch.device("cuda"))
@@ -5473,6 +6102,10 @@ def main() -> int:
     for record in a11a_records:
         emit(record)
     launches += a11a_launches
+    a11b_records, a11b_launches, native_calls = run_a11b_paths(card, dev)
+    for record in a11b_records:
+        emit(record)
+    launches += a11b_launches
     for record in run_model_paths(card, dev):
         emit(record)
     record, dist_launches = dist_sync(card)
@@ -5480,6 +6113,9 @@ def main() -> int:
     launches += dist_launches["weighted_bincount"]
     tdigest_launches += dist_launches["tdigest_compress"]
 
+    emit({"native": {"source": "torchmetrics_tpu_torch/csrc/tm_native.cpp", "compiler": " ".join(
+        ("g++",) + _native.CXX_FLAGS), "library": libs[2][0].name, "build_seconds": native_build_s,
+        "entry_points_called": native_calls, "check_against_plain": native_check()}})
     main_case = next(c for c in kernel["cases"] if c["case"] == "curve_c1000_t64")
     td_main = tdigest_kernel["cases"][0]
     emit({"kernels": [{

@@ -45,7 +45,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "'functional.image.rmse_sw', 'functional.image.tv', 'functional.image.gradients', 'models', "
         "'models.pretrained', 'models.inception', 'models.lpips', 'image.fid', 'image.kid', 'image.inception', "
         "'image.mifid', 'image.lpip', 'image.perceptual_path_length', 'functional.image.lpips', "
-        "'functional.image.perceptual_path_length']\n"
+        "'functional.image.perceptual_path_length', '_native', 'detection', 'detection.iou', "
+        "'detection.mean_ap', 'detection.panoptic_qualities', 'functional.detection', "
+        "'functional.detection.box_ops', 'functional.detection.coco_eval', "
+        "'functional.detection.panoptic_quality']\n"
         "missing = [m for m in new if 'torchmetrics_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "

@@ -19,6 +19,7 @@ from .buffers import CatBuffer, CatLayoutError
 from .classification import *  # noqa: F401,F403
 from .clustering import *  # noqa: F401,F403
 from .collections import MetricCollection
+from .detection import *  # noqa: F401,F403
 from .image import *  # noqa: F401,F403
 from .interop import state_from_numpy, state_to_numpy
 from .metric import CompositionalMetric, Metric
@@ -61,6 +62,7 @@ __all__ = [
     "CatMetric",
     "ClasswiseWrapper",
     "CohenKappa",
+    "CompleteIntersectionOverUnion",
     "CompletenessScore",
     "CompositionalMetric",
     "ConcordanceCorrCoef",
@@ -73,6 +75,7 @@ __all__ = [
     "DecayedMetric",
     "DecayedSum",
     "Dice",
+    "DistanceIntersectionOverUnion",
     "DunnIndex",
     "ErrorRelativeGlobalDimensionlessSynthesis",
     "ExactMatch",
@@ -82,10 +85,12 @@ __all__ = [
     "FleissKappa",
     "FowlkesMallowsIndex",
     "FrechetInceptionDistance",
+    "GeneralizedIntersectionOverUnion",
     "HammingDistance",
     "HingeLoss",
     "HomogeneityScore",
     "InceptionScore",
+    "IntersectionOverUnion",
     "JaccardIndex",
     "KLDivergence",
     "KendallRankCorrCoef",
@@ -96,6 +101,7 @@ __all__ = [
     "MaxMetric",
     "MeanAbsoluteError",
     "MeanAbsolutePercentageError",
+    "MeanAveragePrecision",
     "MeanMetric",
     "MeanSquaredError",
     "MeanSquaredLogError",
@@ -107,6 +113,7 @@ __all__ = [
     "MinMaxMetric",
     "MinMetric",
     "MinkowskiDistance",
+    "ModifiedPanopticQuality",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "MultilabelCoverageError",
     "MultilabelRankingAveragePrecision",
@@ -115,6 +122,7 @@ __all__ = [
     "MultitaskWrapper",
     "MutualInfoScore",
     "NormalizedMutualInfoScore",
+    "PanopticQuality",
     "PeakSignalNoiseRatio",
     "PeakSignalNoiseRatioWithBlockedEffect",
     "PearsonCorrCoef",
