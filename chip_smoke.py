@@ -278,6 +278,33 @@ not 0 and no result line is printed:
    point the paths called (calls and seconds) and a check of the library
    against its plain numpy versions on this machine.
 
+14. a11c (ROADMAP A11.c), after a11b: audio and the speech-recognition
+   error rates, no kernel on their path (the bincount and the compress
+   kernel must launch no time there), all data seeded on the card:
+   - wsj0_2mix_separation: 3,000 two-speaker mixtures of 4 s at 8 kHz, 16
+     an update: PIT(SI-SDR) speaker-wise and permutation-wise, and SDR
+     (512 taps), SA-SDR, SI-SNR and SNR on the pit_permutate'd estimates,
+     captured (all but SDR, eager by declaration) and eagerly: ms an update,
+     host synchronisations, captures, SDR's solve ms, peak MB; PIT's
+     permutations equal an exhaustive float64 search and its SI-SDR within
+     1e-3 dB of it, SDR within 5e-3 dB of a float64 solve, states against
+     device="cpu" on the first 64 mixtures; a 5-speaker sub-phase (200
+     mixtures, 8 an update) through the host assignment, permutations
+     equal to scipy's;
+   - dns_enhancement: 150 clips of 10 s at 16 kHz, 10 an update, noisy,
+     delayed, every fifth with a delay jump and a transient: PESQ wb and
+     nb, STOI, extended STOI, SI-SDR and SNR, ms a clip, PESQ's host part
+     apart, its second passes; PESQ's decisions and MOS and STOI against
+     device="cpu" on the first 8 clips, the two ITU anchors on the card;
+   - reverb_srmr: 200 clips of 8 s at 16 kHz reverberated at RT60 0.25,
+     0.5 and 0.7 s, 8 an update, SRMR at the defaults, norm=True and
+     fast=True: ms an update and peak MB (under the frames it does not
+     build); the first 8 clips against device="cpu", k* equal;
+   - librispeech_wer: WER, CER, MER, WIL and WIP over 2,620 utterances and
+     52,576 reference words, 32 an update: ms an update and the host
+     library's share; states bitwise against device="cpu" and the plain
+     Levenshtein counts on the first 200 utterances.
+
 The last lines are the native record, the kernels' record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -5588,6 +5615,577 @@ def run_a11b_paths(card: str, dev, images: int = 5000, segm_images: int = 500, p
 
 
 # ---------------------------------------------------------------------------
+# A11.c: audio and the speech-recognition error rates
+# ---------------------------------------------------------------------------
+
+SEP_SI_SDR_DB = 1e-3  # PIT's SI-SDR against float64 on the card, dB
+SEP_SDR_DB = 5e-3  # SDR against a float64 solve, dB (the JAX package's own bound)
+SNR_CPU_RTOL = 1e-4  # the SNR family, SA-SDR and PIT against device="cpu" (the tests' bound)
+SDR_CPU_DB = 1e-3  # SDR against device="cpu", dB (the tests' bound)
+PESQ_MOS_ATOL = 1e-3  # PESQ against device="cpu" (the tests' bound)
+PESQ_ANCHORS = {("nb", 8000): 2.2076, ("wb", 16000): 1.7359}  # the ITU executable's scores of the anchors
+PESQ_ANCHOR_ATOL = 5e-3
+STOI_CPU_ATOL = 1e-5
+SRMR_CPU_RTOL = 1e-4
+RT60_S = (0.25, 0.5, 0.7)  # the REVERB Challenge's small, medium and large rooms
+
+
+def _speech_like(g, dev, lead: tuple, n: int, fs: int):
+    """(*lead, n) float32 speech-like signals on ``dev``: voices of 100-250 Hz
+    with 8 partials under a 2-5 Hz syllable envelope whose level is
+    modulated by smoothed noise, gated by pauses of a 0.2-0.5 Hz gate."""
+    import torch
+
+    def u(*shape):
+        return torch.rand(*lead, *shape, generator=g, device=dev)
+
+    t = torch.arange(n, device=dev, dtype=torch.float32) / fs
+    f0, phase = 100.0 + 150.0 * u(1), 2 * torch.pi * u(8)
+    voice = torch.zeros(*lead, n, device=dev)
+    for k in range(1, 9):
+        voice += torch.sin(2 * torch.pi * k * f0 * t + phase[..., k - 1:k]) / k
+    syllables = torch.clamp(torch.sin(2 * torch.pi * (2.0 + 3.0 * u(1)) * t + 2 * torch.pi * u(1)), min=0.0)
+    gate = (torch.sin(2 * torch.pi * (0.2 + 0.3 * u(1)) * t + 2 * torch.pi * u(1)) > -0.2).float()
+    noise = torch.randn(*lead, n, generator=g, device=dev).reshape(-1, 1, n)
+    level = 1.0 + 2.0 * torch.nn.functional.avg_pool1d(noise, 401, stride=1, padding=200).reshape(*lead, n)
+    hiss = torch.randn(*lead, n, generator=g, device=dev)
+    return 0.3 * voice * syllables.sqrt() * gate * level.clamp(min=0.2) + 1e-4 * hiss
+
+
+def _mixtures(g, dev, batch: int, spk: int, n: int, fs: int):
+    """(estimates, references), each (batch, spk, n): every estimate is a
+    reference of a random speaker order, with 10-30% of another speaker
+    leaking in and white noise 10-25 dB down."""
+    import torch
+
+    target = _speech_like(g, dev, (batch, spk), n, fs)
+    order = torch.argsort(torch.rand(batch, spk, generator=g, device=dev), dim=1)
+    est = torch.take_along_dim(target, order[..., None], dim=1)
+    leak = 0.1 + 0.2 * torch.rand(batch, spk, 1, generator=g, device=dev)
+    est = est + leak * torch.roll(est, 1, dims=1)
+    rms = est.square().mean(-1, keepdim=True).sqrt()
+    snr = 10.0 + 15.0 * torch.rand(batch, spk, 1, generator=g, device=dev)
+    return est + rms * 10 ** (-snr / 20) * torch.randn(est.shape, generator=g, device=dev), target
+
+
+def _si_sdr64(preds, target):
+    """SI-SDR in float64 (zero_mean=False), the JAX package's formula."""
+    import torch
+
+    p, t = preds.double(), target.double()
+    eps = 1.1920929e-07
+    alpha = ((p * t).sum(-1, keepdim=True) + eps) / (t.square().sum(-1, keepdim=True) + eps)
+    ts = alpha * t
+    return 10 * torch.log10((ts.square().sum(-1) + eps) / ((ts - p).square().sum(-1) + eps))
+
+
+def _exhaustive64(preds, target):
+    """(best mean SI-SDR, permutation) of each sample by an exhaustive float64 search."""
+    from itertools import permutations
+
+    import torch
+
+    spk = target.shape[1]
+    mat = _si_sdr64(preds[:, :, None, :].expand(-1, -1, spk, -1), target[:, None, :, :].expand(-1, spk, -1, -1))
+    perms = torch.tensor(list(permutations(range(spk))), device=preds.device)
+    per_perm = mat[:, torch.arange(spk, device=preds.device), perms].mean(-1)  # (B, P)
+    best, idx = per_perm.max(-1)
+    return best, perms[idx], per_perm
+
+
+def _sdr64(preds, target, filter_length: int = 512):
+    """SDR with a float64 Toeplitz solve (torch.linalg.solve), the JAX package's formula."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.audio import sdr as sdr_mod
+
+    p, t = preds.double(), target.double()
+    t = t / t.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+    p = p / p.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+    r_0, b = sdr_mod._compute_autocorr_crosscorr(t, p, filter_length)
+    sol = torch.linalg.solve(sdr_mod._symmetric_toeplitz(r_0), b[..., None])[..., 0]
+    coh = (b * sol).sum(-1)
+    return 10 * torch.log10((coh / (1 - coh).clamp(min=1e-12)).clamp(min=1e-12))
+
+
+def _mean_state(m) -> float:
+    return float(m.sum_value) / float(m.total)
+
+
+def _timed_update(dev, m, *args) -> float:
+    _sync(dev)
+    t0 = time.perf_counter()
+    m.update(*args)
+    _sync(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_wsj0_2mix(card: str, dev, mixtures: int = 3000, batch: int = 16, seconds: float = 4.0, fs: int = 8000,
+                  check: int = 64, five_mixtures: int = 200, five_batch: int = 8) -> dict:
+    """Path ``wsj0_2mix_separation``: two-speaker separation as WSJ0-2mix
+    test scores it, ``mixtures`` seeded mixtures of ``seconds`` at ``fs``,
+    ``batch`` an update: PIT(SI-SDR) speaker-wise and permutation-wise on
+    the raw estimates, and SDR (512 taps), SA-SDR, SI-SNR and SNR on the
+    ``pit_permutate``d ones, each by its default route (captured but SDR)
+    and eagerly (jit=False): ms an update, host reads an update, captures,
+    SDR's solve ms, peak MB. Checks: PIT's permutations equal an exhaustive
+    float64 search and its SI-SDR within SEP_SI_SDR_DB of it on every
+    update; SDR within SEP_SDR_DB of a float64 solve on the first ``check``
+    mixtures; every state against device="cpu" there. Then a 5-speaker
+    sub-phase (WSJ0-5mix): ``five_mixtures`` of ``five_batch``, speaker-wise
+    through the host assignment (eager from its first update), permutations
+    equal to scipy's on the same float64 matrices."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import _native
+    from torchmetrics_tpu_torch.functional.audio import permutation_invariant_training, pit_permutate
+    from torchmetrics_tpu_torch.functional.audio import pit as pit_mod
+    from torchmetrics_tpu_torch.functional.audio import scale_invariant_signal_distortion_ratio as si_sdr
+    from torchmetrics_tpu_torch.functional.audio import sdr as sdr_mod
+
+    label = "wsj0_2mix_separation"
+    n = int(seconds * fs)
+
+    def metrics(device, jit=True):
+        return {"pit_speaker_wise": tm.PermutationInvariantTraining(si_sdr, device=device, jit=jit),
+                "pit_permutation_wise": tm.PermutationInvariantTraining(si_sdr, mode="permutation-wise",
+                                                                        device=device, jit=jit),
+                "sdr": tm.SignalDistortionRatio(filter_length=512, device=device, jit=jit),
+                "sa_sdr": tm.SourceAggregatedSignalDistortionRatio(device=device, jit=jit),
+                "si_snr": tm.ScaleInvariantSignalNoiseRatio(device=device, jit=jit),
+                "snr": tm.SignalNoiseRatio(device=device, jit=jit)}
+
+    routes = {"default": metrics(dev), "eager": metrics(dev, jit=False)}
+    cpu = metrics("cpu")
+    times = {r: {k: [] for k in routes[r]} for r in routes}
+    reads, setup_s, pit_ms = {}, 0.0, []
+    worst = {"si_sdr_db": 0.0, "sdr_db": 0.0}
+    g = torch.Generator(device=dev).manual_seed(153)
+    _zero_kernel_counts()
+    _peak_reset(dev)
+    for i, start in enumerate(range(0, mixtures, batch)):
+        b = min(batch, mixtures - start)
+        t0 = time.perf_counter()
+        preds, target = _mixtures(g, dev, b, 2, n, fs)
+        _sync(dev)
+        setup_s += time.perf_counter() - t0
+        _sync(dev)
+        t0 = time.perf_counter()
+        best, perm = permutation_invariant_training(preds, target, si_sdr)
+        est = pit_permutate(preds, perm)
+        _sync(dev)
+        pit_ms.append((time.perf_counter() - t0) * 1e3)
+        best64, perm64, _ = _exhaustive64(preds, target)
+        if not torch.equal(perm, perm64):
+            raise AssertionError(f"{label}: update {i}: PIT's permutations differ from the float64 search")
+        worst["si_sdr_db"] = max(worst["si_sdr_db"], float((best.double() - best64).abs().max()))
+        args = {"pit_speaker_wise": (preds, target), "pit_permutation_wise": (preds, target)}
+        for route, ms in routes.items():
+            for name, m in ms.items():
+                a = args.get(name, (est, target))
+                if i == 2 and route == "default" and dev.type == "cuda":
+                    _, reads[name], _ = count_host_reads(lambda m=m, a=a: m.update(*a))
+                    continue
+                times[route][name].append(_timed_update(dev, m, *a))
+        if start < check:
+            worst["sdr_db"] = max(worst["sdr_db"], float(
+                (sdr_mod.signal_distortion_ratio(est, target).double() - _sdr64(est, target)).abs().max()))
+            for name, m in cpu.items():
+                m.update(*(x.cpu() for x in args.get(name, (est, target))))
+            if start + b >= check:
+                for name, m in cpu.items():
+                    got, want = _mean_state(routes["default"][name]), _mean_state(m)
+                    tol = SDR_CPU_DB if name == "sdr" else SNR_CPU_RTOL * abs(want)
+                    if not abs(got - want) <= tol or float(routes["default"][name].total) != float(m.total):
+                        raise AssertionError(f"{label}: {name} {got} against {want} on the CPU")
+    if worst["si_sdr_db"] > SEP_SI_SDR_DB or worst["sdr_db"] > SEP_SDR_DB:
+        raise AssertionError(f"{label}: {worst} dB from float64 (limits {SEP_SI_SDR_DB}, {SEP_SDR_DB})")
+    peak = _peak_mb(dev)
+    values = {name: float(m.compute()) for name, m in routes["default"].items()}
+    for name, m in routes["eager"].items():
+        if abs(float(m.compute()) - values[name]) > 1e-5 * max(1.0, abs(values[name])):
+            raise AssertionError(f"{label}: {name} eager {float(m.compute())} against {values[name]}")
+    captures = {name: len(m._update_graphs) for name, m in routes["default"].items()}
+    if dev.type == "cuda" and (captures["sdr"] or not all(v for k, v in captures.items() if k != "sdr")):
+        raise AssertionError(f"{label}: captures {captures}: every update but SDR's should replay a graph")
+    # SDR's solve alone: the (batch, 2) Toeplitz systems of 512 of a full update
+    preds, target = _mixtures(g, dev, batch, 2, n, fs)
+    r_0, rhs = sdr_mod._compute_autocorr_crosscorr(target, preds, 512)
+    r = sdr_mod._symmetric_toeplitz(r_0)
+    solve_ms = []
+    for _ in range(5):
+        _sync(dev)
+        t0 = time.perf_counter()
+        torch.linalg.solve_ex(r, rhs[..., None], check_errors=False)
+        _sync(dev)
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # the 5-speaker sub-phase: speaker-wise through the host assignment
+    five = tm.PermutationInvariantTraining(si_sdr, device=dev)
+    five_ms, five_reads, mismatches = [], None, 0
+    for i, start in enumerate(range(0, five_mixtures, five_batch)):
+        preds, target = _mixtures(g, dev, min(five_batch, five_mixtures - start), 5, n, fs)
+        matrix = pit_mod._pair_metric_matrix(preds, target, si_sdr).double().cpu().numpy()
+        _, perm = permutation_invariant_training(preds, target, si_sdr)
+        want = [_native.linear_sum_assignment_plain(-mat)[1] for mat in matrix]
+        mismatches += int(sum(not (perm[k].cpu().numpy() == w).all() for k, w in enumerate(want)))
+        if i == 1 and dev.type == "cuda":
+            _, five_reads, _ = count_host_reads(lambda: five.update(preds, target))
+            continue
+        five_ms.append(_timed_update(dev, five, preds, target))
+    if mismatches:
+        raise AssertionError(f"{label}: {mismatches} 5-speaker permutations differ from scipy's assignment")
+    if five._use_jit or five._update_graphs:
+        raise AssertionError(f"{label}: the 5-speaker PIT should update eagerly by declaration")
+    return {"phase": "a11c", "path": label, "mixtures": mixtures, "batch": batch, "samples": n, "fs": fs,
+            "setup_s": setup_s,
+            "ms_per_update": {r: {k: statistics.median(v) for k, v in t.items()} for r, t in times.items()},
+            "pit_and_permutate_ms": statistics.median(pit_ms), "host_syncs_per_update": reads or None,
+            "captures": captures, "sdr_solve_ms": statistics.median(solve_ms),
+            "sdr_systems": [*r.shape[:-2], 512], "peak_mb": peak, "values": values,
+            "worst_db_from_float64": worst, "cpu_check_mixtures": check,
+            "five_speakers": {"mixtures": five_mixtures, "batch": five_batch,
+                              "ms_per_update": statistics.median(five_ms), "host_syncs_per_update": five_reads,
+                              "value": float(five.compute()), "permutations_equal_scipy": True},
+            "card": card}
+
+
+def _degraded(g, dev, clean, fs: int, jump_every: int = 5, first: int = 0):
+    """``clean`` (B, n) delayed by 1-8 ms plus white noise at -5 to 20 dB
+    SNR; every ``jump_every``-th clip (by index from ``first``) is delayed
+    20 ms more from mid-clip and carries a 150 ms transient 20 dB above the
+    speech at 40% of the clip (PESQ's bad intervals: the second pass)."""
+    import torch
+
+    out = torch.zeros_like(clean)
+    n = clean.shape[-1]
+    rms = clean.square().mean(-1, keepdim=True).sqrt()
+    delays = (1 + 7 * torch.rand(len(clean), generator=g, device=dev)).mul(fs / 1000).long().tolist()
+    burst = slice(int(0.4 * n), int(0.4 * n) + int(0.150 * fs))
+    for k, d in enumerate(delays):
+        out[k, d:] = clean[k, :n - d]
+        if (first + k) % jump_every == jump_every - 1:
+            half, d1 = n // 2, d + int(0.020 * fs)
+            out[k, half:] = clean[k, half - d1:n - d1]
+            out[k, burst] += 10.0 * rms[k] * torch.randn(burst.stop - burst.start, generator=g, device=dev)
+    snr = -5.0 + 25.0 * torch.rand(len(clean), 1, generator=g, device=dev)
+    return out + rms * 10 ** (-snr / 20) * torch.randn(clean.shape, generator=g, device=dev)
+
+
+def run_dns_enhancement(card: str, dev, clips: int = 150, batch: int = 10, seconds: float = 10.0,
+                        fs: int = 16000, check: int = 8) -> dict:
+    """Path ``dns_enhancement``: the DNS Challenge's synthetic no-reverb test
+    set as it is scored: ``clips`` seeded clips of ``seconds`` at ``fs``,
+    ``batch`` an update, the degraded ones noisy (-5 to 20 dB), delayed and
+    every fifth with a delay jump mid-clip: PESQ wb and nb, STOI, extended
+    STOI, SI-SDR and SNR: ms a clip per metric, PESQ's host part (input
+    filter, alignment, bad-interval search) apart from the rest, its model
+    passes and second passes, host reads an update, peak MB. Checks: PESQ's
+    decisions on the first ``check`` clips equal a device="cpu" run's and
+    its MOS within PESQ_MOS_ATOL; the two ITU anchors on the card; STOI and
+    extended STOI there within STOI_CPU_ATOL of the CPU."""
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.audio import pesq as pesq_mod
+    from torchmetrics_tpu_torch.functional.audio import short_time_objective_intelligibility as stoi
+
+    label = "dns_enhancement"
+    n = int(seconds * fs)
+    metrics = {"pesq_wb": tm.PerceptualEvaluationSpeechQuality(fs, "wb", implementation="native", device=dev),
+               "pesq_nb": tm.PerceptualEvaluationSpeechQuality(fs, "nb", implementation="native", device=dev),
+               "stoi": tm.ShortTimeObjectiveIntelligibility(fs, device=dev),
+               "estoi": tm.ShortTimeObjectiveIntelligibility(fs, extended=True, device=dev),
+               "si_sdr": tm.ScaleInvariantSignalDistortionRatio(device=dev),
+               "snr": tm.SignalNoiseRatio(device=dev)}
+    times = {k: [] for k in metrics}
+    reads, setup_s = {}, 0.0
+    passes, calls = [], []
+    real_pass, real_batch = pesq_mod._model_pass, pesq_mod._pesq_batch
+
+    def counted_pass(ref, deg, fs_):
+        passes.append(ref.shape[0])
+        return real_pass(ref, deg, fs_)
+
+    def counted_batch(*args):
+        calls.append(1)
+        return real_batch(*args)
+
+    g = torch.Generator(device=dev).manual_seed(154)
+    _zero_kernel_counts()
+    _peak_reset(dev)
+    first = None
+    pesq_mod._model_pass, pesq_mod._pesq_batch = counted_pass, counted_batch
+    try:
+        with _timed_calls(((pesq_mod, "_host_alignment"), (pesq_mod, "_realign_bad"))) as host:
+            for i, start in enumerate(range(0, clips, batch)):
+                t0 = time.perf_counter()
+                clean = _speech_like(g, dev, (min(batch, clips - start),), n, fs)
+                deg = _degraded(g, dev, clean, fs, first=start)
+                _sync(dev)
+                setup_s += time.perf_counter() - t0
+                if first is None:
+                    first = (deg[:check].clone(), clean[:check].clone())
+                for name, m in metrics.items():
+                    if i == 1 and dev.type == "cuda":
+                        _, reads[name], _ = count_host_reads(lambda m=m: m.update(deg, clean))
+                        continue
+                    times[name].append(_timed_update(dev, m, deg, clean) / len(clean))
+            host_s = {k: v[1] for k, v in host.items()}
+    finally:
+        pesq_mod._model_pass, pesq_mod._pesq_batch = real_pass, real_batch
+    peak = _peak_mb(dev)
+    values = {name: float(m.compute()) for name, m in metrics.items()}
+    second_passes = len(passes) - len(calls)
+    if not second_passes:
+        raise AssertionError(f"{label}: no PESQ update ran its second pass")
+
+    # checks on the first clips: PESQ's decisions and MOS, STOI, against the CPU
+    deg, clean = first
+    ref_np, deg_np = clean.cpu().numpy(), deg.cpu().numpy()
+    pesq_check = {}
+    for mode in ("wb", "nb"):
+        s_card, rec_card = pesq_mod._pesq_batch(ref_np, deg_np, fs, mode, dev)
+        s_cpu, rec_cpu = pesq_mod._pesq_batch(ref_np, deg_np, fs, mode, torch.device("cpu"))
+        for key in ("regions", "bad", "second_pass"):
+            if rec_card[key] != rec_cpu[key]:
+                raise AssertionError(f"{label}: PESQ {mode} {key} differ between the card and the CPU")
+        if not np.array_equal(rec_card["active"], rec_cpu["active"]):
+            raise AssertionError(f"{label}: PESQ {mode} active frames differ between the card and the CPU")
+        mos = [[pesq_mod._calibrated_mos(float(v), mode) for v in s.cpu().tolist()] for s in (s_card, s_cpu)]
+        err = float(np.max(np.abs(np.subtract(*mos))))
+        if err > PESQ_MOS_ATOL:
+            raise AssertionError(f"{label}: PESQ {mode} MOS {err} from the CPU run")
+        pesq_check[mode] = {"mos_max_abs_err": err, "bad_intervals": sum(map(len, rec_card["bad"])),
+                            "second_pass": rec_card["second_pass"]}
+    anchors = {}
+    for (mode, afs), want in PESQ_ANCHORS.items():
+        torch.manual_seed(1)
+        a_preds, a_target = torch.randn(8000).to(dev), torch.randn(8000).to(dev)
+        got = float(tm.functional.audio.perceptual_evaluation_speech_quality(a_preds, a_target, afs, mode,
+                                                                             implementation="native"))
+        if abs(got - want) > PESQ_ANCHOR_ATOL:
+            raise AssertionError(f"{label}: ITU anchor {mode} {afs}: {got} against {want}")
+        anchors[f"{mode}_{afs}"] = got
+    stoi_err = {}
+    for extended in (False, True):
+        got = stoi(deg, clean, fs, extended)
+        want = stoi(deg.cpu(), clean.cpu(), fs, extended)
+        stoi_err["estoi" if extended else "stoi"] = err = float((got.cpu() - want).abs().max())
+        if err > STOI_CPU_ATOL:
+            raise AssertionError(f"{label}: STOI (extended={extended}) {err} from the CPU run")
+    pesq_clip_ms = {k: statistics.median(times[k]) for k in ("pesq_wb", "pesq_nb")}
+    return {"phase": "a11c", "path": label, "clips": clips, "batch": batch, "samples": n, "fs": fs,
+            "setup_s": setup_s, "ms_per_clip": {k: statistics.median(v) for k, v in times.items()},
+            "pesq_host_s": host_s, "pesq_host_ms_per_clip": {
+                "alignment": host_s["_host_alignment"] * 1e3 / (2 * clips),
+                "bad_interval_search": host_s["_realign_bad"] * 1e3 / (2 * clips)},
+            "pesq_rest_ms_per_clip": {  # the model passes on the card, the copies and the aggregation
+                k: statistics.median(times[k]) - sum(host_s.values()) * 1e3 / (2 * clips) for k in pesq_clip_ms},
+            "pesq_model_passes": len(passes), "pesq_second_passes": second_passes,
+            "pesq_second_pass_samples": sum(passes) - clips * 2,
+            "pesq_clip_ms_both_modes": sum(pesq_clip_ms.values()),
+            "host_syncs_per_update": reads or None, "peak_mb": peak, "values": values,
+            "checks": {"pesq_first_clips": pesq_check, "itu_anchors_on_card": anchors,
+                       "stoi_max_abs_err_cpu": stoi_err, "clips": check},
+            "card": card}
+
+
+def _reverberant(g, dev, clean, fs: int, first: int = 0):
+    """``clean`` (B, n) convolved with exponentially decaying noise impulse
+    responses of RT60 0.25, 0.5 and 0.7 s in turn (by clip index from
+    ``first``), a unit direct path, the convolution by FFT."""
+    import torch
+
+    b, n = clean.shape
+    length = int(max(RT60_S) * fs)
+    t = torch.arange(length, device=dev, dtype=torch.float32) / fs
+    rt60 = torch.tensor([RT60_S[(first + k) % len(RT60_S)] for k in range(b)], device=dev)[:, None]
+    ir = torch.randn(b, length, generator=g, device=dev) * torch.exp(-6.9078 * t / rt60) * 0.1
+    ir[:, 0] = 1.0
+    size = 1 << (n + length - 1).bit_length()
+    return torch.fft.irfft(torch.fft.rfft(clean, size) * torch.fft.rfft(ir, size), size)[:, :n].contiguous()
+
+
+def run_reverb_srmr(card: str, dev, clips: int = 200, batch: int = 8, seconds: float = 8.0, fs: int = 16000,
+                    check: int = 8) -> dict:
+    """Path ``reverb_srmr``: SRMR as the REVERB Challenge scores
+    dereverberated speech: ``clips`` seeded reverberant clips of ``seconds``
+    at ``fs`` (RT60 0.25, 0.5, 0.7 s), ``batch`` an update, at the defaults,
+    with norm=True and with fast=True: ms an update and peak MB of each;
+    every peak must stay under the (B, C, M, S, W) frames the JAX package
+    builds and the port does not. Checks the first ``check``
+    clips against device="cpu" within SRMR_CPU_RTOL with k* equal."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.audio import srmr as srmr_mod
+
+    label = "reverb_srmr"
+    n = int(seconds * fs)
+    configs = {"default": {}, "norm": {"norm": True}, "fast": {"fast": True}}
+    metrics = {k: tm.SpeechReverberationModulationEnergyRatio(fs, **kw, device=dev) for k, kw in configs.items()}
+    times = {k: [] for k in configs}
+    peaks = {k: 0.0 for k in configs}
+    setup_s, first = 0.0, None
+    g = torch.Generator(device=dev).manual_seed(155)
+    _zero_kernel_counts()
+    for start in range(0, clips, batch):
+        t0 = time.perf_counter()
+        sig = _reverberant(g, dev, _speech_like(g, dev, (min(batch, clips - start),), n, fs), fs, first=start)
+        _sync(dev)
+        setup_s += time.perf_counter() - t0
+        if first is None:
+            first = sig[:check].clone()
+        for name, m in metrics.items():
+            _peak_reset(dev)
+            base = torch.cuda.memory_allocated() / 2**20 if dev.type == "cuda" else 0.0
+            times[name].append(_timed_update(dev, m, sig))
+            peak = _peak_mb(dev)
+            peaks[name] = max(peaks[name], (peak or 0.0) - base)
+    values = {name: float(m.compute()) for name, m in metrics.items()}
+    win, hop = int(0.256 * fs), int(0.064 * fs)
+    frames_mb = batch * 23 * 8 * ((n - win) // hop + 1) * win * 4 / 2**20
+    if dev.type == "cuda" and not max(peaks.values()) < frames_mb:
+        raise AssertionError(f"{label}: peak {peaks} MB: the framed energies seem to build the frames")
+    checks = {}
+    for name, kw in configs.items():
+        max_cf = 30.0 if kw.get("norm") else 128.0
+        args = (fs, 23, 125.0, 4.0, max_cf, kw.get("norm", False), kw.get("fast", False))
+        s_card, rec_card = srmr_mod._srmr_batch(first, *args)
+        s_cpu, rec_cpu = srmr_mod._srmr_batch(first.cpu(), *args)
+        err = float(((s_card.cpu() - s_cpu).abs() / s_cpu.abs()).max())
+        if err > SRMR_CPU_RTOL or not torch.equal(rec_card["kstar"].cpu(), rec_cpu["kstar"]):
+            raise AssertionError(f"{label}: {name}: {err} from the CPU run, k* {rec_card['kstar'].tolist()} "
+                                 f"against {rec_cpu['kstar'].tolist()}")
+        perc = rec_cpu["perc_cum"]
+        margin = float((perc - 90.0).abs().min())
+        checks[name] = {"max_rel_err": err, "kstar": rec_card["kstar"].tolist(), "perc_cum_min_gap_to_90": margin}
+    return {"phase": "a11c", "path": label, "clips": clips, "batch": batch, "samples": n, "fs": fs,
+            "rt60_s": list(RT60_S), "setup_s": setup_s,
+            "ms_per_update": {k: statistics.median(v) for k, v in times.items()},
+            "peak_mb_over_inputs": peaks, "frames_not_built_mb": frames_mb,
+            "values": values, "checks_first_clips": checks, "card": card}
+
+
+def _librispeech_like(utterances: int, words: int, vocab: int, seed: int = 156) -> tuple:
+    """(hypotheses, references): ``utterances`` references of ``words``
+    words in all over a ``vocab``-word vocabulary of Zipf frequencies, and
+    hypotheses with about 5% substitutions, 5% deletions and 5% insertions."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz'"))
+    vocabulary = np.array(["".join(rng.choice(letters, k)) for k in rng.randint(2, 11, vocab)])
+    lengths = np.maximum(1, np.round(rng.gamma(2.5, 8.0, utterances) * words / (2.5 * 8.0 * utterances))).astype(int)
+    while lengths.sum() != words:
+        k = rng.randint(utterances)
+        lengths[k] = max(1, lengths[k] + (1 if lengths.sum() < words else -1))
+    p = 1.0 / np.arange(1, vocab + 1)
+    ids = rng.choice(vocab, words, p=p / p.sum())
+    refs, hyps, pos = [], [], 0
+    for length in lengths:
+        ref = vocabulary[ids[pos:pos + length]]
+        pos += length
+        r = rng.rand(length)  # below 0.05 a substitution, from 0.05 to 0.10 a deletion
+        hyp = list(np.where(r < 0.05, vocabulary[rng.randint(0, vocab, length)], ref)[(r < 0.05) | (r >= 0.10)])
+        inserts = rng.rand(len(hyp)) < 0.05
+        for k in np.flatnonzero(inserts)[::-1]:
+            hyp.insert(k + 1, vocabulary[rng.randint(vocab)])
+        refs.append(" ".join(ref))
+        hyps.append(" ".join(hyp))
+    return hyps, refs
+
+
+def run_librispeech_wer(card: str, dev, utterances: int = 2620, words: int = 52_576, vocab: int = 20_000,
+                        batch: int = 32, check: int = 200) -> dict:
+    """Path ``librispeech_wer``: WER, CER, MER, WIL and WIP over
+    LibriSpeech test-clean's 2,620 utterances and 52,576 reference words
+    (seeded over a 20,000-word vocabulary, about 5% substitutions,
+    deletions and insertions), ``batch`` utterances an update: ms an
+    update, split between the host library's call and the rest. Checks the
+    states after the first ``check`` utterances bitwise against device="cpu"
+    and against the plain Levenshtein counts
+    (edit_distance_counts_batch_plain)."""
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import _native
+
+    label = "librispeech_wer"
+    t0 = time.perf_counter()
+    hyps, refs = _librispeech_like(utterances, words, vocab)
+    setup_s = time.perf_counter() - t0
+    names = ("WordErrorRate", "CharErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved")
+    _zero_kernel_counts()
+
+    def drive(device, count):
+        ms = {name: getattr(tm, name)(device=device) for name in names}
+        times = {name: [] for name in names}
+        for start in range(0, count, batch):
+            stop = min(start + batch, count)
+            for name, m in ms.items():
+                times[name].append(_timed_update(dev, m, hyps[start:stop], refs[start:stop]))
+        return ms, times
+
+    with _timed_calls(((_native, "edit_distance_batch"),)) as native:
+        metrics, times = drive(dev, utterances)
+    native_calls, native_s = native["edit_distance_batch"]
+    updates = len(times["WordErrorRate"])
+    if native_calls != len(names) * updates:
+        raise AssertionError(f"{label}: {native_calls} library calls over {updates} updates of {len(names)} metrics")
+    values = {name: float(m.compute()) for name, m in metrics.items()}
+    # the first utterances: card against the CPU and against the plain counts, bitwise
+    card_m, _ = drive(dev, check)
+    cpu_m, _ = drive("cpu", check)
+    words_h, words_r = [h.split() for h in hyps[:check]], [r.split() for r in refs[:check]]
+    wc = _native.edit_distance_counts_batch_plain(words_h, words_r)
+    cc = _native.edit_distance_counts_batch_plain([list(h) for h in hyps[:check]], [list(r) for r in refs[:check]])
+    w_err, c_err = int(wc[:, :3].sum()), int(cc[:, :3].sum())
+    longest = sum(max(len(a), len(b)) for a, b in zip(words_h, words_r))
+    n_ref, n_hyp = sum(map(len, words_r)), sum(map(len, words_h))
+    want = {"WordErrorRate": {"errors": w_err, "total": n_ref},
+            "CharErrorRate": {"errors": c_err, "total": sum(map(len, refs[:check]))},
+            "MatchErrorRate": {"errors": w_err, "total": longest},
+            "WordInfoLost": {"errors": w_err - longest, "target_total": n_ref, "preds_total": n_hyp},
+            "WordInfoPreserved": {"errors": w_err - longest, "target_total": n_ref, "preds_total": n_hyp}}
+    for name, states in want.items():
+        for state, value in states.items():
+            a, b = getattr(card_m[name], state).cpu(), getattr(cpu_m[name], state)
+            if a.dtype != torch.float32 or not torch.equal(a, b) or not torch.equal(b, torch.tensor(float(value))):
+                raise AssertionError(f"{label}: {name}.{state}: card {a}, cpu {b}, plain counts {value}")
+    total_ms = sum(sum(t) for t in times.values())
+    return {"phase": "a11c", "path": label, "utterances": utterances, "reference_words": words, "vocabulary": vocab,
+            "batch": batch, "updates": updates, "setup_s": setup_s,
+            "ms_per_update": {k: statistics.median(v) for k, v in times.items()},
+            "library_ms_per_update": native_s * 1e3 / native_calls, "rest_ms_per_update":
+                (total_ms - native_s * 1e3) / native_calls,
+            "word_edits": int(np.sum(_native.edit_distance_batch([h.split() for h in hyps],
+                                                                 [r.split() for r in refs]))),
+            "values": values, "states_bitwise": {"utterances": check, "against": ["device='cpu'", "plain counts"]},
+            "card": card}
+
+
+def run_a11c_paths(card: str, dev) -> tuple:
+    """The four A11.c paths; (records, bincount launches over them, which must be none)."""
+    records = []
+    for run in (run_wsj0_2mix, run_dns_enhancement, run_reverb_srmr, run_librispeech_wer):
+        t0 = time.perf_counter()
+        record = run(card, dev)
+        record["seconds"] = time.perf_counter() - t0
+        record["kernel_launches"] = _kernel_counts()
+        records.append(record)
+    launches = sum(r["kernel_launches"]["weighted_bincount"] for r in records)
+    if launches or any(r["kernel_launches"]["tdigest_compress"] for r in records):
+        raise AssertionError(f"a11c: the audio and speech-recognition paths launched a kernel: "
+                             f"{[r['kernel_launches'] for r in records]}")
+    return records, launches
+
+
+# ---------------------------------------------------------------------------
 # phase dist_sync: state sync over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -6106,6 +6704,10 @@ def main() -> int:
     for record in a11b_records:
         emit(record)
     launches += a11b_launches
+    a11c_records, a11c_launches = run_a11c_paths(card, dev)
+    for record in a11c_records:
+        emit(record)
+    launches += a11c_launches
     for record in run_model_paths(card, dev):
         emit(record)
     record, dist_launches = dist_sync(card)

@@ -48,7 +48,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "'functional.image.perceptual_path_length', '_native', 'detection', 'detection.iou', "
         "'detection.mean_ap', 'detection.panoptic_qualities', 'functional.detection', "
         "'functional.detection.box_ops', 'functional.detection.coco_eval', "
-        "'functional.detection.panoptic_quality']\n"
+        "'functional.detection.panoptic_quality', 'audio', 'audio.metrics', 'functional.audio', "
+        "'functional.audio.snr', 'functional.audio.sdr', 'functional.audio.pit', 'functional.audio.stoi', "
+        "'functional.audio.srmr', 'functional.audio.pesq', 'text', 'text.asr', 'functional.text', "
+        "'functional.text.asr', 'functional.text.helper']\n"
         "missing = [m for m in new if 'torchmetrics_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
@@ -70,7 +73,9 @@ def _imported_modules(path: pathlib.Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bincount_ablation.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / name for name in ("chip_smoke.py",
+                                                                                       "bincount_ablation.py",
+                                                                                       "sdr_solve_probe.py")],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     for name in _imported_modules(path):

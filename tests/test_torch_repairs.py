@@ -93,10 +93,10 @@ def test_functional_all_is_a_subset_of_the_jax_functional():
 
 def test_root_lacks_only_the_names_of_later_slices():
     missing = set(J.__all__) - set(P.__all__)
-    assert len(missing) == 30
-    # A11.c's and later domains, A14's observability, A15's version; A12's
-    # sketches and tenants, A11.a's clustering and nominal classes and
-    # A11.b's detection classes are in
+    assert len(missing) == 15
+    # A11.d's domains, A14's observability, A15's version; A12's sketches and
+    # tenants, A11.a's clustering and nominal classes, A11.b's detection
+    # classes and A11.c's audio and speech-recognition classes are in
     later = {"observability", "__version__"}
     assert later <= missing
     a12 = {"SketchReduction", "StackedMerge", "TenantStack", "ApproxAUROC", "ApproxCalibrationError",
@@ -110,13 +110,19 @@ def test_root_lacks_only_the_names_of_later_slices():
     a11b = {"IntersectionOverUnion", "GeneralizedIntersectionOverUnion", "DistanceIntersectionOverUnion",
             "CompleteIntersectionOverUnion", "MeanAveragePrecision", "PanopticQuality", "ModifiedPanopticQuality"}
     assert not (a11b & missing)
+    a11c = {"ComplexScaleInvariantSignalNoiseRatio", "PerceptualEvaluationSpeechQuality",
+            "PermutationInvariantTraining", "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",
+            "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio", "SignalNoiseRatio", "SourceAggregatedSignalDistortionRatio",
+            "SpeechReverberationModulationEnergyRatio", "CharErrorRate", "MatchErrorRate", "WordErrorRate",
+            "WordInfoLost", "WordInfoPreserved"}
+    assert not (a11c & missing)
     image = set(importlib.import_module("torchmetrics_tpu.image").__all__)
     assert not (missing & image)
 
 
 def test_functional_lacks_only_the_names_of_later_slices():
     missing = set(JF.__all__) - set(PF.__all__)
-    assert len(missing) == 22
+    assert len(missing) == 10
     a11a = {"clustering", "nominal", "pairwise", "segmentation", "cramers_v", "cramers_v_matrix", "fleiss_kappa",
             "pearsons_contingency_coefficient", "pearsons_contingency_coefficient_matrix", "theils_u",
             "theils_u_matrix", "tschuprows_t", "tschuprows_t_matrix", "pairwise_cosine_similarity",
@@ -124,12 +130,21 @@ def test_functional_lacks_only_the_names_of_later_slices():
             "pairwise_minkowski_distance"}
     assert not (a11a & missing)
     assert not ({"detection", "panoptic_quality"} & missing)
-    assert {"audio", "text", "multimodal"} <= missing
+    a11c = {"audio", "permutation_invariant_training", "pit_permutate", "scale_invariant_signal_distortion_ratio",
+            "scale_invariant_signal_noise_ratio", "signal_distortion_ratio", "signal_noise_ratio", "char_error_rate",
+            "match_error_rate", "word_error_rate", "word_information_lost", "word_information_preserved"}
+    assert not (a11c & missing)
+    assert {"text", "multimodal"} <= missing
 
 
 def test_image_lists_equal_the_jax_lists():
     assert sorted(P.image.__all__) == sorted(J.image.__all__)
     assert sorted(PF.image.__all__) == sorted(JF.image.__all__)
+
+
+def test_audio_lists_equal_the_jax_lists():
+    assert sorted(P.audio.__all__) == sorted(J.audio.__all__)
+    assert sorted(PF.audio.__all__) == sorted(JF.audio.__all__)
 
 
 def test_names_left_out_of_all_stay_importable_from_their_subpackages():

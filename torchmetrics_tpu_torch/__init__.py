@@ -15,6 +15,7 @@ are not exported, as in the JAX root.
 from . import functional
 from .aggregation import (CatMetric, DecayedMean, DecayedSum, MaxMetric, MeanMetric, MinMetric, RunningMean,
                           RunningSum, SumMetric, WindowedMax, WindowedMean, WindowedMin, WindowedSum)
+from .audio import *  # noqa: F401,F403
 from .buffers import CatBuffer, CatLayoutError
 from .classification import *  # noqa: F401,F403
 from .clustering import *  # noqa: F401,F403
@@ -36,6 +37,7 @@ from .retrieval import (RetrievalAUROC, RetrievalFallOut, RetrievalHitRate, Retr
 from .sketches import ApproxAUROC, ApproxCalibrationError, ApproxFrequency, ApproxQuantile
 from .state import MetricState, StackedMerge
 from .streaming import BufferedMetric, BufferedMetricCollection
+from .text import *  # noqa: F401,F403
 from .utils.data import label_results
 from .wrappers import (BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetric, MultioutputWrapper,
                        MultitaskWrapper, Running)
@@ -60,10 +62,12 @@ __all__ = [
     "CatBuffer",
     "CatLayoutError",
     "CatMetric",
+    "CharErrorRate",
     "ClasswiseWrapper",
     "CohenKappa",
     "CompleteIntersectionOverUnion",
     "CompletenessScore",
+    "ComplexScaleInvariantSignalNoiseRatio",
     "CompositionalMetric",
     "ConcordanceCorrCoef",
     "ConfusionMatrix",
@@ -97,6 +101,7 @@ __all__ = [
     "KernelInceptionDistance",
     "LearnedPerceptualImagePatchSimilarity",
     "LogCoshError",
+    "MatchErrorRate",
     "MatthewsCorrCoef",
     "MaxMetric",
     "MeanAbsoluteError",
@@ -127,7 +132,9 @@ __all__ = [
     "PeakSignalNoiseRatioWithBlockedEffect",
     "PearsonCorrCoef",
     "PearsonsContingencyCoefficient",
+    "PerceptualEvaluationSpeechQuality",
     "PerceptualPathLength",
+    "PermutationInvariantTraining",
     "Precision",
     "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
@@ -154,8 +161,14 @@ __all__ = [
     "Running",
     "RunningMean",
     "RunningSum",
+    "ScaleInvariantSignalDistortionRatio",
+    "ScaleInvariantSignalNoiseRatio",
     "SensitivityAtSpecificity",
+    "ShortTimeObjectiveIntelligibility",
+    "SignalDistortionRatio",
+    "SignalNoiseRatio",
     "SketchReduction",
+    "SourceAggregatedSignalDistortionRatio",
     "SpatialCorrelationCoefficient",
     "SpatialDistortionIndex",
     "SpearmanCorrCoef",
@@ -163,6 +176,7 @@ __all__ = [
     "SpecificityAtSensitivity",
     "SpectralAngleMapper",
     "SpectralDistortionIndex",
+    "SpeechReverberationModulationEnergyRatio",
     "StackedMerge",
     "StatScores",
     "StructuralSimilarityIndexMeasure",
@@ -182,6 +196,9 @@ __all__ = [
     "WindowedMetric",
     "WindowedMin",
     "WindowedSum",
+    "WordErrorRate",
+    "WordInfoLost",
+    "WordInfoPreserved",
     "functional",
     "label_results",
 ]
