@@ -305,6 +305,43 @@ not 0 and no result line is printed:
      library's share; states bitwise against device="cpu" and the plain
      Levenshtein counts on the first 200 utterances.
 
+15. a11d (ROADMAP A11.d), after a11c: text and multimodal, no kernel on
+   their path (the bincount and the compress kernel must launch no time
+   there), the model metrics through stand-in encoders built here from
+   torch.nn at published widths with seeded weights (no pretrained files
+   can be had offline), each path's record printed as it ends:
+   - wmt14_translation: BLEU, SacreBLEU (13a), chrF, chrF++, TER, the
+     character EditDistance over newstest2014 en-de's 3,003 seeded segments
+     of 10-60 words (40,000-word Zipf vocabulary, 20% substitutions,
+     shifted spans), EED over the first 256 (its character DP is the
+     slowest host code), 64 an update: ms an update per metric; states
+     after the first 512 (EED 64) bitwise against device="cpu", corpus
+     scores against float64 formulas over the states;
+   - wmt14_bertscore_infolm: BERTScore (idf off and on) through a
+     roberta-large-wide stand-in and InfoLM (KL, Fisher-Rao, temperature
+     0.25) through a bert-base-wide masked LM, over the same 3,003 pairs in
+     chunks of 64: compute s split into encoder and the rest, peak MB; the
+     first chunk's matching and measures against float64 on the card,
+     target-chunked matching against dense, 8 pairs against device="cpu";
+   - cnndm_rouge_squad: ROUGE-1/2/L/Lsum (best) over the first 4,000 of
+     CNN/DailyMail test's 11,490 seeded highlights and SQuAD over v1.1
+     dev's 10,570 questions: ms an update, states after 512 bitwise
+     against device="cpu";
+   - wikitext_perplexity: Perplexity at GPT-2's 50,257 words over 280
+     sequences of 1,024 tokens, 8 an update (1.65 GB of logits), 5%
+     ignored, captured and eager: ms an update beside the byte bound, peak
+     MB; the value against float64 log_softmax, a probability input taking
+     the log branch, the first update against device="cpu";
+   - coco_clipscore_koniq_clipiqa: CLIPScore through a ViT-L/14-wide
+     stand-in over the first 2,500 of MS-COCO Karpathy test's 5,000 seeded
+     640 x 480 images with captions, 50 an update, image-image on the
+     first 500, and
+     CLIP-IQA (quality, sharpness, noisiness, brightness) through a
+     ViT-B/16-wide one over KonIQ-10k test's 2,015 images at 1024 x 768:
+     ms an image, peak MB; cosines and prompt softmaxes against float64 of
+     the same features, 2 images against device="cpu", and CLIPScore()
+     raising ModuleNotFoundError (no local files of its default model).
+
 The last lines are the native record, the kernels' record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -6186,6 +6223,868 @@ def run_a11c_paths(card: str, dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase a11d: text and multimodal (no kernel on the path)
+# ---------------------------------------------------------------------------
+
+A11D_RTOL = 1e-5  # float32 scores and measures against float64 of the same inputs
+
+
+def _word_id(word: str, vocab: int, first: int = 3) -> int:
+    """A word's id in a stand-in vocabulary: a CRC of its text (Python's str
+    hash changes between processes)."""
+    import zlib
+
+    return first + zlib.crc32(word.encode()) % (vocab - first)
+
+
+def _zipf_pool(rng, words, n: int):
+    """An endless iterator of words drawn with Zipf frequencies, ``n`` at a
+    time in one vectorised draw."""
+    import numpy as np
+
+    p = 1.0 / np.arange(1, len(words) + 1)
+    p /= p.sum()
+    while True:
+        yield from (str(w) for w in words[rng.choice(len(words), n, p=p)])
+
+
+def _wmt14_like(segments: int = 3003, vocab: int = 40_000, seed: int = 161) -> tuple:
+    """(hypotheses, references): newstest2014-like segments of 10-60 words
+    over a ``vocab``-word Zipf vocabulary (some capitalised words, numbers,
+    hyphens, commas, a full stop at the end), hypotheses with about 20% of
+    the words substituted, a shifted span in a third of them, and about 3%
+    deletions and insertions."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, k)) for k in rng.randint(2, 12, vocab)]
+    for i in rng.choice(vocab, vocab // 10, replace=False):
+        words[i] = words[i].capitalize()
+    for i in rng.choice(vocab, vocab // 50, replace=False):
+        words[i] = str(rng.randint(1, 10_000)) if rng.rand() < 0.5 else words[i] + "-" + words[(i + 1) % vocab]
+    words = np.array(words)
+    draw = _zipf_pool(rng, words, segments * 80)
+    hyps, refs = [], []
+    for length in rng.randint(10, 61, segments):
+        ref = [next(draw) for _ in range(length)]
+        hyp = [next(draw) if r < 0.2 else w for w, r in zip(ref, rng.rand(length))]
+        if rng.rand() < 1 / 3:
+            span = rng.randint(2, 7)
+            start = rng.randint(0, len(hyp) - span)
+            moved, rest = hyp[start:start + span], hyp[:start] + hyp[start + span:]
+            dest = rng.randint(0, len(rest) + 1)
+            hyp = rest[:dest] + moved + rest[dest:]
+        hyp = [w for w in hyp if rng.rand() >= 0.03]
+        for k in np.flatnonzero(rng.rand(len(hyp)) < 0.03)[::-1]:
+            hyp.insert(k + 1, next(draw))
+        for seq in (ref, hyp):
+            for k in np.flatnonzero(rng.rand(len(seq)) < 0.06):
+                seq[k] = seq[k] + ","
+        refs.append(" ".join(ref) + ".")
+        hyps.append(" ".join(hyp) + ".")
+    return hyps, refs
+
+
+def _states_of(metric) -> dict:
+    """Every state of a metric as a CPU tensor (cat states concatenated)."""
+    import torch
+
+    from torchmetrics_tpu_torch.utils.data import dim_zero_cat
+
+    out = {}
+    for name in metric._defaults:
+        value = getattr(metric, name)
+        if not isinstance(value, torch.Tensor):
+            value = dim_zero_cat(value) if len(value) else torch.zeros(0)
+        out[name] = value.detach().cpu().clone()
+    return out
+
+
+def _states_bitwise(label: str, card: dict, cpu: dict) -> int:
+    import torch
+
+    for name, want in cpu.items():
+        got = card[name]
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{label}: state {name} differs between the card and device='cpu'")
+    return len(cpu)
+
+
+def _drive_host_metrics(makers: dict, hyps, refs, dev, batch: int, check: int, shape_target) -> tuple:
+    """Each metric over all the segments on ``dev``, ``batch`` an update:
+    ({name: metric}, {name: [ms of each update]}); the states after the
+    first ``check`` segments must equal bitwise those of a device="cpu" run
+    over them."""
+    metrics = {name: make(dev) for name, make in makers.items()}
+    times = {name: [] for name in makers}
+    snapshots = {}
+    for start in range(0, len(hyps), batch):
+        h, r = hyps[start:start + batch], shape_target(refs[start:start + batch])
+        for name, m in metrics.items():
+            times[name].append(_timed_update(dev, m, h, r))
+        if start + batch == check:
+            snapshots = {name: _states_of(m) for name, m in metrics.items()}
+    for name, make in makers.items():
+        cpu = make("cpu")
+        for start in range(0, check, batch):
+            cpu.update(hyps[start:start + batch], shape_target(refs[start:start + batch]))
+        _states_bitwise(f"{name} (first {check})", snapshots[name], _states_of(cpu))
+    return metrics, times
+
+
+def _f64_bleu(st: dict, n_gram: int = 4) -> float:
+    import math
+
+    num, den = st["numerator"].double().tolist(), st["denominator"].double().tolist()
+    if min(num) == 0:
+        return 0.0
+    log_prec = sum(math.log(n / max(d, 1.0)) / n_gram for n, d in zip(num, den))
+    ratio = float(st["preds_len"]) / max(float(st["target_len"]), 1.0)
+    brevity = 1.0 if ratio > 1.0 else math.exp(1.0 - 1.0 / max(ratio, 1e-9))
+    return brevity * math.exp(log_prec)
+
+
+def _f64_chrf(st: dict, beta: float = 2.0) -> float:
+    m, p, r = (st[k].double() for k in ("matching", "pred_total", "ref_total"))
+    prec = (m / p.clamp(min=1.0)).where(p > 0, 0.0)
+    rec = (m / r.clamp(min=1.0)).where(r > 0, 0.0)
+    return float(((1 + beta**2) * prec * rec / (beta**2 * prec + rec).clamp(min=1e-16)).mean())
+
+
+def run_wmt14_translation(card: str, dev, segments: int = 3003, vocab: int = 40_000, batch: int = 64,
+                          check: int = 512, eed_segments: int = 256, eed_check: int = 64) -> dict:
+    """Path ``wmt14_translation``: BLEU (4-gram), SacreBLEU (13a), chrF and
+    chrF++, TER, EED and the character EditDistance over newstest2014 en-de's
+    3,003 seeded segments (``_wmt14_like``), ``batch`` an update: ms an
+    update per metric. EED runs over the first ``eed_segments`` (its
+    character DP is the slowest host code: a cut of depth). Checks each
+    metric's states after the first ``check`` segments (``eed_check`` for
+    EED) bitwise against device="cpu", and the corpus scores against a
+    float64 formula over the states."""
+    import numpy as np
+
+    import torchmetrics_tpu_torch as tm
+
+    label = "wmt14_translation"
+    t0 = time.perf_counter()
+    hyps, refs = _wmt14_like(segments, vocab)
+    setup_s = time.perf_counter() - t0
+    _zero_kernel_counts()
+    listed = lambda rs: [[r] for r in rs]  # noqa: E731  (one reference a segment, as a list)
+    plain = lambda rs: list(rs)  # noqa: E731
+    makers = {
+        "BLEUScore": lambda d: tm.BLEUScore(n_gram=4, device=d),
+        "SacreBLEUScore": lambda d: tm.SacreBLEUScore(tokenize="13a", device=d),
+        "CHRFScore_chrF": lambda d: tm.CHRFScore(n_word_order=0, device=d),
+        "CHRFScore_chrF++": lambda d: tm.CHRFScore(n_word_order=2, device=d),
+        "TranslationEditRate": lambda d: tm.TranslationEditRate(device=d),
+    }
+    metrics, times = _drive_host_metrics(makers, hyps, refs, dev, batch, check, listed)
+    edit_metrics, edit_times = _drive_host_metrics(
+        {"EditDistance": lambda d: tm.EditDistance(device=d)}, hyps, refs, dev, batch, check, plain)
+    eed_metrics, eed_times = _drive_host_metrics(
+        {"ExtendedEditDistance": lambda d: tm.ExtendedEditDistance(device=d)}, hyps[:eed_segments],
+        refs[:eed_segments], dev, batch, eed_check, listed)
+    metrics.update(edit_metrics)
+    metrics.update(eed_metrics)
+    times.update(edit_times)
+    times.update(eed_times)
+    values = {name: float(m.compute()) for name, m in metrics.items()}
+    states = {name: _states_of(m) for name, m in metrics.items()}
+    want = {
+        "BLEUScore": _f64_bleu(states["BLEUScore"]),
+        "SacreBLEUScore": _f64_bleu(states["SacreBLEUScore"]),
+        "CHRFScore_chrF": _f64_chrf(states["CHRFScore_chrF"]),
+        "CHRFScore_chrF++": _f64_chrf(states["CHRFScore_chrF++"]),
+        "TranslationEditRate": float(states["TranslationEditRate"]["total_num_edits"].double()
+                                     / states["TranslationEditRate"]["total_tgt_length"].double()),
+        "EditDistance": float(states["EditDistance"]["edit_scores_list"].double().mean()),
+        "ExtendedEditDistance": float(states["ExtendedEditDistance"]["sentence_eed"].double().mean()),
+    }
+    errors = {name: _hold_f64(label, name, values[name], want[name], A11D_RTOL) for name in want}
+    return {"phase": "a11d", "path": label, "segments": segments, "vocabulary": vocab, "batch": batch,
+            "eed_segments": eed_segments, "reduced": f"EED over the first {eed_segments} of {segments} segments",
+            "setup_s": setup_s, "ms_per_update": {k: statistics.median(v) for k, v in times.items()},
+            "s_total": {k: sum(v) / 1e3 for k, v in times.items()},
+            "ms_per_segment": {k: sum(v) / (eed_segments if k == "ExtendedEditDistance" else segments)
+                               for k, v in times.items()},
+            "values": values, "value_err_f64": errors,
+            "states_bitwise": {"segments": check, "eed_segments": eed_check, "against": "device='cpu'"},
+            "reference_words": int(np.sum([len(r.split()) for r in refs])), "card": card}
+
+
+class _TimedEncoder:
+    """A stand-in encoder as ``user_forward_fn``: no grad, and the seconds of
+    its forwards (between two synchronisations) counted."""
+
+    def __init__(self, module, dev):
+        self.module, self.dev, self.seconds, self.calls = module, dev, 0.0, 0
+
+    def __call__(self, input_ids, attention_mask):
+        import torch
+
+        _sync(self.dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = self.module(input_ids, attention_mask)
+        _sync(self.dev)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def _hf_init(module):
+    """Weights drawn as ``transformers`` initialises BERT-style models
+    (``initializer_range`` 0.02): linear and embedding weights normal with
+    std 0.02, biases zero, LayerNorms one and zero. torch's defaults (an
+    embedding of unit variance) give a masked LM logits of std ~28, whose
+    temperature-0.25 softmax is one-hot to float32 noise."""
+    from torch import nn
+
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding, nn.Conv2d)):
+            nn.init.normal_(m.weight, std=0.02)
+            if getattr(m, "bias", None) is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+    return module
+
+
+def _text_encoder(vocab: int, width: int, layers: int, heads: int, ffn: int, positions: int, lm_head: bool):
+    """A stand-in transformer encoder built from ``torch.nn`` at a published
+    width: token and position embeddings, a LayerNorm, ``layers`` post-norm
+    GELU encoder layers; the last hidden state, or with ``lm_head`` a masked
+    LM head (dense, GELU, LayerNorm, the embedding's transpose and a bias)
+    giving (B, L, vocab) logits. Seeded random weights; not a trained model."""
+    import torch
+    from torch import nn
+
+    class Encoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.tokens = nn.Embedding(vocab, width)
+            self.positions = nn.Embedding(positions, width)
+            self.norm = nn.LayerNorm(width)
+            layer = nn.TransformerEncoderLayer(width, heads, ffn, dropout=0.0, activation="gelu", batch_first=True)
+            self.encoder = nn.TransformerEncoder(layer, layers, enable_nested_tensor=False)
+            if lm_head:
+                self.dense, self.head_norm = nn.Linear(width, width), nn.LayerNorm(width)
+                self.bias = nn.Parameter(torch.zeros(vocab))
+
+        def forward(self, input_ids, attention_mask):
+            pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+            x = self.norm(self.tokens(input_ids) + self.positions(pos)[None])
+            x = self.encoder(x, src_key_padding_mask=attention_mask == 0)
+            if not lm_head:
+                return x
+            h = self.head_norm(torch.nn.functional.gelu(self.dense(x)))
+            return h @ self.tokens.weight.T + self.bias
+
+    return _hf_init(Encoder()).eval()
+
+
+def _hash_tokenizer(vocab: int, bos: int, eos: int, pad: int, max_positions: int):
+    """``user_tokenizer``: words to stand-in ids between BOS and EOS, padded
+    to the longest sentence, int64 CPU tensors (the metric moves them)."""
+    import torch
+
+    def tokenize(texts, max_length=None):
+        limit = min(max_length or max_positions, max_positions)
+        rows = [[bos] + [_word_id(w, vocab, 5) for w in t.split()][:limit - 2] + [eos] for t in texts]
+        width = max(map(len, rows))
+        ids = torch.full((len(rows), width), pad, dtype=torch.int64)
+        mask = torch.zeros((len(rows), width), dtype=torch.int64)
+        for i, row in enumerate(rows):
+            ids[i, :len(row)] = torch.tensor(row)
+            mask[i, :len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    return tokenize
+
+
+def _f64_bert(pe, pm, te, tm) -> dict:
+    """BERTScore's matching in float64 (no IDF)."""
+    p = pe.double() / pe.double().norm(dim=-1, keepdim=True).clamp(min=1e-12)
+    t = te.double() / te.double().norm(dim=-1, keepdim=True).clamp(min=1e-12)
+    pmf, tmf = pm.double(), tm.double()
+    sim = p @ t.transpose(1, 2) - 2 * (1 - pmf[:, :, None]) - 2 * (1 - tmf[:, None, :])
+    prec = (sim.amax(2) * pmf).sum(1) / pmf.sum(1)
+    rec = (sim.amax(1) * tmf).sum(1) / tmf.sum(1)
+    return {"precision": prec, "recall": rec, "f1": 2 * prec * rec / (prec + rec)}
+
+
+def _f64_infolm(logits_p, mask_p, logits_t, mask_t, temperature: float, measure: str):
+    import torch
+
+    def dist(logits, mask):
+        probs = torch.softmax(logits.double() / temperature, dim=-1)
+        w = mask.double()
+        return (probs * w[:, :, None]).sum(1) / w.sum(1, keepdim=True)
+
+    p, q = dist(logits_p, mask_p), dist(logits_t, mask_t)
+    if measure == "kl_divergence":
+        return (p * (torch.log(p + 1e-12) - torch.log(q + 1e-12))).sum(-1)
+    return 2.0 * torch.arccos(torch.sqrt(p * q).sum(-1).clamp(0.0, 1.0))
+
+
+def _max_rel(got, want) -> float:
+    return float(((got.double().cpu() - want.double().cpu()).abs() / want.double().cpu().abs().clamp(min=1.0)).max())
+
+
+def run_wmt14_bertscore_infolm(card: str, dev, segments: int = 3003, batch: int = 64, cpu_pairs: int = 8) -> dict:
+    """Path ``wmt14_bertscore_infolm``: BERTScore (idf off and on) through a
+    stand-in encoder at roberta-large's widths (24 layers, 1,024 wide, 16
+    heads, FFN 4,096, vocabulary 50,265, 514 positions) and InfoLM (KL and
+    Fisher-Rao, temperature 0.25) through a stand-in masked LM at
+    bert-base-uncased's (12 layers, 768, 12 heads, vocabulary 30,522), both
+    as ``user_forward_fn`` with a word-hash ``user_tokenizer``, over the
+    3,003 WMT14 pairs, ``batch`` sentences a chunk. Compute s split into the
+    encoder and the rest (tokenizing, matching or measure), peak MB. Checks
+    the first chunk's matching and measures against float64 on the card of
+    the same embeddings and logits, the target-chunked matching against the
+    dense one, and one chunk of ``cpu_pairs`` pairs against device="cpu"
+    (the stand-ins copied to the CPU)."""
+    import copy
+
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.functional.text import bert as bert_mod
+
+    infolm_mod = sys.modules["torchmetrics_tpu_torch.functional.text.infolm"]
+    label = "wmt14_bertscore_infolm"
+    hyps, refs = _wmt14_like(segments)
+    _zero_kernel_counts()
+    torch.manual_seed(162)
+    with torch.device(dev):
+        roberta = _text_encoder(50_265, 1024, 24, 16, 4096, 514, lm_head=False)
+        bert_mlm = _text_encoder(30_522, 768, 12, 12, 3072, 512, lm_head=True)
+    roberta_tok = _hash_tokenizer(50_265, 0, 2, 1, 512)
+    bert_tok = _hash_tokenizer(30_522, 101, 102, 0, 512)
+    records = {}
+    for name, make, encoder in (
+        ("BERTScore", lambda fwd, d, n: tm.BERTScore(user_tokenizer=roberta_tok, user_forward_fn=fwd, idf=False,
+                                                     max_length=512, batch_size=n, device=d), roberta),
+        ("BERTScore_idf", lambda fwd, d, n: tm.BERTScore(user_tokenizer=roberta_tok, user_forward_fn=fwd, idf=True,
+                                                         max_length=512, batch_size=n, device=d), roberta),
+        ("InfoLM_kl", lambda fwd, d, n: tm.InfoLM(user_tokenizer=bert_tok, user_forward_fn=fwd, temperature=0.25,
+                                                  information_measure="kl_divergence", idf=False, batch_size=n,
+                                                  return_sentence_level_score=True, device=d), bert_mlm),
+        ("InfoLM_fisher_rao", lambda fwd, d, n: tm.InfoLM(user_tokenizer=bert_tok, user_forward_fn=fwd,
+                                                          temperature=0.25, information_measure="fisher_rao_distance",
+                                                          idf=False, batch_size=n, return_sentence_level_score=True,
+                                                          device=d), bert_mlm),
+    ):
+        fwd = _TimedEncoder(encoder, dev)
+        metric = make(fwd, dev, batch)
+        for start in range(0, segments, batch):
+            metric.update(hyps[start:start + batch], refs[start:start + batch])
+        out, ms, peak = _timed_peak(dev, metric.compute)
+        values = out if isinstance(out, dict) else {"score": out[0], "sentences": out[1]}
+        for key, value in values.items():
+            if not bool(torch.isfinite(value).all()):
+                raise AssertionError(f"{label}: {name} {key} is not finite")
+        records[name] = {"compute_s": ms / 1e3, "encoder_s": fwd.seconds, "rest_s": ms / 1e3 - fwd.seconds,
+                         "encoder_calls": fwd.calls, "peak_mb": peak,
+                         "value": {k: float(v.mean()) for k, v in values.items()}}
+        # one chunk of cpu_pairs on the CPU, the stand-in copied there, against the card
+        cpu_metric = make(_TimedEncoder(copy.deepcopy(encoder).cpu(), torch.device("cpu")), "cpu", cpu_pairs)
+        card_metric = make(_TimedEncoder(encoder, dev), dev, cpu_pairs)
+        for m in (cpu_metric, card_metric):
+            m.update(hyps[:cpu_pairs], refs[:cpu_pairs])
+        got, want = card_metric.compute(), cpu_metric.compute()
+        got = got if isinstance(got, dict) else {"score": got[0], "sentences": got[1]}
+        want = want if isinstance(want, dict) else {"score": want[0], "sentences": want[1]}
+        records[name]["cpu_chunk_err"] = _hold(label, f"{name} card against CPU", max(
+            _max_rel(got[k], want[k]) for k in want), 1e-4)
+
+    # the first chunk's matching and measures against float64 of the same embeddings and logits
+    tok_p, tok_t = roberta_tok(hyps[:batch], 512), roberta_tok(refs[:batch], 512)
+    tok_p, tok_t = ({k: v.to(dev) for k, v in t.items()} for t in (tok_p, tok_t))
+    with torch.no_grad():
+        emb_p = roberta(tok_p["input_ids"], tok_p["attention_mask"])
+        emb_t = roberta(tok_t["input_ids"], tok_t["attention_mask"])
+    dense = bert_mod.bert_score_from_embeddings(emb_p, tok_p["attention_mask"], emb_t, tok_t["attention_mask"])
+    chunked = bert_mod.bert_score_from_embeddings_chunked(emb_p, tok_p["attention_mask"], emb_t,
+                                                          tok_t["attention_mask"], chunk_size=16)
+    f64 = _f64_bert(emb_p, tok_p["attention_mask"], emb_t, tok_t["attention_mask"])
+    matching_err = _hold(label, "matching against float64", max(_max_rel(dense[k], f64[k]) for k in f64), A11D_RTOL)
+    chunked_err = _hold(label, "chunked matching against dense", max(
+        float((chunked[k] - dense[k]).abs().max()) for k in dense), 1e-6)
+    tok_p, tok_t = bert_tok(hyps[:batch], 512), bert_tok(refs[:batch], 512)
+    tok_p, tok_t = ({k: v.to(dev) for k, v in t.items()} for t in (tok_p, tok_t))
+    with torch.no_grad():
+        logits_p = bert_mlm(tok_p["input_ids"], tok_p["attention_mask"])
+        logits_t = bert_mlm(tok_t["input_ids"], tok_t["attention_mask"])
+    measure_err = {}
+    for measure in ("kl_divergence", "fisher_rao_distance"):
+        dist_p = infolm_mod._sentence_distribution_from_logits(logits_p / 0.25, tok_p["attention_mask"])
+        dist_t = infolm_mod._sentence_distribution_from_logits(logits_t / 0.25, tok_t["attention_mask"])
+        got = infolm_mod._InformationMeasure(measure)(dist_p, dist_t)
+        want = _f64_infolm(logits_p, tok_p["attention_mask"], logits_t, tok_t["attention_mask"], 0.25, measure)
+        measure_err[measure] = _hold(label, f"{measure} against float64", _max_rel(got, want), A11D_RTOL)
+    del roberta, bert_mlm, emb_p, emb_t, logits_p, logits_t
+    return {"phase": "a11d", "path": label, "pairs": segments, "batch_size": batch,
+            "stand_ins": {"BERTScore": "roberta-large widths: 24 x 1024, 16 heads, FFN 4096, vocab 50265",
+                          "InfoLM": "bert-base-uncased widths: 12 x 768, 12 heads, FFN 3072, vocab 30522, MLM head"},
+            "metrics": records, "matching_err_f64": matching_err, "chunked_vs_dense_abs": chunked_err,
+            "measure_err_f64": measure_err, "cpu_chunk_pairs": cpu_pairs, "card": card}
+
+
+def _cnndm_like(summaries: int = 11_490, vocab: int = 30_000, seed: int = 163) -> tuple:
+    """(predictions, references): CNN/DailyMail-test-like highlights of 3-4
+    newline-separated sentences of about 56 words in all, and generated
+    summaries that copy about 60% of the reference words, in sentences."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = np.array(["".join(rng.choice(letters, k)) for k in rng.randint(2, 11, vocab)])
+    draw = _zipf_pool(rng, words, summaries * 100)
+    preds, refs = [], []
+    for count in rng.randint(3, 5, summaries):
+        lengths = np.maximum(4, rng.poisson(56 / count, count))
+        ref_sents = [[next(draw) for _ in range(n)] for n in lengths]
+        pred_sents = [[w if r < 0.6 else next(draw) for w, r in zip(s, rng.rand(len(s)))] for s in ref_sents]
+        refs.append("\n".join(" ".join(s).capitalize() + "." for s in ref_sents))
+        preds.append("\n".join(" ".join(s).capitalize() + "." for s in pred_sents))
+    return preds, refs
+
+
+def _squad_like(questions: int = 10_570, seed: int = 164) -> tuple:
+    """SQuAD v1.1 dev-like predictions and targets: 1-3 answers of 1-6 words
+    a question; predictions exact, off by an article or punctuation, partly
+    overlapping or wrong."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = np.array(["".join(rng.choice(letters, k)) for k in rng.randint(2, 10, 5000)])
+    preds, target = [], []
+    for i in range(questions):
+        answers = [" ".join(rng.choice(vocab, rng.randint(1, 7))) for _ in range(rng.randint(1, 4))]
+        r = rng.rand()
+        if r < 0.6:
+            pred = answers[0]
+        elif r < 0.7:
+            pred = "The " + answers[-1] + "."
+        elif r < 0.9:
+            pred = " ".join(answers[0].split()[:2] + list(rng.choice(vocab, 2)))
+        else:
+            pred = " ".join(rng.choice(vocab, rng.randint(1, 5)))
+        preds.append({"prediction_text": pred, "id": f"{i:024x}"})
+        target.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": f"{i:024x}"})
+    return preds, target
+
+
+def run_cnndm_rouge_squad(card: str, dev, summaries: int = 4000, questions: int = 10_570, batch: int = 64,
+                          check: int = 512) -> dict:
+    """Path ``cnndm_rouge_squad``: ROUGEScore (rouge1, rouge2, rougeL,
+    rougeLsum, accumulate="best") over the first ``summaries`` of
+    CNN/DailyMail test's 11,490 seeded highlights (``_cnndm_like``; a cut
+    of depth for the script's time) and SQuAD over SQuAD v1.1 dev's 10,570
+    questions (``_squad_like``), ``batch`` an update: ms an update. Checks
+    the states after the first ``check`` items bitwise against device="cpu",
+    and the scores against float64 means of the states."""
+    import torchmetrics_tpu_torch as tm
+
+    label = "cnndm_rouge_squad"
+    t0 = time.perf_counter()
+    preds, refs = (items[:summaries] for items in _cnndm_like())
+    q_preds, q_target = _squad_like(questions)
+    setup_s = time.perf_counter() - t0
+    _zero_kernel_counts()
+    keys = ("rouge1", "rouge2", "rougeL", "rougeLsum")
+    rouge, rouge_times = _drive_host_metrics(
+        {"ROUGEScore": lambda d: tm.ROUGEScore(rouge_keys=keys, accumulate="best", device=d)}, preds, refs, dev,
+        batch, check, lambda rs: [[r] for r in rs])
+    squad, squad_times = _drive_host_metrics({"SQuAD": lambda d: tm.SQuAD(device=d)}, q_preds, q_target, dev,
+                                                batch, check, lambda ts: ts)
+    rouge_out = rouge["ROUGEScore"].compute()
+    st = _states_of(rouge["ROUGEScore"])
+    errors = {}
+    for key in keys:
+        trip = st[f"{key}_triplets"].double()
+        for i, part in enumerate(("precision", "recall", "fmeasure")):
+            errors[f"{key}_{part}"] = _hold_f64(label, f"{key}_{part}", rouge_out[f"{key}_{part}"],
+                                                float(trip[:, i].mean()), A11D_RTOL)
+    squad_out = squad["SQuAD"].compute()
+    sq = _states_of(squad["SQuAD"])
+    for key, state in (("exact_match", "exact_match"), ("f1", "f1_score")):
+        errors[key] = _hold_f64(label, key, float(squad_out[key]) / 100, float(sq[state].double() / sq["total"].double()),
+                                A11D_RTOL)
+    if int(sq["total"]) != questions:
+        raise AssertionError(f"{label}: SQuAD counted {int(sq['total'])} of {questions} questions")
+    return {"phase": "a11d", "path": label, "summaries": summaries, "questions": questions, "batch": batch,
+            "reduced": f"ROUGE over the first {summaries} of 11,490 summaries",
+            "setup_s": setup_s, "ms_per_update": {"ROUGEScore": statistics.median(rouge_times["ROUGEScore"]),
+                                                  "SQuAD": statistics.median(squad_times["SQuAD"])},
+            "s_total": {"ROUGEScore": sum(rouge_times["ROUGEScore"]) / 1e3, "SQuAD": sum(squad_times["SQuAD"]) / 1e3},
+            "values": {**{k: float(v) for k, v in rouge_out.items()}, **{k: float(v) for k, v in squad_out.items()}},
+            "value_err_f64": errors, "states_bitwise": {"items": check, "against": "device='cpu'"}, "card": card}
+
+
+def run_wikitext_perplexity(card: str, dev, sequences: int = 280, seq_len: int = 1024, vocab: int = 50_257,
+                            batch: int = 8) -> dict:
+    """Path ``wikitext_perplexity``: Perplexity(ignore_index=-100) at
+    GPT-2's 50,257-word vocabulary over WikiText-103 test's ~280 sequences of
+    1,024 tokens, ``batch`` an update (1.65 GB of float32 logits), 5% of the
+    targets ignored; captured (one graph replay an update) and eager (jit=False):
+    ms an update, the byte bound, peak MB. Checks the value against float64
+    log_softmax on the card, one probability input taking the log branch,
+    and the first update's states against device="cpu"."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    label = "wikitext_perplexity"
+    _zero_kernel_counts()
+    updates = sequences // batch
+    g = torch.Generator(device=dev)
+
+    def data(step):
+        g.manual_seed(165 + step)
+        logits = 4.0 * torch.randn((batch, seq_len, vocab), generator=g, device=dev)
+        target = torch.randint(0, vocab, (batch, seq_len), generator=g, device=dev)
+        drop = torch.rand((batch, seq_len), generator=g, device=dev) < 0.05
+        return logits, target.masked_fill(drop, -100)
+
+    captured, eager = tm.Perplexity(ignore_index=-100, device=dev), tm.Perplexity(ignore_index=-100, jit=False,
+                                                                                 device=dev)
+    times = {"captured": [], "eager": []}
+    nll64 = torch.zeros((), dtype=torch.float64, device=dev)
+    tokens, peak = 0, 0.0
+    for step in range(updates):
+        logits, target = data(step)
+        _peak_reset(dev)
+        base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        times["captured"].append(_timed_update(dev, captured, logits, target))
+        times["eager"].append(_timed_update(dev, eager, logits, target))
+        if dev.type == "cuda":
+            peak = max(peak, (torch.cuda.max_memory_allocated() - base) / 2**20)
+        keep = target != -100
+        lp = torch.log_softmax(logits.double(), dim=-1).gather(-1, target.clamp(min=0)[..., None])[..., 0]
+        nll64 -= (lp * keep).sum()
+        tokens += int(keep.sum())
+        del lp
+    want = float(torch.exp(nll64 / tokens))
+    value = float(captured.compute())
+    err = _hold(label, "perplexity against float64", abs(value - want) / want, A11D_RTOL)
+    for state in ("total_log_probs", "count"):
+        if not torch.equal(getattr(captured, state), getattr(eager, state)):
+            raise AssertionError(f"{label}: captured and eager {state} differ")
+    # a probability input takes the log branch: its value is exp(mean -log p[t])
+    logits, target = data(0)
+    probs = torch.softmax(logits, dim=-1)
+    probe = tm.Perplexity(ignore_index=-100, device=dev)
+    probe.update(probs, target)
+    keep = target != -100
+    lp = torch.log(probs.double().gather(-1, target.clamp(min=0)[..., None])[..., 0].clamp(min=1e-20))
+    probs_want = float(torch.exp(-(lp * keep).sum() / keep.sum()))
+    probs_err = _hold(label, "probability input against float64 log", abs(float(probe.compute()) - probs_want)
+                      / probs_want, A11D_RTOL)
+    del probs, lp
+    # the first update against device="cpu"
+    cpu = tm.Perplexity(ignore_index=-100, device="cpu")
+    cpu.update(logits.cpu(), target.cpu())
+    first = tm.Perplexity(ignore_index=-100, device=dev)
+    first.update(logits, target)
+    cpu_err = _hold(label, "first update against the CPU", max(
+        abs(float(getattr(first, s)) - float(getattr(cpu, s))) / abs(float(getattr(cpu, s)))
+        for s in ("total_log_probs", "count")), A11D_RTOL)
+    captures = len(captured._update_graphs)
+    logit_bytes = batch * seq_len * vocab * 4
+    return {"phase": "a11d", "path": label, "sequences": updates * batch, "seq_len": seq_len, "vocab": vocab,
+            "batch": batch, "updates": updates, "ms_per_update": {k: statistics.median(v) for k, v in times.items()},
+            "bound_ms": logit_bytes / HBM_BYTES_PER_S * 1e3, "bound_is": "bytes of the float32 logits read once / 3.35 TB/s",
+            "logit_bytes_per_update": logit_bytes, "captured_graphs": captures, "peak_mb_over_inputs": peak,
+            "value": value,
+            "value_err_f64": err, "probs_branch_err_f64": probs_err, "first_update_err_cpu": cpu_err, "card": card}
+
+
+def _vit(width: int, layers: int, heads: int, patch: int, image: int, out_dim: int):
+    """A CLIP-style vision tower from ``torch.nn``: patch convolution, class
+    token, learned positions, pre-norm GELU layers, the class token's
+    LayerNorm and a projection."""
+    import torch
+    from torch import nn
+
+    class Vision(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.patch = nn.Conv2d(3, width, patch, stride=patch, bias=False)
+            self.cls = nn.Parameter(torch.randn(width) * 0.02)
+            self.positions = nn.Parameter(torch.randn((image // patch) ** 2 + 1, width) * 0.02)
+            self.pre = nn.LayerNorm(width)
+            layer = nn.TransformerEncoderLayer(width, heads, 4 * width, dropout=0.0, activation="gelu",
+                                               batch_first=True, norm_first=True)
+            self.encoder = nn.TransformerEncoder(layer, layers, enable_nested_tensor=False)
+            self.post = nn.LayerNorm(width)
+            self.proj = nn.Linear(width, out_dim, bias=False)
+
+        def forward(self, pixels):
+            x = self.patch(pixels).flatten(2).transpose(1, 2)
+            x = torch.cat([self.cls.expand(x.shape[0], 1, -1), x], dim=1) + self.positions[None]
+            return self.proj(self.post(self.encoder(self.pre(x))[:, 0]))
+
+    return Vision()
+
+
+def _clip_text(width: int, layers: int, heads: int, vocab: int, positions: int, out_dim: int):
+    """A CLIP-style text tower: token and position embeddings, causal
+    pre-norm GELU layers, the final LayerNorm at each caption's EOS (its last
+    token) and a projection."""
+    import torch
+    from torch import nn
+
+    class Text(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.tokens = nn.Embedding(vocab, width)
+            self.positions = nn.Parameter(torch.randn(positions, width) * 0.01)
+            layer = nn.TransformerEncoderLayer(width, heads, 4 * width, dropout=0.0, activation="gelu",
+                                               batch_first=True, norm_first=True)
+            self.encoder = nn.TransformerEncoder(layer, layers, enable_nested_tensor=False)
+            self.final = nn.LayerNorm(width)
+            self.proj = nn.Linear(width, out_dim, bias=False)
+
+        def forward(self, input_ids, attention_mask):
+            n = input_ids.shape[1]
+            x = self.tokens(input_ids) + self.positions[:n][None]
+            causal = torch.triu(torch.ones((n, n), dtype=torch.bool, device=x.device), diagonal=1)
+            x = self.final(self.encoder(x, mask=causal, src_key_padding_mask=attention_mask == 0))
+            eos = attention_mask.sum(1) - 1
+            return self.proj(x[torch.arange(x.shape[0], device=x.device), eos])
+
+    return Text()
+
+
+def _clip_stand_in(vision: dict, text: dict, projection: int, image: int):
+    """(model, processor): a stand-in CLIP at published widths with seeded
+    random weights, exposing ``get_image_features``/``get_text_features`` and
+    a ``config.text_config.max_position_embeddings``, and a processor that
+    resizes (bicubic, antialiased) and centre-crops images to ``image`` and
+    normalises them with CLIP's mean and std on the card, and hashes caption
+    words to ids between BOS and EOS."""
+    import types
+
+    import torch
+    from torch import nn
+
+    class StandInCLIP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.vision = _vit(out_dim=projection, image=image, **vision)
+            self.text = _clip_text(out_dim=projection, **text)
+            self.config = types.SimpleNamespace(text_config=types.SimpleNamespace(
+                max_position_embeddings=text["positions"]))
+
+        def get_image_features(self, pixel_values):
+            return self.vision(pixel_values)
+
+        def get_text_features(self, input_ids, attention_mask):
+            return self.text(input_ids, attention_mask)
+
+    mean = torch.tensor([0.48145466, 0.4578275, 0.40821073])
+    std = torch.tensor([0.26862954, 0.26130258, 0.27577711])
+    vocab, positions = text["vocab"], text["positions"]
+
+    def processor(text=None, images=None, return_tensors="np", padding=True):
+        out = {}
+        if images is not None:
+            x = torch.stack(list(images))
+            h, w = x.shape[-2:]
+            scale = image / min(h, w)
+            x = torch.nn.functional.interpolate(x, size=(max(image, round(h * scale)), max(image, round(w * scale))),
+                                                mode="bicubic", antialias=True, align_corners=False)
+            top, left = (x.shape[-2] - image) // 2, (x.shape[-1] - image) // 2
+            x = x[..., top:top + image, left:left + image]
+            out["pixel_values"] = (x - mean.to(x.device)[:, None, None]) / std.to(x.device)[:, None, None]
+        if text is not None:
+            rows = [[vocab - 2] + [_word_id(w, vocab - 2, 1) for w in t.lower().split()] + [vocab - 1] for t in text]
+            width = max(map(len, rows))
+            ids = torch.zeros((len(rows), width), dtype=torch.int64)
+            mask = torch.zeros((len(rows), width), dtype=torch.int64)
+            for i, row in enumerate(rows):
+                ids[i, :len(row)] = torch.tensor(row)
+                mask[i, :len(row)] = 1
+            out["input_ids"], out["attention_mask"] = ids, mask
+        return out
+
+    return _hf_init(StandInCLIP()).eval(), processor
+
+
+def _captions(n: int, seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    nouns = ["man", "woman", "dog", "cat", "bus", "train", "pizza", "table", "street", "kitchen", "horse", "boat"]
+    verbs = ["sitting on", "standing near", "riding", "holding", "next to", "in front of", "walking past"]
+    return [f"a {rng.choice(['large', 'small', 'red', 'white', 'young'])} {rng.choice(nouns)} "
+            f"{rng.choice(verbs)} a {rng.choice(nouns)} {rng.choice(['in a park', 'on a street', 'at night', ''])}"
+            .strip() for _ in range(n)]
+
+
+def run_coco_clipscore_koniq_clipiqa(card: str, dev, images: int = 2500, batch: int = 50, pair_images: int = 500,
+                                     koniq: int = 2015, koniq_batch: int = 32, cpu_images: int = 2) -> dict:
+    """Path ``coco_clipscore_koniq_clipiqa``: CLIPScore through a stand-in
+    CLIP at ViT-L/14's widths (vision 24 x 1024, 16 heads, patch 14 at 224;
+    text 12 x 768, 12 heads, 77 positions, vocabulary 49,408; projection
+    768; the default ``openai/clip-vit-large-patch14``) over the first
+    ``images`` of MS-COCO Karpathy test's 5,000 images at 640 x 480 with one
+    caption each (a cut of depth for the script's time), ``batch`` an
+    update, and image-image pairs over the first ``pair_images``;
+    CLIPImageQualityAssessment through a stand-in at
+    ViT-B/16's widths (12 x 768, patch 16; text 12 x 512; projection 512)
+    over KonIQ-10k test's 2,015 images at 1024 x 768 with the prompts
+    quality, sharpness, noisiness and brightness. ms an image, peak MB.
+    Checks the cosines and prompt softmaxes of the first batch against
+    float64 on the card of the same features, the states after
+    ``cpu_images`` images against device="cpu" (the stand-ins copied
+    there), and that ``CLIPScore()``, whose default model has no local
+    files here, raises ModuleNotFoundError without asking the network."""
+    import copy
+
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    cs_mod = sys.modules["torchmetrics_tpu_torch.functional.multimodal.clip_score"]
+    label = "coco_clipscore_koniq_clipiqa"
+    _zero_kernel_counts()
+    torch.manual_seed(166)
+    with torch.device(dev):
+        clip_l = _clip_stand_in({"width": 1024, "layers": 24, "heads": 16, "patch": 14},
+                                {"width": 768, "layers": 12, "heads": 12, "vocab": 49_408, "positions": 77}, 768, 224)
+        clip_b = _clip_stand_in({"width": 768, "layers": 12, "heads": 12, "patch": 16},
+                                {"width": 512, "layers": 12, "heads": 8, "vocab": 49_408, "positions": 77}, 512, 224)
+    g = torch.Generator(device=dev)
+    captions = _captions(images, 167)
+
+    def coco(step, n=batch):
+        g.manual_seed(168 + step)
+        return torch.rand((n, 3, 480, 640), generator=g, device=dev)
+
+    prompts = ("quality", "sharpness", "noisiness", "brightness")
+    score = tm.CLIPScore(model_name_or_path=clip_l, device=dev)
+    pair_score = tm.CLIPScore(model_name_or_path=clip_l, device=dev)
+    iqa = tm.CLIPImageQualityAssessment(model_name_or_path=clip_b, prompts=prompts, device=dev)
+    times = {"image_text": [], "image_image": [], "iqa": []}
+    _peak_reset(dev)
+    for step in range(images // batch):
+        x = coco(step)
+        times["image_text"].append(_timed_update(dev, score, x, captions[step * batch:(step + 1) * batch]))
+        if (step + 1) * batch <= pair_images:
+            times["image_image"].append(_timed_update(dev, pair_score, x, coco(10_000 + step)))
+    clip_peak = _peak_mb(dev)
+
+    def koniq_images(step, n):
+        g.manual_seed(20_000 + step)
+        return torch.rand((n, 3, 768, 1024), generator=g, device=dev)
+
+    _peak_reset(dev)
+    for step, start in enumerate(range(0, koniq, koniq_batch)):
+        times["iqa"].append(_timed_update(dev, iqa, koniq_images(step, min(koniq_batch, koniq - start))))
+    iqa_peak = _peak_mb(dev)
+    values = {"clip_score": float(score.compute()), "clip_score_image_image": float(pair_score.compute()),
+              "mean_100_cosine_image_text": float(score.score / score.n_samples)}
+    iqa_out = iqa.compute()
+    for key, value in iqa_out.items():
+        if value.shape != (koniq,) or not bool(((value >= 0) & (value <= 1)).all()):
+            raise AssertionError(f"{label}: CLIP-IQA {key} has shape {tuple(value.shape)} or leaves [0, 1]")
+        values[f"iqa_{key}"] = float(value.mean())
+    if int(score.n_samples) != images or int(pair_score.n_samples) != pair_images:
+        raise AssertionError(f"{label}: CLIPScore counted {int(score.n_samples)} and {int(pair_score.n_samples)}")
+
+    # the first batch's cosines and softmaxes against float64 of the same features
+    model, processor = clip_l
+    x, caps = coco(0), captions[:batch]
+    # the raw features under the metric's own pins (cs_mod._forward: no grad, float32 in full precision)
+    raw_i = cs_mod._forward(model.get_image_features, processor(images=list(x))["pixel_values"])
+    tok = {k: v.to(dev) for k, v in processor(text=caps).items()}
+    raw_t = cs_mod._forward(model.get_text_features, tok["input_ids"], tok["attention_mask"])
+    got_cos = (cs_mod._image_features(x, model, processor, dev) * cs_mod._text_features(caps, model, processor, dev)
+               ).sum(-1)
+    i64, t64 = (f.double() / f.double().norm(dim=-1, keepdim=True) for f in (raw_i, raw_t))
+    cos_err = _hold(label, "cosines against float64", float((got_cos.double() - (i64 * t64).sum(-1)).abs().max()),
+                    A11D_RTOL)
+    b_model, b_proc = clip_b
+    iqa_mod = sys.modules["torchmetrics_tpu_torch.functional.multimodal.clip_iqa"]
+    flat, _ = iqa_mod._format_prompts(prompts)
+    y = koniq_images(0, 8)
+    raw_i = cs_mod._forward(b_model.get_image_features, b_proc(images=list(y))["pixel_values"])
+    tok = {k: v.to(dev) for k, v in b_proc(text=flat).items()}
+    raw_a = cs_mod._forward(b_model.get_text_features, tok["input_ids"], tok["attention_mask"])
+    i64, a64 = (f.double() / f.double().norm(dim=-1, keepdim=True) for f in (raw_i, raw_a))
+    want_probs = torch.softmax((100.0 * i64 @ a64.T).reshape(8, -1, 2), dim=-1)[..., 0]
+    got_probs = iqa_mod._clip_iqa_update(y, iqa.anchors, b_model, b_proc)
+    softmax_err = _hold(label, "prompt softmaxes against float64",
+                        float((got_probs.double() - want_probs).abs().max()), A11D_RTOL)
+
+    # the first images against device="cpu", the stand-ins copied there
+    cpu_l, cpu_b = (copy.deepcopy(m).cpu() for m in (clip_l[0], clip_b[0]))
+    card_score, cpu_score = tm.CLIPScore(clip_l, device=dev), tm.CLIPScore((cpu_l, clip_l[1]), device="cpu")
+    card_score.update(x[:cpu_images], caps[:cpu_images])
+    cpu_score.update(x[:cpu_images].cpu(), caps[:cpu_images])
+    card_iqa = tm.CLIPImageQualityAssessment(clip_b, prompts=prompts, device=dev)
+    cpu_iqa = tm.CLIPImageQualityAssessment((cpu_b, clip_b[1]), prompts=prompts, device="cpu")
+    card_iqa.update(y[:cpu_images])
+    cpu_iqa.update(y[:cpu_images].cpu())
+    cpu_err = max(abs(float(card_score.score) - float(cpu_score.score)) / 100.0,
+                  float((_states_of(card_iqa)["probs_list"] - _states_of(cpu_iqa)["probs_list"]).abs().max()))
+    _hold(label, "first images against the CPU", cpu_err, 1e-4)
+    if int(card_score.n_samples) != int(cpu_score.n_samples):
+        raise AssertionError(f"{label}: n_samples differ between the card and the CPU")
+    # the default model: no transformers, or no local files of it, raises (the network is never asked)
+    try:
+        tm.CLIPScore(device=dev)
+    except ModuleNotFoundError as err:
+        no_model = f"ModuleNotFoundError: {err}"
+    else:
+        raise AssertionError(f"{label}: CLIPScore() found no local model and did not raise")
+    transformers_version = None
+    if cs_mod._TRANSFORMERS_AVAILABLE:
+        import transformers
+
+        transformers_version = transformers.__version__
+    del clip_l, clip_b, cpu_l, cpu_b
+    return {"phase": "a11d", "path": label, "coco_images": images, "batch": batch, "pair_images": pair_images,
+            "reduced": f"COCO: the first {images} of 5,000 images, image-image pairs on {pair_images}",
+            "koniq_images": koniq, "koniq_batch": koniq_batch, "prompts": list(prompts),
+            "stand_ins": {"CLIPScore": "ViT-L/14 widths: vision 24 x 1024 patch 14 at 224, text 12 x 768, 77 "
+                                       "positions, vocab 49408, projection 768",
+                          "CLIP-IQA": "ViT-B/16 widths: vision 12 x 768 patch 16 at 224, text 12 x 512, "
+                                      "projection 512"},
+            "ms_per_image": {"image_text": statistics.median(times["image_text"]) / batch,
+                             "image_image": statistics.median(times["image_image"]) / batch,
+                             "iqa": statistics.median(times["iqa"]) / koniq_batch},
+            "s_total": {k: sum(v) / 1e3 for k, v in times.items()}, "peak_mb": {"clip": clip_peak, "iqa": iqa_peak},
+            "values": values, "cosine_err_f64": cos_err, "softmax_err_f64": softmax_err, "cpu_images": cpu_images,
+            "cpu_err": cpu_err, "no_model": no_model, "transformers": transformers_version, "card": card}
+
+
+def run_a11d_paths(card: str, dev) -> tuple:
+    """The five A11.d paths; (records, bincount launches over them, which must be none)."""
+    records = []
+    for run in (run_wmt14_translation, run_wmt14_bertscore_infolm, run_cnndm_rouge_squad, run_wikitext_perplexity,
+                run_coco_clipscore_koniq_clipiqa):
+        t0 = time.perf_counter()
+        record = run(card, dev)
+        record["seconds"] = time.perf_counter() - t0
+        record["kernel_launches"] = _kernel_counts()
+        records.append(record)
+        emit(record)
+    launches = sum(r["kernel_launches"]["weighted_bincount"] for r in records)
+    if launches or any(r["kernel_launches"]["tdigest_compress"] for r in records):
+        raise AssertionError(f"a11d: the text and multimodal paths launched a kernel: "
+                             f"{[r['kernel_launches'] for r in records]}")
+    return records, launches
+
+
+# ---------------------------------------------------------------------------
 # phase dist_sync: state sync over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -6708,6 +7607,8 @@ def main() -> int:
     for record in a11c_records:
         emit(record)
     launches += a11c_launches
+    _, a11d_launches = run_a11d_paths(card, dev)  # emits each path's record as it ends
+    launches += a11d_launches
     for record in run_model_paths(card, dev):
         emit(record)
     record, dist_launches = dist_sync(card)

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, nothing of the JAX package, and
-no quiet fall back to the CPU."""
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package, no
+``transformers`` or ``nltk`` at import time (only the default-model loaders
+and ROUGE's stemmer import them), and no quiet fall back to the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -51,11 +52,16 @@ def test_import_leaves_jax_out_of_sys_modules():
         "'functional.detection.panoptic_quality', 'audio', 'audio.metrics', 'functional.audio', "
         "'functional.audio.snr', 'functional.audio.sdr', 'functional.audio.pit', 'functional.audio.stoi', "
         "'functional.audio.srmr', 'functional.audio.pesq', 'text', 'text.asr', 'functional.text', "
-        "'functional.text.asr', 'functional.text.helper']\n"
+        "'functional.text.asr', 'functional.text.helper', 'utils.imports', 'text.translate', 'text.other', "
+        "'text.perplexity', 'functional.text.bleu', 'functional.text.sacre_bleu', 'functional.text.chrf', "
+        "'functional.text.ter', 'functional.text.eed', 'functional.text.edit', 'functional.text.rouge', "
+        "'functional.text.squad', 'functional.text.perplexity', 'functional.text.bert', "
+        "'functional.text.infolm', 'multimodal', 'multimodal.clip_score', 'multimodal.clip_iqa', "
+        "'functional.multimodal', 'functional.multimodal.clip_score', 'functional.multimodal.clip_iqa']\n"
         "missing = [m for m in new if 'torchmetrics_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
-        "'torchmetrics_tpu.')) or m == 'torchmetrics_tpu')\n"
+        "'torchmetrics_tpu.', 'transformers.', 'nltk.')) or m in ('torchmetrics_tpu', 'transformers', 'nltk'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

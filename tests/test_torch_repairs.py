@@ -4,8 +4,9 @@
   ``full_state_update`` of every class the port exports equal the JAX
   class's of the same name (the multiclass and multilabel at-fixed classes
   said ``higher_is_better = True`` where JAX says ``None``);
-- C4: the root and ``functional`` export only names the JAX package
-  exports, and the image lists equal the JAX ones;
+- C4: the root exports only names the JAX package exports, ``functional``
+  exports exactly the JAX list, and the image, audio, text and multimodal
+  lists equal the JAX ones;
 - C5: ``Metric`` takes the JAX constructor arguments ``compute_on_cpu`` and
   ``cat_layout``.
 """
@@ -26,7 +27,7 @@ from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 # the subpackages whose classes the port exports, looked up by the same
 # path in the JAX package when its root lacks the name
 SUBPACKAGES = ("", "classification", "regression", "image", "retrieval", "aggregation", "wrappers", "online",
-               "streaming", "collections")
+               "streaming", "collections", "text", "multimodal")
 
 
 def _exported_classes(pkg) -> dict:
@@ -85,7 +86,7 @@ def test_root_all_is_a_subset_of_the_jax_root():
 
 
 def test_functional_all_is_a_subset_of_the_jax_functional():
-    assert set(PF.__all__) <= set(JF.__all__)
+    assert sorted(PF.__all__) == sorted(JF.__all__)
     assert len(PF.__all__) == len(set(PF.__all__))
     for name in PF.__all__:
         assert hasattr(PF, name), name
@@ -93,48 +94,37 @@ def test_functional_all_is_a_subset_of_the_jax_functional():
 
 def test_root_lacks_only_the_names_of_later_slices():
     missing = set(J.__all__) - set(P.__all__)
-    assert len(missing) == 15
-    # A11.d's domains, A14's observability, A15's version; A12's sketches and
-    # tenants, A11.a's clustering and nominal classes, A11.b's detection
-    # classes and A11.c's audio and speech-recognition classes are in
-    later = {"observability", "__version__"}
-    assert later <= missing
+    # A14's observability and A15's version; every domain is in
+    assert missing == {"observability", "__version__"}
     a12 = {"SketchReduction", "StackedMerge", "TenantStack", "ApproxAUROC", "ApproxCalibrationError",
            "ApproxFrequency", "ApproxQuantile"}
-    assert not (a12 & missing)
     a11a = {"AdjustedMutualInfoScore", "AdjustedRandScore", "CalinskiHarabaszScore", "CompletenessScore",
             "DaviesBouldinScore", "DunnIndex", "FowlkesMallowsIndex", "HomogeneityScore", "MutualInfoScore",
             "NormalizedMutualInfoScore", "RandScore", "VMeasureScore", "CramersV", "FleissKappa",
             "PearsonsContingencyCoefficient", "TheilsU", "TschuprowsT"}
-    assert not (a11a & missing)
     a11b = {"IntersectionOverUnion", "GeneralizedIntersectionOverUnion", "DistanceIntersectionOverUnion",
             "CompleteIntersectionOverUnion", "MeanAveragePrecision", "PanopticQuality", "ModifiedPanopticQuality"}
-    assert not (a11b & missing)
     a11c = {"ComplexScaleInvariantSignalNoiseRatio", "PerceptualEvaluationSpeechQuality",
             "PermutationInvariantTraining", "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",
             "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio", "SignalNoiseRatio", "SourceAggregatedSignalDistortionRatio",
             "SpeechReverberationModulationEnergyRatio", "CharErrorRate", "MatchErrorRate", "WordErrorRate",
             "WordInfoLost", "WordInfoPreserved"}
-    assert not (a11c & missing)
+    a11d = {"BERTScore", "BLEUScore", "CHRFScore", "EditDistance", "ExtendedEditDistance", "InfoLM", "Perplexity",
+            "ROUGEScore", "SQuAD", "SacreBLEUScore", "TranslationEditRate", "CLIPScore",
+            "CLIPImageQualityAssessment"}
+    for names in (a12, a11a, a11b, a11c, a11d):
+        assert names <= set(P.__all__)
     image = set(importlib.import_module("torchmetrics_tpu.image").__all__)
     assert not (missing & image)
 
 
 def test_functional_lacks_only_the_names_of_later_slices():
-    missing = set(JF.__all__) - set(PF.__all__)
-    assert len(missing) == 10
-    a11a = {"clustering", "nominal", "pairwise", "segmentation", "cramers_v", "cramers_v_matrix", "fleiss_kappa",
-            "pearsons_contingency_coefficient", "pearsons_contingency_coefficient_matrix", "theils_u",
-            "theils_u_matrix", "tschuprows_t", "tschuprows_t_matrix", "pairwise_cosine_similarity",
-            "pairwise_euclidean_distance", "pairwise_linear_similarity", "pairwise_manhattan_distance",
-            "pairwise_minkowski_distance"}
-    assert not (a11a & missing)
-    assert not ({"detection", "panoptic_quality"} & missing)
-    a11c = {"audio", "permutation_invariant_training", "pit_permutate", "scale_invariant_signal_distortion_ratio",
-            "scale_invariant_signal_noise_ratio", "signal_distortion_ratio", "signal_noise_ratio", "char_error_rate",
-            "match_error_rate", "word_error_rate", "word_information_lost", "word_information_preserved"}
-    assert not (a11c & missing)
-    assert {"text", "multimodal"} <= missing
+    assert set(JF.__all__) - set(PF.__all__) == set()
+    a11d = {"bleu_score", "chrf_score", "extended_edit_distance", "perplexity", "rouge_score", "sacre_bleu_score",
+            "squad", "translation_edit_rate", "text", "multimodal"}
+    assert a11d <= set(PF.__all__)
+    assert not ({"detection", "panoptic_quality", "audio", "clustering", "nominal", "pairwise", "segmentation"}
+                - set(PF.__all__))
 
 
 def test_image_lists_equal_the_jax_lists():
@@ -145,6 +135,16 @@ def test_image_lists_equal_the_jax_lists():
 def test_audio_lists_equal_the_jax_lists():
     assert sorted(P.audio.__all__) == sorted(J.audio.__all__)
     assert sorted(PF.audio.__all__) == sorted(JF.audio.__all__)
+
+
+@pytest.mark.parametrize("domain", ["text", "multimodal"])
+def test_text_and_multimodal_lists_equal_the_jax_lists(domain):
+    port, jax_pkg = (importlib.import_module(f"{pkg}.{domain}") for pkg in ("torchmetrics_tpu_torch",
+                                                                           "torchmetrics_tpu"))
+    port_f, jax_f = (importlib.import_module(f"{pkg}.functional.{domain}") for pkg in ("torchmetrics_tpu_torch",
+                                                                                      "torchmetrics_tpu"))
+    assert sorted(port.__all__) == sorted(jax_pkg.__all__)
+    assert sorted(port_f.__all__) == sorted(jax_f.__all__)
 
 
 def test_names_left_out_of_all_stay_importable_from_their_subpackages():

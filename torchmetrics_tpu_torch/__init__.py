@@ -24,6 +24,7 @@ from .detection import *  # noqa: F401,F403
 from .image import *  # noqa: F401,F403
 from .interop import state_from_numpy, state_to_numpy
 from .metric import CompositionalMetric, Metric
+from .multimodal import CLIPImageQualityAssessment, CLIPScore
 from .multitenant import TenantStack
 from .nominal import *  # noqa: F401,F403
 from .online import DecayedMetric, WindowedMetric
@@ -52,11 +53,16 @@ __all__ = [
     "ApproxFrequency",
     "ApproxQuantile",
     "AveragePrecision",
+    "BERTScore",
+    "BLEUScore",
     "BinaryFairness",
     "BinaryGroupStatRates",
     "BootStrapper",
     "BufferedMetric",
     "BufferedMetricCollection",
+    "CHRFScore",
+    "CLIPImageQualityAssessment",
+    "CLIPScore",
     "CalibrationError",
     "CalinskiHarabaszScore",
     "CatBuffer",
@@ -81,9 +87,11 @@ __all__ = [
     "Dice",
     "DistanceIntersectionOverUnion",
     "DunnIndex",
+    "EditDistance",
     "ErrorRelativeGlobalDimensionlessSynthesis",
     "ExactMatch",
     "ExplainedVariance",
+    "ExtendedEditDistance",
     "F1Score",
     "FBetaScore",
     "FleissKappa",
@@ -94,6 +102,7 @@ __all__ = [
     "HingeLoss",
     "HomogeneityScore",
     "InceptionScore",
+    "InfoLM",
     "IntersectionOverUnion",
     "JaccardIndex",
     "KLDivergence",
@@ -135,12 +144,14 @@ __all__ = [
     "PerceptualEvaluationSpeechQuality",
     "PerceptualPathLength",
     "PermutationInvariantTraining",
+    "Perplexity",
     "Precision",
     "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
     "QualityWithNoReference",
     "R2Score",
     "ROC",
+    "ROUGEScore",
     "RandScore",
     "Recall",
     "RecallAtFixedPrecision",
@@ -161,6 +172,8 @@ __all__ = [
     "Running",
     "RunningMean",
     "RunningSum",
+    "SQuAD",
+    "SacreBLEUScore",
     "ScaleInvariantSignalDistortionRatio",
     "ScaleInvariantSignalNoiseRatio",
     "SensitivityAtSpecificity",
@@ -185,6 +198,7 @@ __all__ = [
     "TenantStack",
     "TheilsU",
     "TotalVariation",
+    "TranslationEditRate",
     "TschuprowsT",
     "TweedieDevianceScore",
     "UniversalImageQualityIndex",

@@ -10,6 +10,7 @@ so states compare bitwise across the two packages.
 """
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..buffers import CatBuffer, cat_rows
@@ -33,6 +34,12 @@ def dim_zero_cat(x: Union[Tensor, List[Tensor], tuple, CatBuffer]) -> Tensor:
             raise ValueError("No samples to concatenate")
         return cat_rows(x)
     return torch.as_tensor(x)
+
+
+def on_device(value: Any, device: torch.device) -> Tensor:
+    """A model's or tokenizer's array, numpy or tensor, as a tensor on
+    ``device`` (the text and multimodal metrics take both)."""
+    return torch.as_tensor(value if isinstance(value, Tensor) else np.asarray(value)).to(device)
 
 
 def dim_zero_sum(x: Tensor) -> Tensor:
