@@ -342,6 +342,37 @@ not 0 and no result line is printed:
      the same features, 2 images against device="cpu", and CLIPScore()
      raising ModuleNotFoundError (no local files of its default model).
 
+16. a13 (ROADMAP A13), after a11d: sharded cat state and elastic sync,
+   all data seeded on the card:
+   - criteo_dlrm_eval_auroc: BinaryAUROC over MLPerf DLRM-DCNv2's
+     evaluation set (Criteo 1TB day 23's validation half, 89,137,319
+     scores at 3.4% positives, exact AUROC near the 0.8025 target) in
+     batches of 65,536, as three layouts on the same updates: replicated
+     exact, cat_layout="sharded" exact on the card's own mesh (one shard),
+     and hist_bins=8192 over a mesh listing the card 4 times: ms an update
+     and peak MB per layout, compute ms; the sharded exact value bitwise the
+     replicated one, the histograms of 1 and 4 shards bitwise, the
+     histogram AUROC within its tie bound of the exact value (one bincount
+     launch per shard), sharded_topk(1000) bitwise torch.topk of the dense
+     rows, sharded_moments within 1e-6 of float64, reshard 4 -> 1 rows
+     bitwise, the first 2 M rows' states bitwise and values equal against
+     device="cpu"; the kernel at the histogram's shape (89.1 M joint indices
+     into 16,384 bins, int32) beside its bound, index_add_ and torch.bincount;
+   - imagenet_chaos_soak: ImageNet-1k validation's 50,000 images over 4
+     emulated ranks and 200 windows, MulticlassAccuracy and
+     MulticlassCalibrationError(n_bins=15) on the card, rank 0 through
+     ElasticSync over ChaosSync/FakeSync under the JAX package's seeded soak
+     schedule: every full-coverage window's synced states bitwise the
+     fault-free twin's, every degraded window's coverage the injected
+     membership; a preempted rank's checkpoint merged back, full coverage.
+   dist_sync's two gloo ranks add part (c): FID's SUM states at 2,048
+   features (33.6 MB) synced exactly and under quantize_bits 16 and 8
+   (Metric.sync twice, reduce_state_in_graph): every element within its
+   chunk's quantization bound, the wire bytes beside the exact sync's; a
+   transient timeout recovering bitwise; a preempted rank 1: rank 0
+   degrades to coverage 1/2, raises CoverageError under min_coverage=0.75
+   with its state intact, and merges rank 1's checkpoint bitwise.
+
 The last lines are the native record, the kernels' record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -367,12 +398,13 @@ TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve
                "countmin_popularity", "ece_ctr_compute", "tenant_stack_c1000", "contingency_imagenet1k",
                "nominal_update_c1000", "cluster_counts_imagenet1k", "cluster_sums_imagenet1k", "fleiss_cifar10h",
                "panoptic_intersections_cityscapes")
-# the cases of the confusion, calibration, fairness, bootstrap, sketch, A11.a and A11.b paths, reported beside
-# the main one in the kernels line
+# the cases of the confusion, calibration, fairness, bootstrap, sketch, A11.a, A11.b and A13 paths, reported
+# beside the main one in the kernels line (phase a13 times its own case at the Criteo histogram's shape)
 SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k",
                "fairness_jigsaw", "bootstrap_c100_b10", "countmin_popularity", "ece_ctr_compute",
                "tenant_stack_c1000", "contingency_imagenet1k", "nominal_update_c1000", "cluster_counts_imagenet1k",
-               "cluster_sums_imagenet1k", "fleiss_cifar10h", "panoptic_intersections_cityscapes")
+               "cluster_sums_imagenet1k", "fleiss_cifar10h", "panoptic_intersections_cityscapes",
+               "histogram_criteo_auroc")
 
 
 def emit(obj) -> None:
@@ -7085,6 +7117,361 @@ def run_a11d_paths(card: str, dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase a13: sharded cat state, the histogram AUROC, elastic sync
+# ---------------------------------------------------------------------------
+
+CRITEO_ROWS = 89_137_319  # MLPerf DLRM-DCNv2 on Criteo 1TB: the validation half of day 23
+CRITEO_BATCH = 65_536
+CRITEO_POSITIVES = 0.034  # the click rate of the Criteo 1TB logs, about 3.4%
+# logits N(bias + gap·label, 1): the exact AUROC is Phi(gap / sqrt 2), 0.8025 at this gap,
+# the reference's target (MLPerf Training's DLRM-DCNv2 quality target)
+CRITEO_GAP = 1.2028
+CRITEO_BIAS = -3.4
+CRITEO_HIST_BINS = 8192
+CRITEO_SHARDS = 4  # the histogram metric's mesh lists the card this many times
+MOMENTS_TOL = 1e-6
+# the 4-rank soak over ImageNet-1k validation: the JAX package's schedule rates
+SOAK_RATES = dict(p_delay=0.05, p_timeout=0.08, p_drop=0.04, p_rejoin=0.5, max_delay_s=0.001)
+
+
+def _tree_bitwise(label: str, what: str, got: dict, want: dict) -> int:
+    """State dicts (tensors, CatBuffers, ShardedCatBuffers) equal bitwise,
+    cat states as rows in the same order; returns how many were compared."""
+    import torch
+
+    from torchmetrics_tpu_torch.buffers import CatBuffer
+
+    for key, w in want.items():
+        g = got[key]
+        g = g.materialize() if isinstance(g, CatBuffer) else g
+        w = w.materialize() if isinstance(w, CatBuffer) else w
+        if isinstance(g, list):
+            g = torch.cat(g) if g else torch.zeros(0)
+        if isinstance(w, list):
+            w = torch.cat(w) if w else torch.zeros(0)
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{label}: {what}: state {key} differs bitwise")
+    return len(want)
+
+
+def _criteo_batches(dev, rows: int, seed: int = 171):
+    """Seeded scores and 0/1 labels on ``dev``: labels at CRITEO_POSITIVES,
+    float32 scores sigmoid(bias + gap·label + N(0, 1))."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    target = (torch.rand(rows, generator=g, device=dev) < CRITEO_POSITIVES).to(torch.int32)
+    logits = torch.randn(rows, generator=g, device=dev)
+    logits += CRITEO_BIAS
+    logits += CRITEO_GAP * target
+    return torch.sigmoid(logits), target
+
+
+def _auroc_layouts(dev, shards: int, bins: int) -> dict:
+    """The three BinaryAUROCs of the path: replicated exact, sharded exact on
+    the device's own mesh, and the histogram over a mesh listing it ``shards`` times."""
+    from torchmetrics_tpu_torch.buffers import use_eval_mesh
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+
+    out = {"replicated": BinaryAUROC(device=dev), "sharded_exact": BinaryAUROC(cat_layout="sharded", device=dev)}
+    with use_eval_mesh([dev] * shards):
+        out["sharded_hist"] = BinaryAUROC(cat_layout="sharded", hist_bins=bins, device=dev)
+    return out
+
+
+def _resident_mb(metric) -> float:
+    from torchmetrics_tpu_torch.buffers import ShardedCatBuffer
+
+    total = 0
+    for name in ("preds", "target"):
+        buf = getattr(metric, name)
+        total += sum(buf.per_shard_nbytes()) if isinstance(buf, ShardedCatBuffer) else \
+            buf.buffer.numel() * buf.buffer.element_size()
+    return total / 2**20
+
+
+def run_criteo_auroc(card: str, dev, rows: int = CRITEO_ROWS, batch: int = CRITEO_BATCH,
+                     bins: int = CRITEO_HIST_BINS, shards: int = CRITEO_SHARDS, cpu_rows: int = 2_000_000,
+                     topk: int = 1000) -> tuple:
+    """Path ``criteo_dlrm_eval_auroc``: BinaryAUROC over the DLRM-DCNv2
+    evaluation set in batches of 65,536 (the last ragged), as three layouts
+    on the same updates. Returns (record, bincount launches, the kernel row
+    of the histogram's shape)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.parallel import sharded_compute as sc
+    from torchmetrics_tpu_torch.utils.data import dim_zero_cat, sharded_oracle
+
+    label = "criteo_dlrm_eval_auroc"
+    preds, target = _criteo_batches(dev, rows)
+    starts = range(0, rows, batch)
+    _zero_kernel_counts()
+    metrics = _auroc_layouts(dev, shards, bins)
+    ms_update, peak_mb = {}, {}
+    for name, m in metrics.items():
+        _peak_reset(dev)
+        base_mb = torch.cuda.memory_allocated() / 2**20 if dev.type == "cuda" else 0.0
+        t0 = time.perf_counter()
+        for s in starts:
+            m.update(preds[s:s + batch], target[s:s + batch])
+        _sync(dev)
+        ms_update[name] = (time.perf_counter() - t0) * 1e3 / len(starts)
+        peak_mb[name] = _peak_mb(dev) - base_mb if dev.type == "cuda" else None
+    rep, exact, hist = metrics["replicated"], metrics["sharded_exact"], metrics["sharded_hist"]
+    if exact.preds.n_shards != 1 or hist.preds.n_shards != shards or hist.preds.count != rows:
+        raise AssertionError(f"{label}: shards {exact.preds.n_shards}/{hist.preds.n_shards}, rows {hist.preds.count}")
+    values, compute_ms = {}, {}
+    for name, m in metrics.items():
+        m.compute()  # the first compute in a process imports modules: warm it
+        m._computed = None
+        before = bincount.weighted_bincount.launches
+        values[name], compute_ms[name] = _timed(m.compute)
+        if name == "sharded_hist":
+            hist_launches = bincount.weighted_bincount.launches - before
+    if hist_launches != shards:
+        raise AssertionError(f"{label}: the histogram compute launched the bincount {hist_launches} times, "
+                             f"expected one per shard ({shards})")
+    v_rep, v_exact, v_hist = (float(values[k]) for k in ("replicated", "sharded_exact", "sharded_hist"))
+    if not torch.equal(values["replicated"], values["sharded_exact"]):
+        raise AssertionError(f"{label}: the sharded exact AUROC {v_exact!r} is not bitwise the replicated {v_rep!r}")
+    counts = {}
+    for name, m in (("one_shard", exact), (f"{shards}_shards", hist)):
+        counts[name] = (sc.sharded_histogram(m.preds, bins), sc.sharded_histogram(m.preds, bins, weights=m.target))
+    for a, b in zip(*counts.values()):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{label}: sharded_histogram differs between 1 and {shards} shards")
+    every, pos = counts["one_shard"][0].long(), counts["one_shard"][1].long()
+    neg = every - pos
+    p_total, n_total = int(pos.sum()), int(neg.sum())
+    tie_bound = 0.5 * float((pos.double() * neg.double()).sum()) / (p_total * n_total)
+    gap = abs(v_hist - v_exact)
+    if not gap <= tie_bound + VALUE_TOL:  # the float32 arithmetic of the two values
+        raise AssertionError(f"{label}: histogram AUROC {v_hist} is {gap} from the exact {v_exact}, "
+                             f"past its tie bound {tie_bound}")
+    with sharded_oracle():
+        dense = dim_zero_cat(hist.preds)
+    if not torch.equal(sc.sharded_topk(hist.preds, topk), torch.topk(dense, topk).values):
+        raise AssertionError(f"{label}: sharded_topk({topk}) differs from torch.topk of the dense rows")
+    mean, var = sc.sharded_moments(hist.preds)
+    d64 = dense.double()
+    moments_err = max(abs(float(mean) - float(d64.mean())), abs(float(var) - float(d64.var(unbiased=False))))
+    _hold(label, "sharded_moments against float64", moments_err, MOMENTS_TOL)
+    del d64
+    one = sc.reshard(hist.preds, devices=[dev])
+    if one.n_shards != 1 or not torch.equal(one.materialize(), hist.preds.materialize()):
+        raise AssertionError(f"{label}: reshard from {shards} shards to 1 changed the rows")
+    del one
+    launches = bincount.weighted_bincount.launches
+
+    # the first cpu_rows (whole batches) on the card and on the CPU
+    cpu_dev = torch.device("cpu")
+    n_cpu = min(rows, -(-cpu_rows // batch) * batch)
+    card_small, cpu_small = _auroc_layouts(dev, shards, bins), _auroc_layouts(cpu_dev, shards, bins)
+    p_cpu, t_cpu = preds[:n_cpu].cpu(), target[:n_cpu].cpu()
+    for s in range(0, n_cpu, batch):
+        for name in metrics:
+            card_small[name].update(preds[s:s + batch], target[s:s + batch])
+            cpu_small[name].update(p_cpu[s:s + batch], t_cpu[s:s + batch])
+    cpu_errs = {}
+    for name in metrics:
+        _tree_bitwise(label, f"{name} states against the CPU", card_small[name].metric_state,
+                      cpu_small[name].metric_state)
+        cpu_errs[name] = _check_value(label, f"{name} value against the CPU", card_small[name].compute(),
+                                      cpu_small[name].compute())
+    launches = bincount.weighted_bincount.launches  # with the small run's histogram compute on the card
+    del card_small, cpu_small, p_cpu, t_cpu, dense
+
+    # the kernel row at the histogram's shape: every row's joint index into 2·bins
+    x, t = exact.preds.valid_shards()[0], exact.target.valid_shards()[0]
+    idx = sc.score_buckets(x, bins) + bins * t.to(torch.int32)
+    kernel_row = {"case": "histogram_criteo_auroc", "entry": "1d", "s": 1, "n": rows, "bins": 2 * bins,
+                  "shared_idx": False, "weighted": False}
+    got = bincount.weighted_bincount(idx, None, 2 * bins)
+    want = bincount.weighted_bincount_plain(idx, None, 2 * bins)
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{label}: the kernel's histogram is not bitwise its plain version")
+    kernel_row["max_abs_err"] = 0.0
+    kernel_row["bitwise"] = True
+    if dev.type == "cuda":
+        kernel_row["ms"], kernel_row["host_ms"], kernel_row["ms_covered"] = time_ms(
+            lambda: bincount.weighted_bincount(idx, None, 2 * bins))
+        kernel_row["plain_ms"], kernel_row["plain_host_ms"], _ = time_ms(
+            lambda: bincount.weighted_bincount_plain(idx, None, 2 * bins), reps=5)
+        kernel_row["plain_is"] = "index_add_ of the plain version"
+        kernel_row["library_device_ms"] = library_device_ms(idx, None, 2 * bins)
+        kernel_row["library_ms"], _, kernel_row["library_covered"] = time_ms(library_call(idx, None, 2 * bins), reps=5)
+        kernel_row["bound_ms"] = bound_bytes(idx, None, 2 * bins) / HBM_BYTES_PER_S * 1e3
+        kernel_row["bound_by"] = "bytes"
+    del idx, got, want
+    record = {"phase": "a13", "path": label, "rows": rows, "batch": batch, "updates": len(starts),
+              "positives": p_total, "negatives": n_total, "hist_bins": bins, "shards": shards,
+              "ms_per_update": ms_update, "compute_ms": compute_ms, "peak_mb_over_updates": peak_mb,
+              "resident_mb": {k: _resident_mb(m) for k, m in metrics.items()},
+              "values": {"exact_replicated": v_rep, "exact_sharded": v_exact, "histogram": v_hist},
+              "exact_bitwise_replicated": True, "histogram_gap": gap, "histogram_tie_bound": tie_bound,
+              "histogram_launches_per_compute": hist_launches, "topk": topk, "topk_bitwise": True,
+              "moments_err_f64": moments_err, "reshard_4_to_1": "rows bitwise",
+              "cpu_rows": n_cpu, "cpu_states": "bitwise", "cpu_value_err": cpu_errs, "card": card}
+    return record, launches, kernel_row
+
+
+def _soak_members(dev, classes: int) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    return {"acc": tm.MulticlassAccuracy(num_classes=classes, validate_args=False, device=dev),
+            "ece": tm.MulticlassCalibrationError(num_classes=classes, n_bins=15, validate_args=False, device=dev)}
+
+
+def run_imagenet_chaos_soak(card: str, dev, images: int = 50_000, world: int = 4, windows: int = 200,
+                            classes: int = 1000, seed: int = 11) -> tuple:
+    """Path ``imagenet_chaos_soak``: ImageNet-1k validation's images over
+    ``world`` emulated ranks and ``windows`` sync windows (a window's images
+    split as evenly as they go), MulticlassAccuracy and
+    MulticlassCalibrationError(n_bins=15) on the card, rank 0 syncing
+    through ElasticSync over ChaosSync/FakeSync under the JAX package's
+    seeded soak schedule while every rank keeps updating (partition
+    semantics), beside a fault-free twin. Then rank 3 is preempted (its
+    checkpoint taken, one round without it), rank 0 merges the checkpoint
+    and rank 3 rejoins empty: full coverage, the twin's value. Returns
+    (record, bincount launches)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.parallel import (ChaosSchedule, ElasticSync, FakeSync, SyncPolicy, chaos_group,
+                                                 checkpoint_metric, elastic_stats, reset_elastic_stats)
+
+    label = "imagenet_chaos_soak"
+    g = torch.Generator(device=dev).manual_seed(173)
+    probs = torch.softmax(2.0 * torch.randn((images, classes), generator=g, device=dev), dim=-1)
+    labels = torch.randint(0, classes, (images,), generator=g, device=dev)
+    per_window = images // windows
+    split = [per_window // world + (r < per_window % world) for r in range(world)]
+    policy = SyncPolicy(retry_attempts=2, backoff_base_s=0.001)
+    _zero_kernel_counts()
+    chaos = [_soak_members(dev, classes) for _ in range(world)]
+    twin = [_soak_members(dev, classes) for _ in range(world)]
+    chaos_grp, twin_grp = [{} for _ in range(world)], [{} for _ in range(world)]
+    backs = chaos_group(chaos_grp, ChaosSchedule(seed=seed, n_rounds=windows, world=world, **SOAK_RATES))
+    for m in chaos[0].values():
+        m._sync_backend = ElasticSync(backs[0], policy=policy)
+    for m in twin[0].values():
+        m._sync_backend = FakeSync(twin_grp, 0)
+    ctrl = backs[0].controller
+    reset_elastic_stats()
+
+    def refresh(ranks, grp):
+        for r in range(world):
+            grp[r].clear()
+            for m in ranks[r].values():
+                grp[r].update(m.metric_state)
+
+    def synced_round(r0, twin0):
+        """Sync rank 0 and its twin, compare, compute; the coverage records."""
+        out = {}
+        for name in r0:
+            r0[name].sync()
+            twin0[name].sync()
+            full = r0[name].coverage.fraction == 1.0
+            if full:
+                _tree_bitwise(label, f"window {len(records)} {name}", r0[name].metric_state,
+                              twin0[name].metric_state)
+            got, want = r0[name].compute(), twin0[name].compute()
+            err = float((got.double() - want.double()).abs().max()) if full else 0.0
+            if full and name == "acc" and not torch.equal(got, want):
+                raise AssertionError(f"{label}: window {len(records)}: accuracy {got} != {want} at full coverage")
+            r0[name].unsync()
+            twin0[name].unsync()
+            out[name] = (r0[name].coverage.as_dict(), err)
+        return out
+
+    records, full_windows, value_err = [], 0, 0.0
+    offset = 0
+    t0 = time.perf_counter()
+    for w in range(windows):
+        for r in range(world):
+            p, t = probs[offset:offset + split[r]], labels[offset:offset + split[r]]
+            offset += split[r]
+            for name in chaos[r]:
+                chaos[r][name].update(p, t)
+                twin[r][name].update(p, t)
+        refresh(chaos, chaos_grp)
+        refresh(twin, twin_grp)
+        ctrl.advance()
+        present = world - len(ctrl.down)
+        rnd = synced_round(chaos[0], twin[0])
+        for name, (cov, err) in rnd.items():
+            if cov["ranks_present"] != present:
+                raise AssertionError(f"{label}: window {w} {name}: coverage {cov} but {present} ranks present")
+            if cov["fraction"] < 1.0 and cov["ranks_present"] >= world:
+                raise AssertionError(f"{label}: window {w}: degraded with every rank present")
+            value_err = max(value_err, err)
+        full_windows += rnd["acc"][0]["fraction"] == 1.0
+        records.append(rnd["acc"][0])
+    soak_s = time.perf_counter() - t0
+    _hold(label, "calibration error against the fault-free twin", value_err, VALUE_TOL)
+    stats = elastic_stats()
+    if full_windows < windows // 2 or full_windows == windows or not stats["recoveries"] or not stats["rejoins"]:
+        raise AssertionError(f"{label}: the schedule did not exercise both regimes: {full_windows} full windows, "
+                             f"stats {stats}")
+
+    # rank 3 preempted: its checkpoint, one round without it, the merge, its rejoin
+    blobs = {name: checkpoint_metric(m) for name, m in chaos[world - 1].items()}
+    backs2 = chaos_group(chaos_grp, ChaosSchedule({0: [("drop", world - 1)], 1: [("rejoin", world - 1)]}))
+    for m in chaos[0].values():
+        m._sync_backend = ElasticSync(backs2[0], policy=policy)
+    refresh(chaos, chaos_grp)
+    backs2[0].controller.advance()
+    degraded = {}
+    for name, m in chaos[0].items():
+        m._computed = None
+        degraded[name] = (m.compute(), m.coverage.as_dict())
+        if m.coverage.ranks_present != world - 1:
+            raise AssertionError(f"{label}: coverage {m.coverage} with rank {world - 1} preempted")
+    recovered = {name: m._sync_backend.merge_on_rejoin(m, blobs[name]) for name, m in chaos[0].items()}
+    chaos[world - 1] = _soak_members(dev, classes)  # the rejoined process starts empty
+    refresh(chaos, chaos_grp)
+    backs2[0].controller.advance()
+    rejoin_err = {}
+    for name, m in chaos[0].items():
+        m._computed = None
+        twin[0][name]._computed = None
+        got, want = m.compute(), twin[0][name].compute()
+        if m.coverage.fraction != 1.0:
+            raise AssertionError(f"{label}: coverage {m.coverage} after the rejoin")
+        rejoin_err[name] = _check_value(label, f"{name} after the rejoin against the twin", got, want)
+    launches = bincount.weighted_bincount.launches
+    return {"phase": "a13", "path": label, "images": images, "world": world, "windows": windows,
+            "images_per_rank_per_window": split, "members": ["MulticlassAccuracy", "MulticlassCalibrationError"],
+            "schedule": dict(seed=seed, n_rounds=windows, world=world, **SOAK_RATES),
+            "full_windows": full_windows, "degraded_windows": windows - full_windows, "elastic_stats": stats,
+            "soak_seconds": soak_s, "ece_max_err_full_coverage": value_err,
+            "preempt": {"degraded_coverage": {k: v[1] for k, v in degraded.items()},
+                        "recovered_rows": recovered, "rejoin_coverage": 1.0, "rejoin_err": rejoin_err},
+            "card": card}, launches
+
+
+def run_a13_paths(card: str, dev) -> tuple:
+    """Phase a13's two in-process paths; (records, bincount launches, the
+    histogram's kernel row)."""
+    records = []
+    t0 = time.perf_counter()
+    record, launches, kernel_row = run_criteo_auroc(card, dev)
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    records.append(record)
+    t0 = time.perf_counter()
+    record, soak_launches = run_imagenet_chaos_soak(card, dev)
+    record["seconds"] = time.perf_counter() - t0
+    record["kernel_launches"] = soak_launches
+    emit(record)
+    records.append(record)
+    if not launches or not soak_launches:
+        raise AssertionError(f"a13: the bincount launched {launches} and {soak_launches} times on the two paths")
+    return records, launches + soak_launches, kernel_row
+
+
+# ---------------------------------------------------------------------------
 # phase dist_sync: state sync over torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -7291,6 +7678,197 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+FID_FEATURES = 2048  # FID's pool3 width: its SUM states are 2 x (2048 + 2048^2) float32, 33.6 MB
+FID_SAMPLES = 1024  # per side and rank
+PREEMPT_TIMEOUT_S = 2.0  # rank 0's HostSync watchdog in the preempted-rank part
+PREEMPT_SLEEP_S = 12.0  # rank 1 stalls past rank 0's two degraded syncs, then exits
+
+
+def _acc_batch(rank: int, dev) -> tuple:
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(191 + rank)
+    return (torch.softmax(torch.randn((4096, 100), generator=g, device=dev), -1),
+            torch.randint(0, 100, (4096,), generator=g, device=dev))
+
+
+def _fid_sums(rank: int, dev, policy=None):
+    """FID over identity features (its SUM states at 2,048 features) and an
+    int32-state accuracy, on this rank's seeded data."""
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+
+    g = torch.Generator(device=dev).manual_seed(181 + rank)
+    fid = tm.FrechetInceptionDistance(feature=lambda x: x, device=dev, sync_policy=policy)
+    fid.update(torch.randn((FID_SAMPLES, FID_FEATURES), generator=g, device=dev), real=True)
+    fid.update(0.5 * torch.randn((FID_SAMPLES, FID_FEATURES), generator=g, device=dev) + 0.25, real=False)
+    acc = tm.MulticlassAccuracy(num_classes=100, device=dev, sync_policy=policy)
+    acc.update(*_acc_batch(rank, dev))
+    return fid, acc
+
+
+def _flat_sums(states: dict):
+    import torch
+
+    return torch.cat([states[k].reshape(-1).double() for k in sorted(states)])
+
+
+def _chunk_absmax(flat, chunk: int = 256):
+    import torch
+
+    pad = (-flat.numel()) % chunk
+    return torch.cat([flat, flat.new_zeros(pad)]).abs().reshape(-1, chunk).amax(1)
+
+
+def _dist_a13(rank: int, world: int, dev, out_dir) -> dict:
+    """Part (c) of dist_sync, on the spawned gloo ranks: the quantized sync of
+    FID's SUM states (16 and 8 bits; Metric.sync twice for the residual
+    carry, and reduce_state_in_graph), a transient timeout over real
+    collectives, and a preempted rank 1 (its checkpoint written, then a
+    stall past rank 0's timeouts, then exit). Rank 0 checks every bound;
+    returns this rank's record."""
+    import pickle
+
+    import torch
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+    from torchmetrics_tpu_torch.parallel import (ChaosSchedule, ChaosSync, CoverageError, ElasticSync, HostSync,
+                                                 Reduction, SyncPolicy, checkpoint_metric, elastic_stats,
+                                                 merge_checkpoint, reduce_state_in_graph, reset_elastic_stats,
+                                                 reset_wire_stats, wire_stats)
+
+    label = "dist_sync a13"
+    rec = {"quantized": {}}
+    launches = weighted_bincount.launches
+    fid, acc = _fid_sums(rank, dev)
+    names = [k for k in fid._defaults]
+    local = {k: getattr(fid, k) for k in names}
+    flats = HostSync().sync_tensor(_flat_sums(local).float(), Reduction.NONE).double()  # every rank's local bucket
+    exact_sum = flats.sum(0)
+    reset_wire_stats()
+    fid.sync()
+    exact_bytes = sum(wire_stats()["last_sync"][k] for k in ("bytes_reduced", "bytes_gathered"))
+    fid.unsync()
+    acc_ref = {k: v.clone() for k, v in acc.metric_state.items()}
+    acc.sync()
+    acc_synced = {k: v.clone() for k, v in acc.metric_state.items()}
+    acc.unsync()
+    for bits, qmax in ((16, 32767), (8, 127)):
+        policy = SyncPolicy(quantize_bits=bits)
+        q_fid, q_acc = _fid_sums(rank, dev, policy)
+        rounds, wire = [], []
+        for _ in range(2):
+            reset_wire_stats()
+            _, ms = _timed(q_fid.sync)
+            wire.append(sum(wire_stats()["last_sync"][k] for k in ("bytes_reduced", "bytes_gathered")))
+            rounds.append((_flat_sums({k: getattr(q_fid, k) for k in names}), ms))
+            q_fid.unsync()
+        reset_wire_stats()
+        pure, pure_ms = _timed(lambda: reduce_state_in_graph(q_fid.as_state(), policy=policy))
+        pure_wire = dict(wire_stats()["last_sync"])
+        q_acc.sync()
+        scales = torch.stack([_chunk_absmax(f) for f in flats]) / qmax  # (world, chunks)
+        n = exact_sum.numel()
+        slack = 1e-6 * exact_sum.abs()  # float32 rounding of the sums themselves
+        eager_bound = (scales.sum(0) / 2).repeat_interleave(256)[:n] + slack
+        s_in = scales.amax(0)
+        s_out = (_chunk_absmax(exact_sum) + world * s_in / 2) / qmax
+        pure_bound = (world * s_in / 2 + s_out / 2).repeat_interleave(256)[:n] + slack
+        first, second = rounds[0][0], rounds[1][0]
+        errs = {"eager_round1": (first - exact_sum).abs(), "eager_round2": (second - exact_sum).abs(),
+                "eager_mean_of_rounds": ((first + second) / 2 - exact_sum).abs(),
+                "pure": (_flat_sums({k: pure[k] for k in names}) - exact_sum).abs()}
+        # the two rounds' mean errs by the second round's residual alone, whose
+        # scales come from x plus the first residual: at most half a step larger
+        limits = {"eager_round1": eager_bound, "eager_round2": 2 * eager_bound,
+                  "eager_mean_of_rounds": eager_bound / 2 * (1 + 1 / qmax) + slack, "pure": pure_bound}
+        for what, err in errs.items():
+            if not bool((err <= limits[what]).all()):
+                worst = int(torch.argmax(err - limits[what]))
+                raise AssertionError(f"{label}: {bits}-bit {what} element {worst} off by {float(err[worst])}, "
+                                     f"bound {float(limits[what][worst])}")
+        for k, v in acc_synced.items():
+            if not torch.equal(getattr(q_acc, k), v):
+                raise AssertionError(f"{label}: {bits}-bit policy changed the int32 state {k}")
+        rec["quantized"][bits] = {
+            "eager_wire_bytes": wire, "exact_wire_bytes": exact_bytes, "eager_sync_ms": [r[1] for r in rounds],
+            "pure_ms": pure_ms, "pure_wire": {k: pure_wire[k] for k in ("bytes_reduced", "bytes_gathered",
+                                                                        "collectives_issued")},
+            "max_err": {k: float(v.max()) for k, v in errs.items()},
+            "max_err_over_bound": {k: float((errs[k] / limits[k]).max()) for k in errs}}
+    rec["quantized"]["elements"] = int(exact_sum.numel())
+    del flats, exact_sum, fid, local
+
+    # a transient timeout in round 1: one retry; its recovery barrier is a real gather
+    reset_elastic_stats()
+    chaos = ChaosSync(HostSync(timeout_s=5), ChaosSchedule({1: [("timeout", 1)]}))
+    es = ElasticSync(chaos, SyncPolicy(retry_attempts=1, backoff_base_s=0.01))
+    for rnd in range(2):
+        chaos.advance_round()
+        _, ms = _timed(lambda: acc.sync(sync_backend=es))
+        for k, v in acc_synced.items():
+            if not torch.equal(getattr(acc, k), v):
+                raise AssertionError(f"{label}: round {rnd} with a transient timeout: {k} differs bitwise")
+        if es.last_coverage.fraction != 1.0:
+            raise AssertionError(f"{label}: round {rnd} coverage {es.last_coverage}")
+        acc.unsync()
+        rec[f"transient_round{rnd}_ms"] = ms
+    stats = elastic_stats()
+    if not stats["retries"] or not stats["recoveries"] or stats["degraded_syncs"] or chaos.poisoned:
+        raise AssertionError(f"{label}: the transient timeout: {stats}, poisoned {chaos.poisoned}")
+    rec["transient"] = {"elastic_stats": stats, "states": "bitwise the fault-free round", "coverage": 1.0}
+    torch.distributed.barrier()
+
+    # a preempted rank 1: it checkpoints, stalls past rank 0's timeouts, and exits
+    ckpt = out_dir / "rank1_a13.ckpt"
+    if rank == 1:
+        tmp = out_dir / "rank1_a13.tmp"
+        tmp.write_bytes(pickle.dumps(checkpoint_metric(acc)))
+        tmp.rename(ckpt)
+        rec["launches"] = weighted_bincount.launches - launches
+        time.sleep(PREEMPT_SLEEP_S)
+        rec["preempted"] = "checkpointed, stalled, exited"
+        return rec
+    t0 = time.monotonic()
+    try:
+        es = ElasticSync(HostSync(timeout_s=PREEMPT_TIMEOUT_S), SyncPolicy(retry_attempts=0))
+        acc.sync(sync_backend=es)
+        cov = es.last_coverage
+        for k, v in acc_ref.items():
+            if not torch.equal(getattr(acc, k), v):
+                raise AssertionError(f"{label}: the degraded sync changed {k}")
+        acc.unsync()
+    except Exception as e:  # gloo's own error when the peer exited first
+        raise AssertionError(f"{label}: rank 0's degraded sync raised {type(e).__name__}: {e}") from e
+    if (cov.ranks_present, cov.ranks_expected, cov.fraction) != (1, 2, 0.5):
+        raise AssertionError(f"{label}: degraded coverage {cov}")
+    try:
+        acc.sync(sync_backend=ElasticSync(HostSync(timeout_s=PREEMPT_TIMEOUT_S),
+                                          SyncPolicy(retry_attempts=0, min_coverage=0.75)))
+        raise AssertionError(f"{label}: min_coverage=0.75 did not raise at coverage 1/2")
+    except CoverageError as e:
+        coverage_error = str(e)
+    if acc._is_synced or any(not torch.equal(getattr(acc, k), v) for k, v in acc_ref.items()):
+        raise AssertionError(f"{label}: the refused sync left the state changed")
+    degrade_s = time.monotonic() - t0
+    while not ckpt.exists():
+        time.sleep(0.05)
+    merge_checkpoint(acc, pickle.loads(ckpt.read_bytes()))
+    one = tm.MulticlassAccuracy(num_classes=100, device=dev)
+    for r in range(world):
+        one.update(*_acc_batch(r, dev))
+    for k, v in one.metric_state.items():
+        if not torch.equal(getattr(acc, k), v):
+            raise AssertionError(f"{label}: after merging rank 1's checkpoint {k} is not one process's")
+    rec["preempt"] = {"degraded_coverage": cov.as_dict(), "min_coverage_0.75": "CoverageError",
+                      "coverage_error": coverage_error[:200], "seconds_for_both_syncs": degrade_s,
+                      "merged": "bitwise one process over all the data", "peer_error": None}
+    rec["launches"] = weighted_bincount.launches - launches
+    return rec
+
+
 def _dist_rank(rank: int, world: int, init_file: str, out_dir: str, device: str = "cuda") -> None:
     """One rank of part (b): join the gloo group, update this rank's half of
     each path, sync (``Metric.sync`` through ``HostSync`` and
@@ -7393,6 +7971,8 @@ def _dist_rank(rank: int, world: int, init_file: str, out_dir: str, device: str 
             del coll, inputs, state, reduced_np, synced
         dist.barrier()
         (out / f"rank{rank}.json").write_text(json.dumps(report))
+        # part (c) last: rank 1 leaves the group in its preempted-rank part
+        (out / f"rank{rank}_a13.json").write_text(json.dumps(_dist_a13(rank, world, dev, out)))
     except BaseException:
         (out / f"rank{rank}.err").write_text(traceback.format_exc())
         raise
@@ -7512,6 +8092,12 @@ def dist_sync_two_ranks_gloo(tmpdir: str, world: int = 2, device: str = "cuda") 
                       "stateful": rows[0]["stateful"], "pure": rows[0]["pure"], "values": rows[0]["values"]}
     if not any(row["launches"] for rep in reports for row in rep["paths"].values()):
         raise AssertionError("dist_sync: no rank launched the bincount kernel")
+    a13 = [json.loads((pathlib.Path(tmpdir) / f"rank{r}_a13.json").read_text()) for r in range(world)]
+    launches["weighted_bincount"] += sum(rec["launches"] for rec in a13)
+    out["a13"] = {"quantized_fid_sums": a13[0]["quantized"], "transient_timeout": a13[0]["transient"],
+                  "transient_round_ms": [a13[0][f"transient_round{i}_ms"] for i in range(2)],
+                  "preempted_rank": a13[0]["preempt"], "rank1": a13[1].get("preempted"),
+                  "launches_per_rank": [rec["launches"] for rec in a13]}
     if device == "cuda" and not launches["tdigest_compress"]:
         raise AssertionError("dist_sync: no rank launched the t-digest compress kernel")
     return out, launches
@@ -7609,6 +8195,9 @@ def main() -> int:
     launches += a11c_launches
     _, a11d_launches = run_a11d_paths(card, dev)  # emits each path's record as it ends
     launches += a11d_launches
+    _, a13_launches, a13_kernel_row = run_a13_paths(card, dev)  # emits each path's record as it ends
+    launches += a13_launches
+    kernel["cases"].append(a13_kernel_row)
     for record in run_model_paths(card, dev):
         emit(record)
     record, dist_launches = dist_sync(card)
@@ -7639,7 +8228,7 @@ def main() -> int:
         "shape": {"s": main_case["s"], "n": main_case["n"], "bins": main_case["bins"], "shared_idx": True,
                   "weighted": True},
         "slice_cases": {c["case"]: {k: c[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_device_ms",
-                                                      "library_ms", "max_abs_err", "plan", "transpose_ms")
+                                                      "library_ms", "max_abs_err", "plan", "transpose_ms", "n", "bins")
                                     if k in c}
                         for c in kernel["cases"] if c["case"] in SLICE_CASES},
     }, {

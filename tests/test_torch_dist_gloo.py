@@ -154,7 +154,7 @@ def _case_reduce_state(rank):
 def _case_options(rank):
     """dist_sync_on_step, all_gather_object, the watchdog thread, NONE and
     MEAN/MAX/MIN leaves, the list layout's cat gather, -0.0 and bool bytes,
-    and the quantized policy's refusal."""
+    and a quantized policy on the eager and the pure route."""
     out = {}
     step = P.SumMetric(dist_sync_on_step=True, device="cpu")
     out["step"] = float(step(torch.tensor([1.0, 2.0]) * (10 ** rank)))
@@ -178,16 +178,11 @@ def _case_options(rank):
         listed.update(torch.tensor([0.5, 1.5]))
         listed.update(torch.tensor([2.5]))
     out["listed"] = listed.compute().numpy()
-    quantized = P.SumMetric(device="cpu", sync_policy=SyncPolicy(quantize_bits=8))
+    quantized = P.SumMetric(device="cpu", sync_policy=SyncPolicy(quantize_bits=8, quantize_threshold=1))
     quantized.update(torch.tensor([1.0]))
-    try:
-        quantized.compute()
-    except NotImplementedError as e:
-        out["quantized"] = str(e)
-    try:
-        reduce_state_in_graph({"a": torch.ones(2)}, {"a": Reduction.SUM}, policy=SyncPolicy(quantize_bits=16))
-    except NotImplementedError as e:
-        out["quantized_pure"] = str(e)
+    out["quantized"] = float(quantized.compute())
+    out["quantized_pure"] = reduce_state_in_graph({"a": torch.ones(2)}, {"a": Reduction.SUM},
+                                                  policy=SyncPolicy(quantize_bits=16, quantize_threshold=1))["a"]
     dist.barrier()
     return out
 
@@ -280,14 +275,136 @@ def _case_pearson_retrieval(rank):
     return out
 
 
+D_FEAT = 64  # FID's state shapes at a narrow feature width
+PREEMPT_SLEEP_S = 11.0  # rank 1 stalls past every timeout of rank 0's three syncs, then exits
+_OUT_DIR = [None]
+
+
+def _feature_batches(rank):
+    rng = np.random.RandomState(500 + rank)
+    return [(torch.from_numpy(rng.randn(n, D_FEAT).astype(np.float32)),
+             torch.from_numpy((rng.randn(n, D_FEAT) * 0.5 + 0.25).astype(np.float32))) for n in ROWS[rank]]
+
+
+def _fid_acc(rank, policy=None):
+    """FID's float32 SUM states (identity features) and an int32-state accuracy."""
+    fid = P.FrechetInceptionDistance(feature=lambda x: x, device="cpu", sync_policy=policy)
+    acc = P.MulticlassAccuracy(num_classes=C, average="macro", device="cpu", sync_policy=policy)
+    for (real, fake), (p, t, _) in zip(_feature_batches(rank), _classification_batches(rank)):
+        fid.update(real, real=True)
+        fid.update(fake, real=False)
+        acc.update(p, t)
+    return fid, acc
+
+
+def _preempt_metrics():
+    return {"acc": P.MulticlassAccuracy(num_classes=C, average="macro", device="cpu"),
+            "exact": P.MulticlassAUROC(num_classes=C, device="cpu")}
+
+
+def _case_elastic(rank):
+    """The quantized sync of FID's SUM states (16 and 8 bits, eager and
+    pure, two eager rounds for the residual carry), a transient timeout
+    over real collectives, and a preempted rank 1: rank 0 degrades, raises
+    under min_coverage, pins the JAX package's behaviour with retries
+    (the poison RuntimeError) and merges rank 1's checkpoint."""
+    import pathlib
+    import pickle
+
+    from torchmetrics_tpu_torch.parallel import (ChaosSchedule, ChaosSync, CoverageError, ElasticSync,
+                                                 checkpoint_metric, elastic_stats, merge_checkpoint,
+                                                 reset_elastic_stats)
+    from torchmetrics_tpu_torch.parallel import elastic as elastic_mod
+
+    out_dir = pathlib.Path(_OUT_DIR[0])
+    out = {"local": {}, "quantized": {}}
+    fid, acc = _fid_acc(rank)
+    out["local"] = {"fid": state_to_numpy(fid), "acc": state_to_numpy(acc)}
+    for bits in (16, 8):
+        policy = SyncPolicy(quantize_bits=bits)
+        q_fid, q_acc = _fid_acc(rank, policy)
+        rounds, wires = [], []
+        for _ in range(2):
+            reset_wire_stats()
+            q_fid.sync()
+            wires.append(sum(wire_stats()["last_sync"][k] for k in ("bytes_reduced", "bytes_gathered")))
+            rounds.append(state_to_numpy(q_fid))
+            q_fid.unsync()
+        q_acc.sync()
+        pure = reduce_state_in_graph(fid.as_state(), policy=policy)
+        out["quantized"][bits] = {"eager": rounds, "eager_bytes": wires, "acc": state_to_numpy(q_acc),
+                                  "pure": state_to_numpy(dict(pure))}
+    reset_wire_stats()
+    fid.sync()
+    out["exact_bytes"] = sum(wire_stats()["last_sync"][k] for k in ("bytes_reduced", "bytes_gathered"))
+    out["exact"] = state_to_numpy(fid)
+    fid.unsync()
+
+    # a transient timeout in round 1: one retry, its recovery barrier a real gather
+    reset_elastic_stats()
+    chaos = ChaosSync(HostSync(timeout_s=5), ChaosSchedule({1: [("timeout", 1)]}))
+    es = ElasticSync(chaos, SyncPolicy(retry_attempts=1, backoff_base_s=0.01))
+    rounds = []
+    for _ in range(2):
+        chaos.advance_round()
+        acc.sync(sync_backend=es)
+        rounds.append((state_to_numpy(acc), es.last_coverage.as_dict()))
+        acc.unsync()
+    out["transient"] = {"rounds": rounds, "stats": elastic_stats(), "poisoned": chaos.poisoned}
+    dist.barrier()
+
+    # a preempted rank: rank 1 checkpoints and stalls, rank 0 syncs alone
+    metrics = _preempt_metrics()
+    for p, t, _ in _classification_batches(rank):
+        for m in metrics.values():
+            m.update(p, t)
+    if rank == 1:
+        tmp = out_dir / "rank1.ckpt.tmp"
+        tmp.write_bytes(pickle.dumps({k: checkpoint_metric(m) for k, m in metrics.items()}))
+        tmp.rename(out_dir / "rank1.ckpt")
+        time.sleep(PREEMPT_SLEEP_S)
+        return out
+    acc0 = metrics["acc"]
+    local = state_to_numpy(acc0)
+    res = out["preempt"] = {}
+    t0 = time.monotonic()
+    try:
+        es = ElasticSync(HostSync(timeout_s=2), SyncPolicy(retry_attempts=0))
+        acc0.sync(sync_backend=es)
+        res["degraded"] = (state_to_numpy(acc0), es.last_coverage.as_dict())
+        acc0.unsync()
+    except Exception as e:  # a peer that already exited: gloo's own error
+        res["degraded_error"] = f"{type(e).__name__}: {e}"
+    try:
+        acc0.sync(sync_backend=ElasticSync(HostSync(timeout_s=2), SyncPolicy(retry_attempts=0, min_coverage=0.75)))
+    except CoverageError as e:
+        res["min_coverage"] = ("CoverageError", str(e), acc0._is_synced, state_to_numpy(acc0))
+    # the JAX package's behaviour with retries: the recovery barrier times out
+    # too, the backend stays poisoned and the last attempt raises
+    elastic_mod._BACKOFF_CAP_S = 1.0
+    try:
+        acc0.sync(sync_backend=ElasticSync(HostSync(timeout_s=2), SyncPolicy(retry_attempts=1, backoff_base_s=0.01)))
+        res["with_retries"] = "synced"
+    except Exception as e:
+        res["with_retries"] = f"{type(e).__name__}: {e}"
+    res["seconds"] = time.monotonic() - t0
+    res["local"] = local
+    blobs = pickle.loads((out_dir / "rank1.ckpt").read_bytes())
+    res["recovered"] = {k: merge_checkpoint(m, blobs[k]) for k, m in metrics.items()}
+    res["merged"] = {k: state_to_numpy(m) for k, m in metrics.items()}
+    return out
+
+
 CASES = {"metric_sync": _case_metric_sync, "reduce_state": _case_reduce_state, "options": _case_options,
-         "online": _case_online, "overlap": _case_overlap, "pearson_retrieval": _case_pearson_retrieval}
+         "online": _case_online, "overlap": _case_overlap, "pearson_retrieval": _case_pearson_retrieval,
+         "elastic": _case_elastic}
 
 
 def _worker(rank, case, init_file, out_dir):
     import pathlib
 
     out_dir = pathlib.Path(out_dir)
+    _OUT_DIR[0] = str(out_dir)
     try:
         dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=WORLD, rank=rank,
                                 timeout=datetime.timedelta(seconds=60))
@@ -399,7 +516,9 @@ def test_sync_options_over_two_processes(tmp_path):
         np.testing.assert_array_equal(got["scatter"], np.arange(10, dtype=np.int32) * 3)
         assert torch.equal(got["cat_tensor"], torch.arange(3, dtype=torch.int64).reshape(1, 3))
         np.testing.assert_array_equal(got["listed"], np.array([0.5, 1.5, 2.5], np.float32))
-        assert "A13" in got["quantized"] and "A13" in got["quantized_pure"]
+        # 1.0 per rank quantizes exactly at 8 bits; 1.0 at 16 bits comes back within a scale step
+        assert got["quantized"] == 2.0
+        np.testing.assert_allclose(got["quantized_pure"].numpy(), [2.0, 2.0], rtol=0, atol=2 * 2.0 / 32767)
     assert (r0["step_local"], r1["step_local"]) == (3.0, 30.0)
 
 
@@ -479,3 +598,74 @@ def test_pearson_moments_and_retrieval_rows_sync_like_one_process(tmp_path):
             _assert_tree_equal(states["map"], ref_states["map"], f"{how} map")
         np.testing.assert_allclose(got["values"]["pearson"], ref["pearson"].compute().numpy(), rtol=1e-6, atol=1e-6)
         _assert_tree_equal(got["values"]["map"], ref["map"].compute().numpy(), "map value")
+
+
+def _chunk_scales(flat, qmax, chunk=256):
+    pad = (-flat.size) % chunk
+    return np.abs(np.concatenate([flat, np.zeros(pad)])).reshape(-1, chunk).max(axis=1) / qmax
+
+
+def _flat(states):
+    return np.concatenate([np.asarray(states[k], np.float64).reshape(-1) for k in sorted(states)])
+
+
+def test_quantized_and_elastic_sync_over_two_processes(tmp_path):
+    """FID's SUM states under quantize_bits 16 and 8 stay within the
+    quantization bound of every chunk on both routes (the eager route:
+    each rank's scale, ``Σ s_r / 2``; the pure route ``world · s_in / 2 +
+    s_out / 2``), with fewer wire bytes than the exact sync; two eager
+    rounds average to within half the bound (the residual carry); integer
+    states stay bitwise. A transient timeout recovers bitwise with full
+    coverage. A preempted rank 1: rank 0 degrades to its own state at
+    coverage 1/2, raises CoverageError under min_coverage with its state
+    intact, raises the poison RuntimeError with retries (the JAX package's
+    behaviour), and after merging rank 1's checkpoint holds one process's
+    states bitwise."""
+    r0, r1 = _run("elastic", tmp_path)
+    fids = [r["local"]["fid"] for r in (r0, r1)]
+    float_names = sorted(fids[0])
+    exact = _flat(fids[0]) + _flat(fids[1])
+    for r in (r0, r1):
+        np.testing.assert_array_equal(_flat(r["exact"]), np.asarray(_flat(r0["exact"])))
+    acc_sum = {k: r0["local"]["acc"][k] + r1["local"]["acc"][k] for k in r0["local"]["acc"]}
+    for bits, qmax in ((16, 32767), (8, 127)):
+        s_ranks = [_chunk_scales(_flat(f), qmax) for f in fids]
+        eager_bound = np.repeat(sum(s_ranks) / 2, 256)[: exact.size] + 1e-6 * np.abs(exact)
+        s_in = np.maximum(*s_ranks)
+        s_out = (_chunk_scales(exact, 1.0) + WORLD * s_in / 2) / qmax
+        pure_bound = np.repeat(WORLD * s_in / 2 + s_out / 2, 256)[: exact.size] + 1e-6 * np.abs(exact)
+        for r in (r0, r1):
+            q = r["quantized"][bits]
+            first, second = (_flat({k: rd[k] for k in float_names}) for rd in q["eager"])
+            assert (np.abs(first - exact) <= eager_bound).all(), bits
+            assert (np.abs(second - exact) <= 2 * eager_bound).all(), bits
+            # the mean errs by the second round's residual, whose scales are at most half a step larger
+            assert (np.abs((first + second) / 2 - exact) <= eager_bound / 2 * (1 + 1 / qmax)
+                    + 1e-6 * np.abs(exact)).all(), bits
+            assert (np.abs(_flat(q["pure"]) - exact) <= pure_bound).all(), bits
+            _assert_tree_equal(q["acc"], acc_sum, f"acc at {bits} bits")
+            assert q["eager_bytes"][0] < r["exact_bytes"] * (0.55 if bits == 16 else 0.3), (bits, q["eager_bytes"])
+    for r in (r0, r1):
+        t = r["transient"]
+        for states, cov in t["rounds"]:
+            _assert_tree_equal(states, acc_sum, "transient")
+            assert cov["fraction"] == 1.0
+        assert t["stats"]["retries"] >= 1 and t["stats"]["recoveries"] >= 1 and t["stats"]["degraded_syncs"] == 0
+        assert not t["poisoned"]
+    pre = r0["preempt"]
+    assert "degraded_error" not in pre, pre.get("degraded_error")
+    states, cov = pre["degraded"]
+    _assert_tree_equal(states, pre["local"], "degraded")
+    assert (cov["ranks_present"], cov["ranks_expected"], cov["fraction"]) == (1, 2, 0.5)
+    kind, message, synced, states = pre["min_coverage"]
+    assert kind == "CoverageError" and "min_coverage" in message and not synced
+    _assert_tree_equal(states, pre["local"], "min_coverage")
+    assert pre["with_retries"].startswith("RuntimeError") and "poison" in pre["with_retries"]
+    assert pre["recovered"] == {"acc": 0, "exact": sum(ROWS[1])}
+    ref = _preempt_metrics()
+    for rank in range(WORLD):
+        for p, t, _ in _classification_batches(rank):
+            for m in ref.values():
+                m.update(p, t)
+    for k, m in ref.items():
+        _assert_tree_equal(pre["merged"][k], state_to_numpy(m), f"merged {k}")

@@ -413,14 +413,21 @@ def test_exact_class_facades_default_to_exact(facade, kw, task):
 
 
 def test_binary_auroc_hist_bins_is_validated_and_exact_on_a_replicated_state():
+    """``hist_bins`` selects the histogram over sharded state and is refused
+    on a replicated one, as the JAX class refuses it; the replicated AUROC
+    stays exact."""
     p, t = _probs(43)
-    m = P.BinaryAUROC(hist_bins=64, device="cpu")
+    with pytest.raises(ValueError, match="sharded"):
+        P.BinaryAUROC(hist_bins=64, device="cpu")
+    with pytest.raises(ValueError, match="sharded"):
+        J.BinaryAUROC(hist_bins=64)
+    m = P.BinaryAUROC(device="cpu")
     m.update(_t(p), _t(t))
     _assert_close(m.compute(), JF.binary_auroc(_j(p), _j(t)), TOL)
     with pytest.raises(ValueError, match="hist_bins"):
-        P.BinaryAUROC(hist_bins=1, device="cpu")
+        P.BinaryAUROC(hist_bins=1, cat_layout="sharded", device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
-        P.BinaryAUROC(hist_bins=8, max_fpr=0.5, device="cpu")
+        P.BinaryAUROC(hist_bins=8, max_fpr=0.5, cat_layout="sharded", device="cpu")
 
 
 def test_exact_scalar_classes_share_one_update_in_a_collection():

@@ -282,8 +282,10 @@ def _mean_world(n_tenants=3, seed=5, policy=None):
 
 
 @pytest.mark.parametrize("policy", [None, SyncPolicy(exact=True), SyncPolicy(gather="psum"),
-                                    SyncPolicy(reduce_scatter_threshold=1)],
-                         ids=["default", "exact", "psum", "reduce_scatter"])
+                                    SyncPolicy(reduce_scatter_threshold=1),
+                                    SyncPolicy(gather="all_gather", quantize_bits=8, quantize_threshold=1,
+                                               quantize_chunk=1)],
+                         ids=["default", "exact", "psum", "reduce_scatter", "quantized"])
 def test_eager_sync_parity(policy):
     ranks, fleet = _mean_world(policy=policy)
     ranks[0].sync(sync_backend=FakeSync([s.metric_state for s in ranks], 0))
@@ -429,6 +431,39 @@ def test_reset_keeps_the_roster():
     stack.reset()
     assert stack.tenant_valid.tolist() == [True, True, True, False]
     assert int(stack.tenant_count.sum()) == 0
+
+
+def test_stack_checkpoint_rejoin_under_chaos():
+    """A checkpointed stack rehydrates with its roster, syncs through one
+    transient timeout to the fault-free result, and keeps taking churn."""
+    from torchmetrics_tpu_torch.parallel import (ChaosSchedule, ElasticSync, chaos_group, checkpoint_metric,
+                                                 rejoin_metric)
+
+    tenants = ["a", "b", "c"]
+    rng = np.random.RandomState(17)
+
+    def _mk():
+        return TenantStack(P.MeanMetric(**CPU), tenants=tenants)
+
+    data = [_t(rng.rand(_mk().slots, 4).astype(np.float32)) for _ in range(WORLD)]
+    ref = [_mk() for _ in range(WORLD)]
+    for r in range(WORLD):
+        ref[r].update(data[r])
+    ref[0].sync(sync_backend=FakeSync([m.metric_state for m in ref], 0))
+    fault_free = {t: float(v) for t, v in ref[0].results().items()}
+    ranks = [_mk() for _ in range(WORLD)]
+    for r in range(WORLD):
+        ranks[r].update(data[r])
+    revived = rejoin_metric(checkpoint_metric(ranks[1]))  # preempt and rehydrate
+    assert isinstance(revived, TenantStack) and revived.tenant_ids == tuple(tenants)
+    backs = chaos_group([ranks[0].metric_state, revived.metric_state], ChaosSchedule({0: [("timeout", 1)]}))
+    for r, m in enumerate((ranks[0], revived)):
+        m._sync_backend = ElasticSync(backs[r], policy=SyncPolicy(retry_attempts=1, backoff_base_s=0.01))
+    backs[0].controller.advance()
+    assert {t: float(v) for t, v in ranks[0].results().items()} == fault_free  # one retry recovers
+    assert ranks[0].coverage.fraction == 1.0
+    revived.add_tenant("d")
+    assert revived.slots == 4 and "d" in revived.tenant_ids
 
 
 def test_stack_pickle_roundtrip_keeps_roster_and_state():

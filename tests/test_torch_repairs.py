@@ -193,15 +193,6 @@ def test_constructors_accept_both_arguments_like_jax(make, compute_on_cpu):
     make(P, {**base, "device": "cpu"})
 
 
-def test_sharded_cat_layout_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A13"):
-        P.CatMetric(device="cpu", cat_layout="sharded")
-    with pytest.raises(ValueError, match="cat_layout"):
-        P.CatMetric(device="cpu", cat_layout="striped")
-    with pytest.raises(ValueError, match="cat_layout"):
-        J.CatMetric(cat_layout="striped")
-
-
 def _batches(seed=0, steps=4):
     rng = np.random.RandomState(seed)
     return [rng.rand(5 + i).astype(np.float32) for i in range(steps)]

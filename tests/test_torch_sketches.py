@@ -588,6 +588,7 @@ _POLICIES = {
     "exact": SyncPolicy(exact=True),
     "all_gather": SyncPolicy(gather="all_gather"),
     "psum": SyncPolicy(gather="psum"),
+    "quantized": SyncPolicy(gather="all_gather", quantize_bits=8, quantize_threshold=1),
     "reduce_scatter": SyncPolicy(reduce_scatter_threshold=1),
 }
 
@@ -622,11 +623,59 @@ def test_sketch_states_sync_bitwise_on_every_policy_route(name):
                 assert torch.equal(value, expected[key]), (name, col, key)
 
 
-def test_quantized_route_is_refused_until_a13():
-    ms = _sketch_ranks(SyncPolicy(gather="all_gather", quantize_bits=8, quantize_threshold=1))
-    ranks = [ms[r][0] for r in range(2)]
-    with pytest.raises(NotImplementedError, match="A13"):
-        ranks[0].sync(sync_backend=FakeSync([m.metric_state for m in ranks], 0))
+def test_sketch_checkpoint_merge_on_rejoin_matches_direct_merge():
+    """A preempted rank's checkpoint folds back into its peer as the direct
+    merge does, and the digest equals the JAX package's checkpoint merge."""
+    from torchmetrics_tpu.parallel.elastic import checkpoint_metric as j_checkpoint
+    from torchmetrics_tpu.parallel.elastic import merge_checkpoint as j_merge
+    from torchmetrics_tpu_torch.parallel import checkpoint_metric, merge_checkpoint
+
+    rng = np.random.RandomState(47)
+    da, db = rng.randn(2, 1_000).astype(np.float32)
+    a, b = P.ApproxQuantile(q=0.5, compression=64, **CPU), P.ApproxQuantile(q=0.5, compression=64, **CPU)
+    a.update(_t(da))
+    b.update(_t(db))
+    expected = a.merge_states([a._tensor_state(), b._tensor_state()])
+    merge_checkpoint(a, checkpoint_metric(b))
+    assert torch.equal(a.digest, expected["digest"])
+    ja, jb = J.ApproxQuantile(q=0.5, compression=64), J.ApproxQuantile(q=0.5, compression=64)
+    ja.update(jnp.asarray(da))
+    jb.update(jnp.asarray(db))
+    j_merge(ja, j_checkpoint(jb))
+    _assert_digests_agree(a.digest.numpy(), np.asarray(ja.digest))
+    rank = float(np.mean(np.concatenate([da, db]) <= float(a.compute())))
+    assert abs(rank - 0.5) <= a.error_bound()
+
+
+def test_sketch_metric_survives_elastic_drop_and_rejoin():
+    """ChaosSync drop: a degraded result over rank 0's data with coverage
+    1/2; rejoin: full coverage, bitwise the fault-free result."""
+    from torchmetrics_tpu_torch.parallel import ChaosSchedule, ElasticSync, chaos_group
+
+    data = np.random.RandomState(53).rand(2, 800).astype(np.float32)
+
+    def _ranks():
+        ms = [P.ApproxQuantile(q=0.5, compression=64, **CPU) for _ in range(2)]
+        for r, m in enumerate(ms):
+            m.update(_t(data[r]))
+        return ms
+
+    ref = _ranks()
+    ref[0]._sync_backend = FakeSync([m.metric_state for m in ref], 0)
+    fault_free = float(ref[0].compute())
+    ms = _ranks()
+    backs = chaos_group([m.metric_state for m in ms], ChaosSchedule({0: [("drop", 1)], 1: [("rejoin", 1)]}))
+    for r, m in enumerate(ms):
+        m._sync_backend = ElasticSync(backs[r], policy=SyncPolicy(retry_attempts=1, backoff_base_s=0.01))
+    ctrl = backs[0].controller
+    ctrl.advance()  # round 0: rank 1 absent
+    degraded = float(ms[0].compute())
+    cov = ms[0].coverage
+    assert cov.ranks_present == 1 and cov.ranks_expected == 2
+    assert abs(float(np.mean(data[0] <= degraded)) - 0.5) <= ms[0].error_bound()
+    ctrl.advance()  # round 1: rank 1 rejoins
+    ms[0]._computed = None
+    assert float(ms[0].compute()) == fault_free and ms[0].coverage.fraction == 1.0
 
 
 def test_sketch_sync_matches_jax_fakesync():

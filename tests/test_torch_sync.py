@@ -32,7 +32,7 @@ from torchmetrics_tpu.parallel import strategies as jax_strategies
 from torchmetrics_tpu_torch.interop import state_to_numpy
 from torchmetrics_tpu_torch.parallel import sync as port_sync
 from torchmetrics_tpu_torch.parallel import (FakeSync, HostSync, NoSync, Reduction, SyncPolicy, default_sync_backend,
-                                             reduce_state_in_graph, reset_wire_stats, use_policy, wire_stats)
+                                             reduce_state_in_graph, reset_wire_stats, wire_stats)
 from torchmetrics_tpu.utils.data import dim_zero_cat as jax_dim_zero_cat
 from tests.test_torch_classification import _assert_close, _assert_states_bitwise
 
@@ -413,20 +413,26 @@ def test_sync_policy_validates_like_jax(kwargs):
         SyncPolicy(**kwargs)
 
 
-def test_quantized_policy_refuses_to_sync():
-    policy = SyncPolicy(quantize_bits=8)
-    ranks = [P.SumMetric(device="cpu", sync_policy=policy) for _ in range(2)]
-    for m in ranks:
-        m.update(torch.ones(3))
-    ranks[0]._sync_backend = FakeSync(_group(ranks), 0)
-    with pytest.raises(NotImplementedError, match="A13"):
-        ranks[0].compute()
-    assert float(ranks[0].value) == 3.0 and not ranks[0]._is_synced
-    with use_policy(policy), pytest.raises(NotImplementedError, match="A13"):
-        reduce_state_in_graph({"a": torch.ones(2)}, {"a": Reduction.SUM})
-    # exact wins over quantize_bits, as in the JAX package
-    ranks[0]._sync_policy = SyncPolicy(quantize_bits=8, exact=True)
-    assert float(ranks[0].compute()) == 6.0
+def test_quantized_policy_syncs_within_the_bound(one_rank_group, monkeypatch):
+    """``quantize_bits=8`` on the pure route in a group of one: the float SUM
+    bucket goes through the quantized all-reduce (pmax, reduce-scatter, two
+    gathers) and comes back within the chunk's bound, ``s_in / 2 + s_out /
+    2``; the int32 bucket beside it stays exact, and ``exact=True`` wins over
+    ``quantize_bits``, as in the JAX package."""
+    x = torch.from_numpy(np.random.RandomState(3).uniform(-4, 4, 512).astype(np.float32))
+    counts = torch.arange(512, dtype=torch.int32) * 1000
+    policy = SyncPolicy(quantize_bits=8, quantize_threshold=64, quantize_chunk=64)
+    calls = []
+    real = port_sync.quantized_allreduce
+    monkeypatch.setattr(port_sync, "quantized_allreduce",
+                        lambda flat, *a, **k: calls.append(flat.dtype) or real(flat, *a, **k))
+    out = reduce_state_in_graph({"x": x, "n": counts}, {"x": Reduction.SUM, "n": Reduction.SUM}, policy=policy)
+    assert calls == [torch.float32]  # the float bucket only
+    scale = x.abs().reshape(8, 64).amax(1) / 127
+    assert bool(((out["x"] - x).abs().reshape(8, 64) <= scale[:, None] * 1.0001).all())
+    assert not torch.equal(out["x"], x) and torch.equal(out["n"], counts)
+    exact = reduce_state_in_graph({"x": x}, {"x": Reduction.SUM}, policy=SyncPolicy(quantize_bits=8, exact=True))
+    assert torch.equal(exact["x"], x)
 
 
 def test_default_backend_in_one_process_is_nosync():

@@ -10,11 +10,13 @@ stays on the device, without a host sync (one, to drop ignored rows, under
 """
 from typing import Any, Optional
 
+from ..buffers import ShardedCatBuffer
 from ..functional.classification import _exact_jit as _EJ
 from ..functional.classification.auroc import _binary_auroc_compute, _check_max_fpr, _reduce_auroc, _support
 from ..functional.classification.precision_recall_curve import Thresholds
 from ..functional.classification.roc import _multiclass_roc_compute, _multilabel_roc_compute
 from ..metric import Metric
+from ..parallel.sharded_compute import histogram_auroc
 from .base import _ClassificationTaskWrapper
 from .precision_recall_curve import (
     BinaryPrecisionRecallCurve,
@@ -28,11 +30,12 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
     """Binary AUROC, exact by default or binned; with ``max_fpr``, the
     McClish-standardised partial AUC up to that false-positive rate.
 
-    ``hist_bins`` is accepted as the JAX class accepts it (``auroc.py:55-72``):
-    there it selects a bucketed histogram over sharded cat state, and on a
-    replicated state the AUROC is exact. The port has no sharded layout
-    (ROADMAP A13), so the value is exact whatever ``hist_bins`` says; it is
-    validated as there, save that no sharded layout exists to require.
+    ``hist_bins`` (JAX ``auroc.py:46-72``) selects the bucketed histogram
+    over sharded cat state (``cat_layout="sharded"``, which it requires):
+    each shard's scores are counted by the bincount kernel into
+    ``hist_bins`` buckets and the AUROC is read off the summed histogram
+    (:func:`~torchmetrics_tpu_torch.parallel.sharded_compute.histogram_auroc`),
+    within half the tied positive-negative pairs of the exact value.
 
     Example:
         >>> import torch
@@ -53,6 +56,9 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
         if validate_args and hist_bins is not None:
             if not (isinstance(hist_bins, int) and hist_bins >= 2):
                 raise ValueError(f"Argument `hist_bins` should be an int >= 2, but got: {hist_bins}")
+            if self._cat_layout != "sharded":
+                raise ValueError("Argument `hist_bins` selects the bucketed-histogram AUROC backend, which only "
+                                 "applies to cat_layout='sharded' state")
             if max_fpr is not None:
                 raise ValueError("`hist_bins` and `max_fpr` are mutually exclusive")
         self.max_fpr = max_fpr
@@ -60,6 +66,9 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
 
     def compute(self):
         if self.thresholds is None:
+            if self.hist_bins is not None and isinstance(self.preds, ShardedCatBuffer):
+                valid = self.valid if "valid" in self._defaults else None
+                return histogram_auroc(self.preds, self.target, bins=self.hist_bins, valid=valid)
             return _EJ.binary_auroc_exact(*self._exact_state(), max_fpr=self.max_fpr)
         return _binary_auroc_compute(self.confmat, self.thresholds, self.max_fpr)
 

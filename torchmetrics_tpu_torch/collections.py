@@ -177,6 +177,12 @@ class MetricCollection(torch.nn.Module):
     def _register(self, name: str, metric: Metric) -> None:
         if name in self._metrics:
             raise ValueError(f"Encountered two metrics both named {name}")
+        if hasattr(type(self), name) and "." not in name:
+            # a member named as a collection attribute (a CoverageError keyed
+            # "coverage"), which add_module refuses: it is reached as coll[name]
+            # and the attribute stays the collection's, as with the JAX package's dict
+            self._modules[name] = metric
+            return
         self.add_module(name, metric)
 
     def _init_compute_groups(self) -> None:
@@ -367,6 +373,19 @@ class MetricCollection(torch.nn.Module):
         self._manual_groups = None
         self._groups = {i: [n] for i, n in enumerate(self._metrics)}
         self._groups_checked = True
+
+    @property
+    def coverage(self) -> Any:
+        """The members' worst elastic-sync coverage (the record with the
+        lowest fraction), or None when no member has an elastic backend: a
+        computed dict is as complete as its least covered member (JAX
+        ``collections.py:411``)."""
+        worst = None
+        for m in self._metrics.values():
+            cov = getattr(m, "coverage", None)
+            if cov is not None and (worst is None or cov.fraction < worst.fraction):
+                worst = cov
+        return worst
 
     def compute(self) -> Dict[str, Any]:
         """Parity: reference ``collections.py:314-359``. Each member syncs

@@ -43,12 +43,16 @@ def _clf_curve_filled(preds: Tensor, target: Tensor,
     n = preds.shape[-1]
     desc = _desc_order(preds)  # the eager path's tie and NaN placement
     p = torch.gather(preds, -1, desc)
-    t = torch.gather(target, -1, desc).to(torch.float32)
-    if weights is None:
-        tps_all, fps_all = torch.cumsum(t, dim=-1), torch.cumsum(1.0 - t, dim=-1)
-    else:
-        w = torch.gather(weights, -1, desc).to(torch.float32)
-        tps_all, fps_all = torch.cumsum(t * w, dim=-1), torch.cumsum((1.0 - t) * w, dim=-1)
+    t = torch.gather(target, -1, desc).to(torch.int64)
+    pos, neg = t, 1 - t
+    if weights is not None:
+        w = torch.gather(weights, -1, desc).to(torch.int64)
+        pos, neg = pos * w, neg * w
+    # running counts in int64, then float32: the JAX package's float32 scan
+    # while that is exact (below 2^24), exact past it, and the same on every
+    # run (a float32 scan on the card adds in an order that varies)
+    tps_all = torch.cumsum(pos, dim=-1).to(torch.float32)
+    fps_all = torch.cumsum(neg, dim=-1).to(torch.float32)
     distinct = torch.ones_like(p, dtype=torch.bool)
     distinct[..., :-1] = p[..., :-1] != p[..., 1:]
     idx = torch.arange(n, device=preds.device).expand_as(p)

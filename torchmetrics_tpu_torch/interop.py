@@ -8,8 +8,9 @@ This module imports neither JAX nor the JAX package: the exchange format is
 numpy alone.
 
 Mappings are ``{state: array}`` for a metric and ``{member: {state: array}}``
-for a collection; a list (``cat``) state is a sequence of arrays, in either
-layout. The windowed, decayed and running aggregators are metrics like any
+for a collection; a list (``cat``) state is a sequence of arrays, in any
+layout (a sharded state gives its rows shard-major, and loads into a
+``cat_layout="sharded"`` metric re-sharded on its mesh). The windowed, decayed and running aggregators are metrics like any
 other (their rings, cursors and counts are states). A composition or a
 wrapper is the mapping of its own states (if any) and of its children,
 under these keys:
@@ -107,6 +108,8 @@ def _load(target: Target, mapping: Mapping[str, Any]) -> Dict[str, Any]:
     own = {k: v for k, v in mapping.items() if k in target._defaults}
     state = _metric_state_from_numpy(target, own)
     target.load_state({k: list(v) if isinstance(v, tuple) else v for k, v in state.items()})
+    if target._cat_layout == "sharded":  # the rows land on the metric's eval mesh
+        target._adopt_padded_lists()
     state.update(_load_children(target, mapping))
     return state
 

@@ -50,9 +50,16 @@ build the online views of :mod:`~torchmetrics_tpu_torch.online`. Because
 its identity and the identity of its state tensors, never by their values
 (see :meth:`Metric.__hash__`).
 
+Sharded cat state: ``cat_layout="sharded"`` keeps each cat state in a
+:class:`~torchmetrics_tpu_torch.buffers.ShardedCatBuffer` over the eval mesh
+in force when the metric is built (:func:`~torchmetrics_tpu_torch.buffers.default_eval_mesh`);
+a sync gathers the rows and re-shards them. Elastic sync: a backend with
+``begin_round`` (:class:`~torchmetrics_tpu_torch.parallel.elastic.ElasticSync`)
+runs each sync as a membership round, and :attr:`Metric.coverage` reads the
+last round's coverage.
+
 Not ported: the XLA executable cache (graphs are per instance, see
-:mod:`~torchmetrics_tpu_torch._capture`); not ported yet: the sharded cat
-layout (``cat_layout="sharded"`` raises), quantized and elastic sync, spans/ledger/registry and ``plot``.
+:mod:`~torchmetrics_tpu_torch._capture`); not ported yet: spans/ledger/registry and ``plot``.
 """
 from __future__ import annotations
 
@@ -67,9 +74,9 @@ from torch.utils._pytree import tree_unflatten
 
 from ._capture import (CapturedStep, capturable_leaf, flatten_step, graph_key, is_graph_slot, new_input_slots,
                        signature_of, write_inputs)
-from .buffers import CatBuffer, CatLayoutError
+from .buffers import CatBuffer, CatLayoutError, ShardedCatBuffer, default_eval_mesh
 from .parallel.reduction import ELEMENTWISE_REDUCTIONS, Reduction, resolve_reduction
-from .parallel.strategies import SyncPolicy, begin_sync, default_policy, refuse_quantized
+from .parallel.strategies import SyncPolicy, begin_sync, default_policy, dequantize_chunks, quantize_chunks
 from .parallel.sync import SyncBackend, default_sync_backend, reduce_state_in_graph
 from .state import MetricState
 from .utils.data import dim_zero_cat
@@ -172,9 +179,11 @@ class Metric(torch.nn.Module):
             increments are moved to the CPU after it, as list-layout
             tensors, and compute reads them there; such a metric never
             captures its update (JAX ``metric.py:1004-1010,1058``).
-        cat_layout: ``"replicated"`` (the only layout here) keeps each cat
-            state whole on its device; ``"sharded"`` is ROADMAP A13 and
-            raises :class:`NotImplementedError`.
+        cat_layout: ``"replicated"`` keeps each cat state whole on its
+            device; ``"sharded"`` (with ``list_layout="padded"``) partitions
+            it over the eval mesh in force at construction, a
+            :class:`~torchmetrics_tpu_torch.buffers.ShardedCatBuffer`. A mesh
+            of more than one device makes the update eager (no capture).
 
     Example (defining a custom metric):
         >>> import torch
@@ -240,14 +249,14 @@ class Metric(torch.nn.Module):
             raise ValueError(f"list_layout must be 'padded' or 'list', got {list_layout!r}")
         if cat_layout not in ("replicated", "sharded"):
             raise ValueError(f"cat_layout must be 'replicated' or 'sharded', got {cat_layout!r}")
-        if cat_layout == "sharded":
-            raise NotImplementedError(
-                "cat_layout='sharded' partitions cat states across devices, which torchmetrics_tpu_torch does "
-                "not have yet (ROADMAP A13); use cat_layout='replicated'"
-            )
+        if cat_layout == "sharded" and list_layout != "padded":
+            raise ValueError("cat_layout='sharded' requires list_layout='padded'")
         super().__init__()
         self._device = resolve_device(device)
         self._list_layout = list_layout
+        self._cat_layout = cat_layout
+        # the mesh sharded cat states are allocated on (JAX default_eval_mesh)
+        self._eval_mesh = default_eval_mesh(like=self._device) if cat_layout == "sharded" else None
         self._layout_fallback: set = set()
         self._defaults: Dict[str, Any] = {}
         self._reductions: Dict[str, Union[Reduction, Callable]] = {}
@@ -267,8 +276,11 @@ class Metric(torch.nn.Module):
         self._is_synced = False
         self._cache: Optional[StateDict] = None
         self._in_pure_update = False
-        # host-resident cat states are moved after each update, which a graph cannot do
-        self._use_jit = bool(jit) and type(self).jittable and not self.compute_on_cpu
+        # host-resident cat states are moved after each update, and shards on
+        # several devices are written by copies across them, which a graph cannot do
+        multi_device = self._eval_mesh is not None and len(set(self._eval_mesh)) > 1
+        self._use_jit = bool(jit) and type(self).jittable and not self.compute_on_cpu and not multi_device
+        self._sync_residuals: Dict[tuple, Tensor] = {}  # quantized buckets' error-feedback carry
         self._apply_epoch = 0  # bumped by device and dtype moves: graphs over the old tensors are stale
         self._update_graphs: Dict[Any, CapturedStep] = {}
 
@@ -483,7 +495,7 @@ class Metric(torch.nn.Module):
         one view of its valid rows (none when empty), so bodies written for
         lists (``torch.cat``, ``dim_zero_cat``) read it without a copy."""
         views = {k: [v.materialize()] if len(v) else [] for k in self._list_states
-                 if isinstance(v := self.__dict__[k], CatBuffer)}
+                 if isinstance(v := self.__dict__[k], CatBuffer) and not isinstance(v, ShardedCatBuffer)}
         if not views:
             return compute_fn(self, *args, **kwargs)
         old = self._swap_state({}, views)
@@ -689,6 +701,36 @@ class Metric(torch.nn.Module):
             and self._reductions.get(name) == Reduction.CAT
         )
 
+    def _uses_sharded(self, name: str) -> bool:
+        return self._cat_layout == "sharded" and self._uses_padded(name)
+
+    def _sharded_state_names(self) -> frozenset:
+        return frozenset(n for n in self._list_states if self._uses_sharded(n))
+
+    def _new_cat_buffer(self, name: str, increments: Sequence[Any]) -> CatBuffer:
+        """The layout's buffer over ``increments`` (JAX ``metric.py:1016-1024``);
+        a sharded one carries ``Metric.state`` as its owner, which a refused
+        densify names."""
+        if self._uses_sharded(name):
+            return ShardedCatBuffer.from_increments(increments, mesh=self._eval_mesh,
+                                                    owner=f"{type(self).__name__}.{name}")
+        return CatBuffer.from_increments(increments)
+
+    def _adopt_padded_lists(self) -> None:
+        """Fold cat states held as plain lists of increments (a merged
+        checkpoint, a restored file) into the declared padded or sharded
+        buffer; ragged increments keep the list layout (JAX
+        ``metric.py:1065-1078``)."""
+        for k in self._list_states:
+            v = self.__dict__[k]
+            if isinstance(v, list) and v and self._uses_padded(k) \
+                    and all(isinstance(e, torch.Tensor) for e in v):
+                self._cat_meta[k] = (v[-1].dtype, tuple(v[-1].shape[1:]))
+                try:
+                    self.__dict__[k] = self._new_cat_buffer(k, v)
+                except CatLayoutError:
+                    self._layout_fallback.add(k)
+
     def _append_cat_increment(self, name: str, inc: Tensor, borrowed: bool = False) -> None:
         """Append one increment to a cat state in its layout. Under the
         padded layout a state still held as a list (empty, or loaded from a
@@ -706,8 +748,12 @@ class Metric(torch.nn.Module):
             try:
                 if isinstance(target, CatBuffer):
                     target.append(inc)
+                elif target:  # loaded increments first, then this one, as the JAX package appends them
+                    buf = self._new_cat_buffer(name, target)
+                    buf.append(inc)
+                    self.__dict__[name] = buf
                 else:
-                    self.__dict__[name] = CatBuffer.from_increments([*target, inc])
+                    self.__dict__[name] = self._new_cat_buffer(name, [inc])
                 return
             except CatLayoutError:
                 self._layout_fallback.add(name)
@@ -753,7 +799,8 @@ class Metric(torch.nn.Module):
     def as_state(self) -> MetricState:
         """Current state as a :class:`MetricState` (leaves shared, not copied)."""
         self._flush_pending()
-        return MetricState(self._state_view(), reductions=self._reductions, list_states=self._list_states)
+        return MetricState(self._state_view(), reductions=self._reductions, list_states=self._list_states,
+                           sharded_states=self._sharded_state_names())
 
     def load_state(self, state: Mapping[str, Any]) -> None:
         """Install state values from a mapping (tensors are shared, not copied)."""
@@ -851,7 +898,10 @@ class Metric(torch.nn.Module):
         ones. Parity: reference ``metric.py:490-532``, JAX
         ``metric.py:1203-1255``. The gathers fill a scratch dict that is
         installed only when all of them succeeded, so a failed one (a
-        ``HostSync`` timeout) leaves the local state as it was."""
+        ``HostSync`` timeout, a :class:`CoverageError`) leaves the local
+        state as it was. An elastic backend (one with ``begin_round``) runs
+        the sync as one membership round: the contribution probe first, the
+        coverage record after."""
         self._flush_pending()
         if self._is_synced:
             raise TorchMetricsUserError("The Metric has already been synced.")
@@ -860,7 +910,12 @@ class Metric(torch.nn.Module):
             return
         cache = self._snapshot_state()
         begin_sync()
+        elastic = hasattr(backend, "begin_round")
+        if elastic:
+            backend.begin_round(contrib=int(self._update_count), policy=self._sync_policy)
         synced = self._gather_synced(backend)
+        if elastic:
+            backend.end_round()
         self._cache = cache
         for name, value in synced.items():
             if name in self._list_states:
@@ -876,17 +931,21 @@ class Metric(torch.nn.Module):
         - object list states (``dist_reduce_fx=None``): each rank's list
           through ``all_gather_object``, extended in rank order;
         - fixed-shape elementwise states: bucketed by ``(Reduction, dtype)``,
-          one ``sync_tensor`` per bucket on the flattened concatenation;
+          one ``sync_tensor`` per bucket on the flattened concatenation; a
+          float SUM/MEAN bucket under a quantizing policy goes through
+          :meth:`_quantized_bucket_sync` instead (not on an addressed
+          backend, which reads its peers' states and has no payload to send);
         - padded cat states: ``sync_cat_padded(buffer, count)`` when the
           backend has it (the branch follows the layout, not the value, so
-          a rank with no rows issues the same collectives);
+          a rank with no rows issues the same collectives); a sharded state
+          ships its dense padded rows and is re-sharded on its mesh;
         - every other state: one ``sync_tensor`` of its concatenation.
 
         States are visited in sorted name order, the same on every rank;
         ``skip`` names states gathered elsewhere (the overlapped flush's cat
         states).
         """
-        refuse_quantized(self._sync_policy or default_policy())
+        policy = self._sync_policy or default_policy()
         synced: StateDict = {}
         addressed = hasattr(backend, "set_current")  # FakeSync's group addressing
         buckets: Dict[Tuple[Any, torch.dtype], list] = {}
@@ -903,9 +962,16 @@ class Metric(torch.nn.Module):
                     and hasattr(backend, "sync_cat_padded"):
                 if addressed:
                     backend.set_current(name)
+                if isinstance(value, ShardedCatBuffer):
+                    wire, count = value.padded_wire()
+                    synced[name] = ShardedCatBuffer.from_rows(backend.sync_cat_padded(wire, count), mesh=value.mesh,
+                                                              owner=value.owner)
+                    continue
                 if not isinstance(value, CatBuffer):  # still a list: empty, or loaded from a state_dict
                     value = CatBuffer.from_rows(self._precat(name))
-                synced[name] = CatBuffer.from_rows(backend.sync_cat_padded(value.buffer, value.count))
+                rows = backend.sync_cat_padded(value.buffer, value.count)
+                synced[name] = self._new_cat_buffer(name, [rows]) if self._uses_sharded(name) and len(rows) \
+                    else CatBuffer.from_rows(rows)
             else:
                 if addressed:
                     backend.set_current(name)
@@ -913,17 +979,46 @@ class Metric(torch.nn.Module):
                 synced[name] = ([rows] if len(rows) else []) if name in self._list_states else rows
         for (red, _), names in buckets.items():
             values = [self._buffers[n] for n in names]
-            if addressed:
-                backend.set_current(names[0] if len(names) == 1 else tuple(names))
-            if len(values) == 1:
+            quantize = not addressed and red in (Reduction.SUM, Reduction.MEAN) and not policy.exact \
+                and policy.quantize_bits is not None and values[0].is_floating_point() \
+                and sum(v.numel() for v in values) >= policy.quantize_threshold
+            if not quantize and len(values) == 1:
+                if addressed:
+                    backend.set_current(names[0])
                 synced[names[0]] = backend.sync_tensor(values[0], red)
                 continue
-            reduced = backend.sync_tensor(torch.cat([v.reshape(-1) for v in values]), red)
+            flat = torch.cat([v.reshape(-1) for v in values])
+            if quantize:
+                reduced = self._quantized_bucket_sync(backend, names, flat, red, policy)
+            else:
+                if addressed:
+                    backend.set_current(tuple(names))
+                reduced = backend.sync_tensor(flat, red)
             offset = 0
             for n, v in zip(names, values):
                 synced[n] = reduced[offset : offset + v.numel()].reshape(v.shape)
                 offset += v.numel()
         return synced
+
+    def _quantized_bucket_sync(self, backend: SyncBackend, names: List[str], flat: Tensor, red: Reduction,
+                               policy: SyncPolicy) -> Tensor:
+        """One float SUM/MEAN bucket as an int8/int16 payload and per-chunk
+        scales (JAX ``metric.py:1262-1290``): each rank's payload is gathered
+        (``Reduction.NONE``), dequantized and summed in rank order. The local
+        quantization error is kept in ``_sync_residuals`` under the bucket's
+        names and added to the next sync of the same bucket."""
+        bits = policy.quantize_bits or 8
+        key = tuple(names)
+        residual = self._sync_residuals.get(key)
+        x = flat if residual is None or residual.numel() != flat.numel() else flat + residual
+        q, scales, pad = quantize_chunks(x, bits, policy.quantize_chunk)
+        padded = torch.cat([x, x.new_zeros(pad)]) if pad else x
+        self._sync_residuals[key] = (padded - dequantize_chunks(q, scales, flat.dtype))[: flat.numel()]
+        # each gather records its own bytes (the JAX package records the payload once more here)
+        gq = backend.sync_tensor(q, Reduction.NONE)  # (world, Q)
+        gs = backend.sync_tensor(scales, Reduction.NONE)  # (world, C)
+        total = sum(dequantize_chunks(gq[r], gs[r], flat.dtype) for r in range(gq.shape[0]))[: flat.numel()]
+        return total / gq.shape[0] if red == Reduction.MEAN else total
 
     def _precat(self, name: str) -> Tensor:
         if name in self._list_states:
@@ -973,6 +1068,14 @@ class Metric(torch.nn.Module):
     @property
     def update_count(self) -> int:
         return self._update_count
+
+    @property
+    def coverage(self) -> Any:
+        """The coverage record (:class:`~torchmetrics_tpu_torch.parallel.elastic.Coverage`)
+        of this metric's last elastic sync round, or None when its backend
+        is not elastic or no round has settled. A fraction below 1 marks the
+        computed value as a partial result over the surviving ranks."""
+        return getattr(self._sync_backend, "last_coverage", None)
 
     def persistent(self, mode: bool = False) -> None:
         """Include (or drop) every state in ``state_dict``."""
@@ -1043,7 +1146,7 @@ class Metric(torch.nn.Module):
 
     def _defaults_signature(self) -> tuple:
         """Structural signature used by compute-group discovery."""
-        items = []
+        items = [("cat_layout", self._cat_layout, self._eval_mesh)] if self._cat_layout == "sharded" else []
         for k in sorted(self._defaults):
             v = self._defaults[k]
             if isinstance(v, list):

@@ -26,8 +26,10 @@ their states are fixed-shape tensors. :func:`label_results` (in
 ``utils/data.py``) labels a stacked axis for :meth:`TenantStack.results`
 and the classwise and group-fairness surfaces.
 
-Not ported: the executable-cache key of the JAX class (graphs are per
-instance, ROADMAP C), and its checkpoint/rejoin (ROADMAP A13).
+A stack pickles whole, so it checkpoints and rejoins through
+:mod:`~torchmetrics_tpu_torch.parallel.elastic` like any metric. Not
+ported: the executable-cache key of the JAX class (graphs are per
+instance, ROADMAP C).
 """
 from typing import Any, Dict, Iterable, List, Mapping, Tuple
 

@@ -22,9 +22,15 @@ the psum gather adds the bytes of one rank to zeros as integers.
 Every collective here takes CUDA tensors on NCCL and on gloo alike (gloo
 moves them through host memory itself), so no route stages anything.
 
-The quantized route (``quantize_bits``) is ROADMAP A13: a policy that asks
-for it is accepted and validated, and a sync under it raises
-:class:`NotImplementedError` rather than send full precision.
+The quantized route (``quantize_bits``, :func:`quantized_allreduce`) sends
+a float SUM/MEAN bucket as int8 or int16 with per-chunk shared scales: one
+``all_reduce(MAX)`` of the chunks' absolute maxima, an integer
+``reduce_scatter_tensor``, then ``all_gather`` of the requantized shards and
+their scales. The integer reduce-scatter runs in int32 whatever the bit
+width: neither NCCL nor gloo reduces int16, and the summed integers are the
+same values the JAX package's int16 accumulator holds, so the result is
+bitwise the same. The requantized payload travels through the raw-byte
+gather, so int16 needs no reduction support either.
 
 Every collective is counted in the process-wide wire ledger
 (:func:`wire_stats`) with the JAX package's ring-bandwidth model.
@@ -44,12 +50,14 @@ __all__ = [
     "SyncPolicy",
     "begin_sync",
     "default_policy",
+    "dequantize_chunks",
     "gather_bucket",
     "group_size",
     "pad_cat_rows",
+    "quantize_chunks",
+    "quantized_allreduce",
     "record_collective",
     "reduce_scatter_sum",
-    "refuse_quantized",
     "reset_wire_stats",
     "stack_gather",
     "use_policy",
@@ -147,10 +155,13 @@ class SyncPolicy:
             ``all_gather_into_tensor``; ``"psum"`` with zeros plus an
             ``all_reduce`` (twice the bytes, the JAX package's
             replication-invariant form). Both are bitwise equal.
-        quantize_bits: 8 or 16 asks for the quantized SUM/MEAN route, which
-            is not ported (ROADMAP A13): a sync under it raises.
+        quantize_bits: 8 or 16 sends float SUM/MEAN buckets of at least
+            ``quantize_threshold`` elements as int8/int16 with per-chunk
+            scales (:func:`quantized_allreduce`; the eager class API
+            quantizes each bucket before its gather). Integer buckets are
+            never quantized.
         quantize_threshold, quantize_chunk: that route's bucket floor and
-            scale chunk; validated, unused until it is ported.
+            the elements that share one scale.
         reduce_scatter_threshold: SUM/MEAN buckets of at least this many
             elements use :func:`reduce_scatter_sum` (integers exactly,
             floats within summation order of an ``all_reduce``).
@@ -158,7 +169,9 @@ class SyncPolicy:
             this many elements (bounds the psum gather's zeros buffer);
             ``None`` gathers each bucket whole.
         retry_attempts, backoff_base_s, min_coverage: the elastic sync's
-            knobs (ROADMAP A13), validated as in the JAX package.
+            retries, its first backoff (doubled per retry) and the least
+            coverage a degraded round may settle at
+            (:class:`~torchmetrics_tpu_torch.parallel.elastic.ElasticSync`).
     """
 
     exact: bool = False
@@ -193,6 +206,10 @@ class SyncPolicy:
     def use_all_gather(self) -> bool:
         return self.gather != "psum"
 
+    def wants_quantize(self, dtype: torch.dtype, size: int) -> bool:
+        return (not self.exact and self.quantize_bits is not None and size >= self.quantize_threshold
+                and dtype.is_floating_point and self.use_all_gather())
+
     def wants_reduce_scatter(self, size: int) -> bool:
         return not self.exact and size >= self.reduce_scatter_threshold and self.use_all_gather()
 
@@ -214,16 +231,6 @@ def use_policy(policy: SyncPolicy) -> Iterator[SyncPolicy]:
         yield policy
     finally:
         _DEFAULT_POLICY = prev
-
-
-def refuse_quantized(policy: SyncPolicy) -> None:
-    """Raise for a policy that asks for the quantized route: it is not
-    ported, and sending full precision instead would hide that."""
-    if policy.quantize_bits is not None and not policy.exact:
-        raise NotImplementedError(
-            f"SyncPolicy(quantize_bits={policy.quantize_bits}) asks for the quantized all-reduce, which "
-            "torchmetrics_tpu_torch does not have yet (ROADMAP A13); use quantize_bits=None or exact=True"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +313,101 @@ def reduce_scatter_sum(flat: Tensor, group: Any = None, mean: bool = False,
     out = shard.new_empty(shard.numel() * n)
     dist.all_gather_into_tensor(out, shard, group=group)
     return out[:size]
+
+
+# ---------------------------------------------------------------------------
+# quantized collective (float SUM/MEAN buckets)
+# ---------------------------------------------------------------------------
+
+def _q_info(bits: int) -> Tuple[torch.dtype, int]:
+    return (torch.int8, 127) if bits == 8 else (torch.int16, 32767)
+
+
+def _pad_to_multiple(flat: Tensor, multiple: int) -> Tuple[Tensor, int]:
+    pad = (-flat.numel()) % multiple
+    return (torch.cat([flat, flat.new_zeros(pad)]) if pad else flat), pad
+
+
+def _quantize_blocks(blocks: Tensor, scales: Tensor, bits: int) -> Tensor:
+    """``round(blocks / scale)`` clipped to the symmetric range; a chunk of
+    scale 0 (all zeros) divides by 1. ``torch.round`` rounds half to even,
+    as ``jnp.round`` does."""
+    qdtype, qmax = _q_info(bits)
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    return torch.clamp(torch.round(blocks / safe[:, None]), -qmax, qmax).to(qdtype)
+
+
+def quantize_chunks(x: Tensor, bits: int, chunk: int) -> Tuple[Tensor, Tensor, int]:
+    """Per-chunk symmetric quantization of a flat float tensor.
+
+    Returns ``(q, scales, pad)``: ``q`` the ``(C·chunk,)`` int8/int16
+    payload, ``scales`` the ``(C,)`` per-chunk ``absmax / qmax`` (0 for an
+    all-zero chunk), ``pad`` the zeros added to fill the last chunk. Bitwise
+    the JAX package's ``quantize_chunks`` on the same float32 input.
+    """
+    _, qmax = _q_info(bits)
+    padded, pad = _pad_to_multiple(x.reshape(-1), chunk)
+    blocks = padded.reshape(-1, chunk)
+    scales = torch.amax(torch.abs(blocks), dim=1) / qmax
+    return _quantize_blocks(blocks, scales, bits).reshape(-1), scales.to(blocks.dtype), pad
+
+
+def dequantize_chunks(q: Tensor, scales: Tensor, dtype: torch.dtype) -> Tensor:
+    chunk = q.numel() // scales.numel()
+    return (q.reshape(-1, chunk).to(dtype) * scales[:, None].to(dtype)).reshape(-1)
+
+
+def quantized_allreduce(flat: Tensor, group: Any = None, mean: bool = False, policy: Optional[SyncPolicy] = None,
+                        residual: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Quantized all-reduce of one flat float bucket over ``group``
+    (JAX ``strategies.py:498-563``, after EQuARX).
+
+    1. The chunks' absolute maxima meet in one ``all_reduce(MAX)``, so every
+       rank quantizes with the same scales;
+    2. the int8/int16 payload is summed by ``reduce_scatter_tensor`` in
+       int32 (the JAX package accumulates in int16 at 8 bits and at most
+       255 ranks; the sums are the same integers);
+    3. each rank dequantizes its shard with its slice of the scales,
+       requantizes it per chunk, and the shards and their scales come back
+       through ``all_gather`` (the payload as raw bytes).
+
+    ``residual`` is the error-feedback carry: the previous call's residual
+    for the same bucket is added before quantizing. Returns ``(result,
+    new_residual)``; with the same inputs on every rank, bitwise the JAX
+    package's result and residual.
+    """
+    policy = policy or default_policy()
+    bits = policy.quantize_bits or 8
+    _, qmax = _q_info(bits)
+    n = group_size(group)
+    size = flat.numel()
+    x = flat if residual is None else flat + residual
+    chunk = policy.quantize_chunk
+    padded, _ = _pad_to_multiple(x.reshape(-1), n * chunk)
+    blocks = padded.reshape(-1, chunk)
+
+    absmax = torch.amax(torch.abs(blocks), dim=1)
+    record_collective("pmax", absmax.numel() * absmax.element_size(), n)
+    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    scales = (absmax / qmax).to(blocks.dtype)
+    q_in = _quantize_blocks(blocks, scales, bits)
+    new_residual = (padded - (q_in.to(blocks.dtype) * scales[:, None]).reshape(-1))[:size]
+
+    acc = q_in.to(torch.int32).reshape(-1)
+    record_collective("psum_scatter", acc.numel() * acc.element_size(), n)
+    shard_acc = acc.new_empty(acc.numel() // n)
+    dist.reduce_scatter_tensor(shard_acc, acc, group=group)
+
+    per_shard = scales.numel() // n
+    rank = dist.get_rank(group)
+    shard_scales = scales[rank * per_shard:(rank + 1) * per_shard]
+    shard = (shard_acc.reshape(-1, chunk).to(blocks.dtype) * shard_scales[:, None]).reshape(-1)
+    if mean:
+        shard = shard / n
+    q_out, out_scales, _ = quantize_chunks(shard, bits, chunk)
+    gather = SyncPolicy(gather="all_gather")
+    record_collective("all_gather", q_out.numel() * q_out.element_size(), n)
+    gathered_q = stack_gather(q_out, group, gather).reshape(-1)
+    record_collective("all_gather", out_scales.numel() * out_scales.element_size(), n)
+    gathered_scales = stack_gather(out_scales, group, gather).reshape(-1)
+    return dequantize_chunks(gathered_q, gathered_scales, flat.dtype)[:size], new_residual

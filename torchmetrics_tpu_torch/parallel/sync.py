@@ -38,9 +38,9 @@ from .strategies import (  # noqa: F401  (re-exported: the JAX package's import 
     gather_bucket,
     group_size,
     pad_cat_rows,
+    quantized_allreduce,
     record_collective,
     reduce_scatter_sum,
-    refuse_quantized,
     reset_wire_stats,
     stack_gather,
     use_policy,
@@ -129,9 +129,14 @@ def _reduce_stack(stack: Tensor, reduction: Union[Reduction, Callable]) -> Tenso
 # ---------------------------------------------------------------------------
 
 def _route_elementwise(value: Tensor, reduction: Reduction, group: Any, policy: SyncPolicy) -> Tensor:
-    """One elementwise leaf or bucket: an ``all_reduce``, or the
-    reduce-scatter decomposition for a large SUM (or float MEAN) bucket."""
+    """One elementwise leaf or bucket: an ``all_reduce``; the quantized
+    all-reduce for a large float SUM/MEAN bucket when the policy asks for
+    it; or the reduce-scatter decomposition for a large SUM (or float
+    MEAN) bucket (JAX ``sync.py:130-150``)."""
     n = group_size(group)
+    if reduction in (Reduction.SUM, Reduction.MEAN) and policy.wants_quantize(value.dtype, value.numel()):
+        out, _ = quantized_allreduce(value.reshape(-1), group, mean=reduction == Reduction.MEAN, policy=policy)
+        return out.reshape(value.shape)
     if (reduction == Reduction.SUM or (reduction == Reduction.MEAN and value.is_floating_point())) \
             and policy.wants_reduce_scatter(value.numel()):
         out = reduce_scatter_sum(value.reshape(-1), group, mean=reduction == Reduction.MEAN, policy=policy)
@@ -276,7 +281,6 @@ def reduce_tensor_in_graph(value: Tensor, reduction: Union[Reduction, Callable],
                            policy: Optional[SyncPolicy] = None) -> Any:
     """Merge one state leaf across ``group`` (the default group when None)."""
     policy = policy or default_policy()
-    refuse_quantized(policy)
     return _reduce_leaves({"x": value}, {"x": reduction}, group, policy)["x"]
 
 
@@ -305,7 +309,6 @@ def reduce_state_in_graph(state: Mapping[str, Any],
             raise TypeError("reduce_state_in_graph: pass an explicit `reductions` mapping "
                             "or a MetricState that carries its own reduction metadata")
     policy = policy or default_policy()
-    refuse_quantized(policy)
     begin_sync()
     out = _reduce_leaves(state, reductions, group, policy)
     if hasattr(state, "with_leaves"):  # MetricState in, MetricState out

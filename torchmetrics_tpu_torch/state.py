@@ -3,8 +3,10 @@
 Counterpart of ``torchmetrics_tpu/state.py`` ``MetricState``. The JAX class
 is also a pytree so that a state travels through ``jit``; PyTorch runs
 eagerly, so here it is only a ``MutableMapping`` over the leaf dict that
-carries, beside the leaves, each leaf's :class:`Reduction` tag and the set
-of list (``cat``) states, for layers that read a state without its metric:
+carries, beside the leaves, each leaf's :class:`Reduction` tag, the set
+of list (``cat``) states and the subset of them held sharded
+(:class:`~torchmetrics_tpu_torch.buffers.ShardedCatBuffer`, JAX
+``state.py:84-200``), for layers that read a state without its metric:
 ``reduce_state_in_graph(state)`` syncs one with no ``reductions`` mapping and
 gives a MetricState back.
 
@@ -60,7 +62,7 @@ class StackedMerge:
 
 
 class MetricState(MutableMapping):
-    """State leaves + (reduction, list-state) metadata."""
+    """State leaves + (reduction, list-state, sharded-state) metadata."""
 
     def __init__(
         self,
@@ -68,10 +70,12 @@ class MetricState(MutableMapping):
         *,
         reductions: Optional[Mapping[str, Union[Reduction, Callable]]] = None,
         list_states: Any = (),
+        sharded_states: Any = (),
     ) -> None:
         self._leaves: Dict[str, Any] = dict(leaves) if leaves else {}
         self._reductions: Dict[str, Union[Reduction, Callable]] = dict(reductions) if reductions else {}
         self._list_states: frozenset = frozenset(list_states)
+        self._sharded_states: frozenset = frozenset(sharded_states)
 
     def __getitem__(self, name: str) -> Any:
         return self._leaves[name]
@@ -101,6 +105,11 @@ class MetricState(MutableMapping):
     def list_states(self) -> frozenset:
         return self._list_states
 
+    @property
+    def sharded_states(self) -> frozenset:
+        """The cat states held as ``ShardedCatBuffer`` s."""
+        return self._sharded_states
+
     def reduction(self, name: str) -> Union[Reduction, Callable]:
         return self._reductions.get(name, Reduction.NONE)
 
@@ -110,7 +119,8 @@ class MetricState(MutableMapping):
 
     def with_leaves(self, leaves: Mapping[str, Any]) -> "MetricState":
         """Same metadata, new leaf values."""
-        return MetricState(leaves, reductions=self._reductions, list_states=self._list_states)
+        return MetricState(leaves, reductions=self._reductions, list_states=self._list_states,
+                           sharded_states=self._sharded_states)
 
     def copy(self) -> "MetricState":
         return self.with_leaves(self._leaves)

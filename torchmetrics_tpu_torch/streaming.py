@@ -32,10 +32,12 @@ Counterpart of ``torchmetrics_tpu/streaming.py``: :class:`BufferedMetric`
   rows that earlier windows appended, through ``HostSync`` or ``FakeSync``'s
   ``(name, start, stop)`` range addressing, and the compute barrier gathers
   the rest (JAX :350-445). A gather that times out is deferred to the
-  barrier and counted in :func:`stream_stats`.
+  barrier and counted in :func:`stream_stats` and in the elastic
+  counters (``elastic_stats()["overlap_deferred"]``); an elastic backend
+  runs the barrier as one membership round.
 
-Not ported: the elastic sync's deferral note (A13) and the spans and
-registry (A14); :func:`stream_stats` counts flushes instead.
+Not ported: the spans and registry (A14); :func:`stream_stats` counts
+flushes instead.
 """
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -46,6 +48,7 @@ from ._capture import (CapturedStep, capturable_leaf, flatten_step, graph_key, n
                        signature_of, write_inputs)
 from .buffers import CatBuffer
 from .metric import Metric, StateDict, _filter_kwargs
+from .parallel.elastic import note_overlap_deferred
 from .parallel.reduction import Reduction
 from .parallel.strategies import begin_sync
 from .utils.exceptions import TorchMetricsUserError
@@ -320,6 +323,7 @@ class BufferedMetric(_Staging):
                         self._ov_issue(backend, pre_counts)
                     except TimeoutError:
                         _STREAM_STATS["overlap_deferred"] += 1
+                        note_overlap_deferred()
         finally:
             self.__dict__["_flushing"] = False
 
@@ -367,10 +371,17 @@ class BufferedMetric(_Staging):
         m._cache = m._snapshot_state()
         try:
             begin_sync()
+            # an elastic backend runs the barrier as one membership round, as
+            # Metric.sync does (JAX streaming.py:420-433)
+            elastic = hasattr(backend, "begin_round")
+            if elastic:
+                backend.begin_round(contrib=int(m._update_count), policy=m._sync_policy)
             self._ov_issue(backend, {name: len(m._state_view()[name]) for name in cat_names})
             synced = m._gather_synced(backend, skip=frozenset(cat_names))
             for name in cat_names:
                 synced[name] = list(self.__dict__["_ov_gathered"].get(name, []))
+            if elastic:
+                backend.end_round()
         except Exception:
             m._cache = None
             raise

@@ -7,22 +7,55 @@ a Python list of tensors (``list_layout="list"``).
 
 Integer results keep the JAX package's int32 (torch would default to int64),
 so states compare bitwise across the two packages.
+
+A :class:`~torchmetrics_tpu_torch.buffers.ShardedCatBuffer` is never
+densified by accident: :func:`dim_zero_cat` and :func:`padded_cat` refuse
+it outside :func:`sharded_oracle` (JAX ``utils/data.py:15-60``).
 """
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+import contextlib
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..buffers import CatBuffer, cat_rows
+from ..buffers import CatBuffer, ShardedCatBuffer, cat_rows
 
 Tensor = torch.Tensor
+
+# > 0 inside sharded_oracle(): densifying a sharded state is an explicit choice
+_ORACLE_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def sharded_oracle() -> Iterator[None]:
+    """Let ``dim_zero_cat``/``padded_cat`` densify sharded cat state inside
+    the block: the gather-then-compute oracle that the distributed reads of
+    :mod:`~torchmetrics_tpu_torch.parallel.sharded_compute` are held against."""
+    _ORACLE_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _ORACLE_DEPTH[0] -= 1
+
+
+def _refuse_sharded_densify(x: ShardedCatBuffer) -> None:
+    owner = x.owner or "<unowned sharded cat state>"
+    raise NotImplementedError(
+        f"refusing to densify sharded cat state {owner!r}: dim_zero_cat/padded_cat would copy every shard onto "
+        "one device, undoing the sharded layout. Read it through torchmetrics_tpu_torch.parallel.sharded_compute "
+        "(cat_compact, histogram_auroc, sharded_topk, ...), or wrap the call in "
+        "torchmetrics_tpu_torch.utils.data.sharded_oracle() to choose the gather-then-compute oracle."
+    )
 
 
 def dim_zero_cat(x: Union[Tensor, List[Tensor], tuple, CatBuffer]) -> Tensor:
     """Concatenate a (possibly list-valued) state along dim 0.
 
     A :class:`CatBuffer` gives its valid rows and a one-element list its
-    element, both without a copy (states are never written in place)."""
+    element, both without a copy (states are never written in place). A
+    sharded state raises outside :func:`sharded_oracle`."""
+    if isinstance(x, ShardedCatBuffer) and not _ORACLE_DEPTH[0]:
+        _refuse_sharded_densify(x)
     if isinstance(x, torch.Tensor):
         return x
     if isinstance(x, CatBuffer):
@@ -34,6 +67,15 @@ def dim_zero_cat(x: Union[Tensor, List[Tensor], tuple, CatBuffer]) -> Tensor:
             raise ValueError("No samples to concatenate")
         return cat_rows(x)
     return torch.as_tensor(x)
+
+
+def padded_cat(x: Union[Tensor, List[Tensor], tuple, CatBuffer]) -> Tuple[Tensor, int]:
+    """A cat state as ``(values, count)`` in any layout; refuses a sharded
+    state outside :func:`sharded_oracle`, as :func:`dim_zero_cat` does."""
+    if isinstance(x, ShardedCatBuffer) and not _ORACLE_DEPTH[0]:
+        _refuse_sharded_densify(x)
+    values = x.materialize() if isinstance(x, CatBuffer) else dim_zero_cat(x)
+    return values, values.shape[0]
 
 
 def on_device(value: Any, device: torch.device) -> Tensor:
