@@ -372,6 +372,33 @@ not 0 and no result line is printed:
    transient timeout recovering bitwise; a preempted rank 1: rank 0
    degrades to coverage 1/2, raises CoverageError under min_coverage=0.75
    with its state intact, and merges rank 1's checkpoint bitwise.
+17. a14 (ROADMAP A14), after a13: observability and debug over bench
+   config 2, one line per part:
+   (a) 2 warm-up updates with the ledger armed, then 5 rounds of four
+       interleaved passes of 2,000 updates: an untraced twin, the metric
+       inside tracing(), ledger_observing() and
+       strict_mode(max_new_executables=0) with the sync debug guard armed,
+       the twin, the metric with fence_every=10: no capture, no
+       synchronising call, states bitwise the twin's; medians with their
+       spread; one ledger entry per captured graph, its
+       bincount launches with the kernel phase's bound bytes; the Perfetto
+       file under chiprun_out/ read back; the graph, wire and ledger
+       Prometheus families; ms an update untraced, traced and fenced,
+       spans an update, phase totals, rooflines at the replay rate;
+   (b) an .item() on a state, a new batch size (named through
+       describe_key) refused by strict_mode(), max_retraces=1 letting it
+       through; whether a pageable host-to-device copy is refused;
+   (c) tenant_fleet's 1,000-tenant classifier stack at its 1,024 slots:
+       churn with updates between under strict_mode(max_new_executables=0)
+       and the guard captures nothing and reads nothing back; the ledger
+       renders update[TenantStack[MulticlassAccuracy]×1024];
+   (d) the autotuner on bench config 2 at world 1, cold then warm through
+       a ProfileCache under chiprun_out/: the warm run observes and
+       measures nothing, and after its own captures 200 updates under
+       strict_mode(max_new_executables=0);
+   (e) the chaos soak over 40 windows under strict_mode(transfer_guard=None,
+       max_degraded_syncs=N), N counted in a first run: StrictStats counts
+       N, as elastic_stats() and the registry's elastic.* do; N - 1 raises.
 
 The last lines are the native record, the kernels' record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -384,7 +411,15 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
+
+def hbm_bytes_per_s() -> float:
+    """The card's peak device-memory rate, from the ledger's table of peaks
+    (the H100 SXM data sheet's 3.35 TB/s)."""
+    from torchmetrics_tpu_torch.observability.ledger import device_peaks
+
+    return device_peaks()[1]
+
+
 # past this many rows the torch.bincount yardstick is one call over row-offset
 # indices, not one call (and one host round trip) per row
 LIBRARY_FLAT_ROWS = 32
@@ -566,15 +601,6 @@ def kernel_cases(device):
     ]
 
 
-def bound_bytes(idx, w, bins: int) -> int:
-    """Least bytes one call moves: every input read once, the output written once."""
-    n = idx.shape[-1]
-    rows = idx.shape[0] if idx.dim() == 2 else 1
-    s = w.shape[0] if w is not None and w.dim() == 2 else rows
-    w_bytes = 0 if w is None else s * n * 4
-    return rows * n * 4 + w_bytes + s * bins * 4
-
-
 def library_call(idx, w, bins: int):
     """The torch.bincount yardstick for a case, as a zero-argument callable:
     one call per row, or, past LIBRARY_FLAT_ROWS rows, one call over
@@ -670,7 +696,7 @@ def check_kernel(device) -> dict:
             # its output, so every call waits for the device: this is a host
             # round trip per call ("library_covered" comes out False)
             row["library_ms"], _, row["library_covered"] = time_ms(library_call(idx, w, bins), reps=5)
-            row["bound_ms"] = bound_bytes(idx, w, bins) / HBM_BYTES_PER_S * 1e3
+            row["bound_ms"] = bincount.bound_bytes(idx, w, bins) / hbm_bytes_per_s() * 1e3
             row["bound_by"] = "bytes"
         if name == "cluster_sums_imagenet1k":
             # the per-cluster sums take the (N, D) features as D weight rows:
@@ -3858,7 +3884,7 @@ def check_tdigest_kernel(dev) -> dict:
             "bitwise_host_plain": True, "weights_bitwise_card_plain": True, "mean_rel_err_card_plain": rel,
             "max_abs_err": err, "slots_used": int((got[0, :, 1] > 0).sum()), "ms": ms, "host_ms": host_ms,
             "ms_covered": covered, "plain_ms": plain_ms,
-            "bound_ms": (s * m + s * c) * 8 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": tdigest.bound_bytes(s, m, c) / hbm_bytes_per_s() * 1e3, "bound_by": "bytes",
         })
     return {"cases": cases, "max_abs_err": worst}
 
@@ -4272,8 +4298,9 @@ def run_tenant_fleet(card: str, dev, tenants: int = 1000, rows: int = 64, num_cl
         preds, target = classify_inputs(stack.slots)
         graphs = graph_stats()
         stack_ms += _timed_updates(lambda i: stack.update(preds, target), [0])
-        for k, v in graph_stats().items():
-            stack_graphs[k] += v - graphs[k]
+        after = graph_stats()
+        for k in stack_graphs:
+            stack_graphs[k] += after[k] - graphs[k]
         before = _kernel_counts()
         loop_ms += _timed_updates(lambda i: [singles[t].update(preds[t], target[t]) for t in picks], [0])
         after = _kernel_counts()
@@ -4350,8 +4377,9 @@ def run_tenant_fleet(card: str, dev, tenants: int = 1000, rows: int = 64, num_cl
         lat = _latencies(g, dev, (q_tenants, q_rows))
         graphs = graph_stats()
         stack_ms += _timed_updates(lambda i: qstack.update(lat), [0])
-        for k, v in graph_stats().items():
-            stack_graphs[k] += v - graphs[k]
+        after = graph_stats()
+        for k in stack_graphs:
+            stack_graphs[k] += after[k] - graphs[k]
         before = _kernel_counts()
         loop_ms += _timed_updates(lambda i: [qsingles[t].update(lat[t]) for t in qpicks], [0])
         after = _kernel_counts()
@@ -6831,7 +6859,7 @@ def run_wikitext_perplexity(card: str, dev, sequences: int = 280, seq_len: int =
     logit_bytes = batch * seq_len * vocab * 4
     return {"phase": "a11d", "path": label, "sequences": updates * batch, "seq_len": seq_len, "vocab": vocab,
             "batch": batch, "updates": updates, "ms_per_update": {k: statistics.median(v) for k, v in times.items()},
-            "bound_ms": logit_bytes / HBM_BYTES_PER_S * 1e3, "bound_is": "bytes of the float32 logits read once / 3.35 TB/s",
+            "bound_ms": logit_bytes / hbm_bytes_per_s() * 1e3, "bound_is": "bytes of the float32 logits read once / 3.35 TB/s",
             "logit_bytes_per_update": logit_bytes, "captured_graphs": captures, "peak_mb_over_inputs": peak,
             "value": value,
             "value_err_f64": err, "probs_branch_err_f64": probs_err, "first_update_err_cpu": cpu_err, "card": card}
@@ -7301,7 +7329,7 @@ def run_criteo_auroc(card: str, dev, rows: int = CRITEO_ROWS, batch: int = CRITE
         kernel_row["plain_is"] = "index_add_ of the plain version"
         kernel_row["library_device_ms"] = library_device_ms(idx, None, 2 * bins)
         kernel_row["library_ms"], _, kernel_row["library_covered"] = time_ms(library_call(idx, None, 2 * bins), reps=5)
-        kernel_row["bound_ms"] = bound_bytes(idx, None, 2 * bins) / HBM_BYTES_PER_S * 1e3
+        kernel_row["bound_ms"] = bincount.bound_bytes(idx, None, 2 * bins) / hbm_bytes_per_s() * 1e3
         kernel_row["bound_by"] = "bytes"
     del idx, got, want
     record = {"phase": "a13", "path": label, "rows": rows, "batch": batch, "updates": len(starts),
@@ -7469,6 +7497,440 @@ def run_a13_paths(card: str, dev) -> tuple:
     if not launches or not soak_launches:
         raise AssertionError(f"a13: the bincount launched {launches} and {soak_launches} times on the two paths")
     return records, launches + soak_launches, kernel_row
+
+
+# ---------------------------------------------------------------------------
+# phase a14: observability and debug over the main path
+# ---------------------------------------------------------------------------
+
+A14_FENCE_EVERY = 10
+# part (a): interleaved rounds of passes, each long enough that a pass's
+# spread on the host clock is below a span's cost
+A14_PASSES = 5
+A14_PASS_UPDATES = 2000
+# the soak's schedule over 40 windows: seed 11 (phase a13's, over 200) plans
+# no drop in its first 40 rounds; 12 is the first seed whose 40-round plan
+# drops and rejoins a rank (8 degraded windows) and times out a gather
+A14_SOAK_SEED = 12
+A14_FAMILIES = ("tmtpu_graph_", "tmtpu_wire_", "tmtpu_ledger_")
+
+
+def _out_dir():
+    """``chiprun_out/`` beside this script (``.gitignore`` lists it)."""
+    import pathlib
+
+    out = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    return out
+
+
+def _timed_loop(dev, fn, steps) -> float:
+    """ms per step of ``fn(i)`` over ``steps``: a host clock that ends in a
+    synchronise."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in steps:
+        fn(i)
+    _sync(dev)
+    return (time.perf_counter() - t0) / len(steps) * 1e3
+
+
+def _graph_delta(before: dict) -> dict:
+    from torchmetrics_tpu_torch._capture import graph_stats
+
+    return {k: v - before[k] for k, v in graph_stats().items()}
+
+
+def _spread(samples: list) -> dict:
+    return {"median": statistics.median(samples), "min": min(samples), "max": max(samples), "passes": samples}
+
+
+def _a14_traced_main_path(card: str, dev, num_classes: int, batch: int, steps: int, passes: int,
+                          pass_updates: int) -> dict:
+    """(a) Bench config 2 over 2 warm-up updates (ledger armed: the group
+    discovery, then the fused graph's capture), then ``passes`` rounds of
+    four interleaved passes of ``pass_updates`` updates each, cycling over
+    ``steps`` batches: an untraced twin, the metric inside tracing(),
+    ledger_observing() and strict_mode(max_new_executables=0) with the guard
+    armed, the twin again, and the metric traced with fence_every=10
+    sampling. Medians with their spread. States bitwise the twin's after
+    every round, no capture, no synchronising call (the guard raises on
+    one); one ledger entry per captured graph, whose bincount launches carry
+    the bytes of the kernel phase's bound for bench config 2's two shapes;
+    the Perfetto file (the first traced pass) read back; the Prometheus
+    families."""
+    import torch
+
+    from torchmetrics_tpu_torch._capture import graph_stats
+    from torchmetrics_tpu_torch.debug import strict_mode
+    from torchmetrics_tpu_torch.interop import state_to_numpy
+    from torchmetrics_tpu_torch.observability import (drain_spans, executable_ledger, kernel_rooflines,
+                                                      ledger_observing, phase_totals, reset_ledger, to_prometheus,
+                                                      tracing, write_perfetto)
+    from torchmetrics_tpu_torch.ops.bincount import bound_bytes
+
+    label = "a14 (a)"
+    path = multiclass_path(num_classes=num_classes, batch=batch, steps=2 + steps)
+    g = torch.Generator(device=dev).manual_seed(1814)
+    preds, target = path["inputs"](g, dev)
+    coll, twin = path["make"](dev), path["make"](dev)
+    order = [2 + i % steps for i in range(pass_updates)]
+    reset_ledger()
+    drain_spans()
+    before = graph_stats()
+    with ledger_observing():
+        for i in range(2):
+            coll.update(preds[i], target[i])
+    warm = _graph_delta(before)
+    for i in range(2):
+        twin.update(preds[i], target[i])
+
+    def twin_update(i):
+        twin.update(preds[i], target[i])
+
+    def coll_update(i):
+        coll.update(preds[i], target[i])
+
+    fenced_key = f"traced_fence_every_{A14_FENCE_EVERY}"
+    times = {"untraced": [], "traced": [], fenced_key: []}
+    spans = fenced = None
+    n_fenced = []
+    before = graph_stats()
+    for _ in range(passes):
+        times["untraced"].append(_timed_loop(dev, twin_update, order))
+        with tracing(), ledger_observing(), strict_mode(max_new_executables=0) as stats:
+            times["traced"].append(_timed_loop(dev, coll_update, order))
+        traced_spans = drain_spans()
+        spans = spans or traced_spans
+        if stats.compiles or stats.retraces:
+            raise AssertionError(f"{label}: {stats} under strict_mode after the warm-up")
+        times["untraced"].append(_timed_loop(dev, twin_update, order))
+        with tracing(fence_every=A14_FENCE_EVERY), strict_mode(max_new_executables=0):
+            times[fenced_key].append(_timed_loop(dev, coll_update, order))
+        fenced = drain_spans()
+        n_fenced.append(sum(s.fenced for s in fenced))
+        _compare_nested(label, state_to_numpy(coll), state_to_numpy(twin))  # bitwise, every state
+    traced = _graph_delta(before)
+    if traced["captures"] or traced["recaptures"]:
+        raise AssertionError(f"{label}: {traced} graphs after the warm-up")
+    # the graph counters are the process's: the twin's passes replay too
+    if dev.type == "cuda" and traced["replays"] != 4 * passes * pass_updates:
+        raise AssertionError(f"{label}: {traced['replays']} replays over {4 * passes} passes of {pass_updates}")
+    if dev.type == "cuda" and set(n_fenced) != {pass_updates // A14_FENCE_EVERY}:
+        raise AssertionError(f"{label}: {n_fenced} fenced spans a pass at fence_every={A14_FENCE_EVERY}")
+
+    entries = executable_ledger()
+    if len(entries) != warm["captures"] or any("analysis_error" in e for e in entries):
+        raise AssertionError(f"{label}: {len(entries)} ledger entries for {warm['captures']} captures: {entries}")
+    # the launches each entry lists carry the kernel phase's bound bytes of
+    # bench config 2's two shapes (kernel_cases' stat_scores_c100 and
+    # curve_c100_t64: S=3 rows of N = batch into C bins, and a shared index
+    # of N = batch·C into C·(T + 1) bins with S=2 weight rows)
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    want = sorted([bound_bytes(meta(3, batch), meta(3, batch), num_classes),
+                   bound_bytes(meta(batch * num_classes), meta(2, batch * num_classes), num_classes * 65)])
+    got = sorted(launch["bytes"] for e in entries for launch in e["launches"])
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{label}: ledger launch bytes {got}, the kernel phase's bounds {want}")
+    trace = write_perfetto(str(_out_dir() / "a14_trace.json"), spans)
+    with open(trace) as fh:
+        names = {e["name"] for e in json.load(fh)["traceEvents"] if e["ph"] != "M"}
+    if names != {s.name for s in spans} or not names:
+        raise AssertionError(f"{label}: the Perfetto file holds {sorted(names)}")
+    prom = to_prometheus()
+    missing = [f for f in A14_FAMILIES if f not in prom]
+    if missing:
+        raise AssertionError(f"{label}: Prometheus families {missing} missing")
+    ms = {k: _spread(v) for k, v in times.items()}
+    replay_rate = 1e3 / ms["traced"]["median"]
+    return {"num_classes": num_classes, "batch": batch, "passes": passes, "updates_per_pass": pass_updates,
+            "distinct_batches": steps, "order": "untraced, traced, untraced, fenced; per round",
+            "warm_up_graphs": warm, "traced_graphs": traced, "ms_per_update": ms,
+            "traced_over_untraced_median": ms["traced"]["median"] / ms["untraced"]["median"],
+            "fenced_over_untraced_median": ms[fenced_key]["median"] / ms["untraced"]["median"],
+            "spans_per_update": len(spans) / pass_updates, "fenced_spans_per_pass": n_fenced,
+            "phase_totals": phase_totals(spans), "strict": {"compiles": 0, "retraces": 0, "host_syncs": 0,
+                                                           "guard": "disallow"},
+            "states_bitwise_untraced_twin": True,
+            "ledger": [{k: e.get(k) for k in ("key", "flops", "bytes_accessed", "input_bytes", "state_bytes",
+                                               "output_bytes", "launches", "launch_bytes", "compiles", "retraces")}
+                       for e in entries],
+            "kernel_phase_bound_bytes": want, "perfetto": trace.rsplit("/", 2)[-2:], "perfetto_names": sorted(names),
+            "prometheus_families": list(A14_FAMILIES), "prometheus_lines": prom.count("\n"),
+            "rooflines_at_replay_rate": kernel_rooflines(replay_rate), "replays_per_s": replay_rate, "card": card}
+
+
+def _a14_guard_faults(dev, num_classes: int, batch: int) -> dict:
+    """(b) What the guard and the budgets must catch on the card (JAX
+    tests/test_strict_mode.py:63,74,83): an .item() on a state, a new batch
+    size against a warm graph (named through describe_key), and
+    max_retraces=1 letting that change through. Then whether a host-to-device
+    copy is refused too, from pageable memory and asynchronously from
+    pinned memory (recorded, not held)."""
+    import torch
+
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    from torchmetrics_tpu_torch.debug import StrictModeViolation, strict_mode
+
+    label = "a14 (b)"
+    path = multiclass_path(num_classes=num_classes, batch=batch, steps=3)
+    g = torch.Generator(device=dev).manual_seed(1815)
+    preds, target = path["inputs"](g, dev)
+    small_p, small_t = preds[2, : batch - 24], target[2, : batch - 24]
+
+    def warm_accuracy():
+        m = MulticlassAccuracy(num_classes=num_classes, average="micro", validate_args=False, device=dev)
+        for i in range(2):
+            m.update(preds[i], target[i])
+        return m
+
+    out = {}
+    m = warm_accuracy()
+    if dev.type == "cuda":
+        try:
+            with strict_mode():
+                m.tp.sum().item()
+        except StrictModeViolation as err:
+            out["item_on_state"] = str(err)[:160]
+        else:
+            raise AssertionError(f"{label}: .item() on a state under strict_mode() was not refused")
+    messages = {}
+    for name, owner in (("lone", m), ("collection", path["make"](dev))):
+        if name == "collection":
+            for i in range(2):
+                owner.update(preds[i], target[i])
+        try:
+            with strict_mode():
+                owner.update(small_p, small_t)
+        except StrictModeViolation as err:
+            messages[name] = str(err).split(" (graph key=")[0]
+        else:
+            if dev.type == "cuda":
+                raise AssertionError(f"{label}: a new batch size under strict_mode() was not refused ({name})")
+    if dev.type == "cuda" and not all("MulticlassAccuracy" in v for v in messages.values()):
+        raise AssertionError(f"{label}: the violations do not name the metric: {messages}")
+    out["new_batch_size"] = messages
+    m = warm_accuracy()
+    with strict_mode(max_retraces=1) as stats:
+        m.update(small_p, small_t)
+    if dev.type == "cuda" and (stats.retraces, stats.new_executables) != (1, 0):
+        raise AssertionError(f"{label}: max_retraces=1 saw {stats}")
+    out["max_retraces_1"] = {"retraces": stats.retraces, "new_executables": stats.new_executables}
+    host = torch.ones(4)
+    pinned = host.pin_memory() if dev.type == "cuda" else host
+    for name, copy in (("pageable_h2d_copy", lambda: host.to(dev)),
+                       ("pinned_async_h2d_copy", lambda: pinned.to(dev, non_blocking=True))):
+        try:
+            with strict_mode():
+                copy()
+            out[name] = "not refused"
+        except StrictModeViolation as err:
+            out[name] = "refused: " + str(err)[:120]
+    return out
+
+
+def _a14_tenant_churn(dev, tenants: int, rows: int, num_classes: int, updates: int) -> dict:
+    """(c) tenant_fleet's classifier stack at its capacity: a 1,000-tenant
+    TenantStack of MulticlassAccuracy(1000, macro) in 1,024 slots, captured
+    with the ledger armed, then add_tenant/remove_tenant within the
+    capacity with updates between, under strict_mode(max_new_executables=0)
+    and the default guard (JAX tests/test_multitenant.py:281-295): no
+    capture, no synchronising read; the ledger renders the stacked graph
+    with its slot count (:318)."""
+    import torch
+
+    from torchmetrics_tpu_torch import TenantStack
+    from torchmetrics_tpu_torch._capture import graph_stats
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    from torchmetrics_tpu_torch.debug import strict_mode
+    from torchmetrics_tpu_torch.observability import executable_ledger, ledger_observing, reset_ledger
+
+    label = "a14 (c)"
+    g = torch.Generator(device=dev).manual_seed(1816)
+    stack = TenantStack(MulticlassAccuracy(num_classes=num_classes, average="macro", device=dev),
+                        tenants=range(tenants))
+    feed = [(torch.randn(stack.slots, rows, num_classes, generator=g, device=dev),
+             torch.randint(0, num_classes, (stack.slots, rows), generator=g, device=dev)) for _ in range(2)]
+    reset_ledger()
+    with ledger_observing():
+        stack.update(*feed[0])
+    (entry,) = executable_ledger() if dev.type == "cuda" else [None]
+    free = tenants
+    stack.add_tenant(free)  # the churn's first moves, outside the guard
+    stack.remove_tenant(free)
+    before = graph_stats()
+    t0 = time.perf_counter()
+    with strict_mode(max_new_executables=0) as stats:
+        for k in range(updates):
+            stack.add_tenant(free + k)
+            stack.update(*feed[k % 2])
+            stack.remove_tenant(k)
+            stack.update(*feed[(k + 1) % 2])
+    _sync(dev)
+    churn_s = time.perf_counter() - t0
+    delta = _graph_delta(before)
+    if delta["captures"] or stats.compiles:
+        raise AssertionError(f"{label}: churn within the capacity captured: {delta}, {stats}")
+    if dev.type == "cuda" and delta["replays"] != 2 * updates:
+        raise AssertionError(f"{label}: {delta['replays']} replays for {2 * updates} stacked updates")
+    want = f"update[TenantStack[MulticlassAccuracy]×{stack.slots}]"
+    if entry is not None and entry["key"] != want:
+        raise AssertionError(f"{label}: the ledger renders {entry['key']!r}, not {want!r}")
+    return {"tenants": tenants, "slots": stack.slots, "rows": rows, "num_classes": num_classes,
+            "churn_rounds": updates, "graphs": delta, "strict": {"compiles": stats.compiles, "host_syncs": 0},
+            "ms_per_churn_round": churn_s / updates * 1e3, "ledger_key": None if entry is None else entry["key"],
+            "ledger_entry": None if entry is None else {k: entry[k] for k in ("flops", "bytes_accessed",
+                                                                              "launches", "tenant_slots")}}
+
+
+def _a14_autotune(dev, num_classes: int, batch: int, feed_steps: int, strict_updates: int) -> dict:
+    """(d) Bench config 2 tuned cold at world 1 (the wire dimension
+    skipped, JAX tests/test_ledger_autotune.py:291) with a ProfileCache
+    under chiprun_out/, then warm: no observation, no measurement, one
+    cache hit; the winner's metric captures its own graphs over its first
+    updates, and ``strict_updates`` more run under
+    strict_mode(max_new_executables=0)."""
+    import torch
+
+    from torchmetrics_tpu_torch._capture import graph_stats
+    from torchmetrics_tpu_torch.debug import strict_mode
+    from torchmetrics_tpu_torch.observability import Autotuner, ProfileCache
+    from torchmetrics_tpu_torch.observability.autotune import _TUNE_STATS
+
+    label = "a14 (d)"
+    path = multiclass_path(num_classes=num_classes, batch=batch, steps=max(feed_steps, strict_updates + 64))
+    g = torch.Generator(device=dev).manual_seed(1817)
+    preds, target = path["inputs"](g, dev)
+    feed = [(preds[i], target[i]) for i in range(feed_steps)]
+    cache_path = _out_dir() / "a14_profile.json"
+    if cache_path.exists():
+        cache_path.unlink()
+    t0 = time.perf_counter()
+    cold = Autotuner(ProfileCache(str(cache_path)), observe_windows=2, steps_per_window=32).tune(
+        lambda: path["make"](dev), feed, world=1)
+    cold_s = time.perf_counter() - t0
+    counts = dict(_TUNE_STATS)
+    t0 = time.perf_counter()
+    warm = Autotuner(ProfileCache(str(cache_path)), observe_windows=2, steps_per_window=32).tune(
+        lambda: path["make"](dev), feed, world=1)
+    warm_s = time.perf_counter() - t0
+    activity = {k: _TUNE_STATS[k] - counts[k] for k in counts}
+    if (cold.source, warm.source, warm.windows_observed) != ("observed", "cache", 0) or activity != {
+            "observations": 0, "measurements": 0, "cache_hits": 1, "cache_misses": 0} or warm.config != cold.config:
+        raise AssertionError(f"{label}: cold {cold.source}, warm {warm.source} {warm.windows_observed} windows, "
+                             f"activity {activity}")
+    handle = warm.config.wrap(path["make"](dev))
+    first = 1 + max(warm.config.window, 1)  # group discovery, then one window: the winner's own captures
+    before = graph_stats()
+    for i in range(first):
+        handle.update(preds[i], target[i])
+    if hasattr(handle, "flush"):
+        handle.flush()
+    own = _graph_delta(before)
+    before = graph_stats()
+    with strict_mode(max_new_executables=0, max_retraces=0) as stats:
+        for i in range(first, first + strict_updates):
+            handle.update(preds[i], target[i])
+        if hasattr(handle, "flush"):
+            handle.flush()
+    after = _graph_delta(before)
+    if after["captures"] or stats.compiles:
+        raise AssertionError(f"{label}: the warm run captured after its first updates: {after}")
+    return {"config": warm.config.as_dict(), "cold_seconds": cold_s, "warm_seconds": warm_s,
+            "candidates": [m["config"] for m in cold.measurements],
+            "step_ms": [m["step_s"] * 1e3 for m in cold.measurements],
+            "winner_step_ms_warm": next(m["step_s_warm"] for m in cold.measurements if "step_s_warm" in m) * 1e3,
+            "observation": {k: cold.observation[k] for k in ("windows", "steps_per_window", "scan_fraction",
+                                                             "retraces", "collectives_issued")},
+            "warm": {"windows_observed": warm.windows_observed, "activity": activity,
+                     "own_graphs_first_updates": own, "strict_updates": strict_updates, "graphs_after": after},
+            "profile_cache": "chiprun_out/a14_profile.json"}
+
+
+def _a14_degrade_budget(card: str, dev, windows: int, **soak) -> dict:
+    """(e) The chaos soak (phase a13) over ``windows`` windows, with the
+    schedule of seed ``A14_SOAK_SEED``, under
+    strict_mode(transfer_guard=None, max_degraded_syncs=...) (JAX
+    tests/parallel/test_elastic_sync.py:186-200): counted once with no
+    budget to speak of, which gives N; then at budget N, where
+    StrictStats.degraded_syncs must be N (elastic_stats' count, and the
+    registry's elastic.* equal elastic_stats()); then at N - 1, which must
+    raise. Returns the record and the bincount launches."""
+    from torchmetrics_tpu_torch.debug import StrictModeViolation, strict_mode
+    from torchmetrics_tpu_torch.observability import REGISTRY
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+    from torchmetrics_tpu_torch.parallel import elastic_stats
+
+    label = "a14 (e)"
+    launches = 0
+    with strict_mode(transfer_guard=None, max_degraded_syncs=10 ** 9) as counted:
+        record, _ = run_imagenet_chaos_soak(card, dev, windows=windows, **soak)
+    launches += weighted_bincount.launches
+    n = counted.degraded_syncs
+    with strict_mode(transfer_guard=None, max_degraded_syncs=n) as stats:
+        record, _ = run_imagenet_chaos_soak(card, dev, windows=windows, **soak)
+    launches += weighted_bincount.launches
+    es = elastic_stats()
+    registry = {k[len("elastic."):]: int(v) for k, v in REGISTRY.as_dict("elastic.").items()}
+    if stats.degraded_syncs != n or es["degraded_syncs"] != n or not n:
+        raise AssertionError(f"{label}: {stats.degraded_syncs} degraded syncs under the budget {n}; "
+                             f"elastic_stats {es['degraded_syncs']}")
+    if registry != {k: v for k, v in es.items() if k != "last_coverage"}:
+        raise AssertionError(f"{label}: the registry's elastic.* {registry} != elastic_stats() {es}")
+    try:
+        with strict_mode(transfer_guard=None, max_degraded_syncs=n - 1):
+            run_imagenet_chaos_soak(card, dev, windows=windows, **soak)
+    except StrictModeViolation as err:
+        refused = str(err)[:200]
+    else:
+        raise AssertionError(f"{label}: budget {n - 1} let {n} degraded syncs through")
+    launches += weighted_bincount.launches
+    return {"windows": windows, "seed": soak.get("seed"), "full_windows": record["full_windows"],
+            "degraded_windows": record["degraded_windows"], "degraded_syncs": n,
+            "degraded_syncs_of_the_preempted_round": n - 2 * record["degraded_windows"],
+            "strict_degraded_syncs": stats.degraded_syncs, "coverage_fraction": stats.coverage_fraction,
+            "elastic_stats": es, "elastic_registry_equals_view": True, "budget_n_minus_1": refused}, launches
+
+
+def run_a14(card: str, dev, num_classes: int = 100, batch: int = 1024, steps: int = 200,
+            passes: int = A14_PASSES, pass_updates: int = A14_PASS_UPDATES, tenants: int = 1000, tenant_rows: int = 64, tenant_classes: int = 1000, churn: int = 10,
+            tune_feed: int = 64, soak_windows: int = 40, soak: dict = None) -> tuple:
+    """Phase a14 (observability and debug) on bench config 2, parts (a)-(e),
+    each printed as its own line. Returns the bincount launches."""
+    from torchmetrics_tpu_torch.observability import disable_ledger, disable_tracing, reset_ledger
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+
+    t_phase = time.perf_counter()
+    launches = 0
+    parts = (
+        ("a", lambda: _a14_traced_main_path(card, dev, num_classes, batch, steps, passes, pass_updates)),
+        ("b", lambda: _a14_guard_faults(dev, num_classes, batch)),
+        ("c", lambda: _a14_tenant_churn(dev, tenants, tenant_rows, tenant_classes, churn)),
+        ("d", lambda: _a14_autotune(dev, num_classes, batch, tune_feed, steps)),
+    )
+    for part, run in parts:
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        record = run()
+        _sync(dev)
+        record["seconds"] = time.perf_counter() - t0
+        record["kernel_launches"] = weighted_bincount.launches
+        launches += weighted_bincount.launches
+        emit({"phase": "a14", "part": part, **record})
+    t0 = time.perf_counter()
+    _zero_kernel_counts()
+    record, soak_launches = _a14_degrade_budget(card, dev, soak_windows, **{"seed": A14_SOAK_SEED, **(soak or {})})
+    record.update(seconds=time.perf_counter() - t0, kernel_launches=soak_launches)
+    launches += soak_launches
+    emit({"phase": "a14", "part": "e", **record})
+    disable_tracing()
+    disable_ledger()
+    reset_ledger()
+    emit({"phase": "a14", "part": "total", "seconds": time.perf_counter() - t_phase, "kernel_launches": launches,
+          "card": card})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -8197,6 +8659,7 @@ def main() -> int:
     launches += a11d_launches
     _, a13_launches, a13_kernel_row = run_a13_paths(card, dev)  # emits each path's record as it ends
     launches += a13_launches
+    launches += run_a14(card, dev)  # emits each part's record as it ends
     kernel["cases"].append(a13_kernel_row)
     for record in run_model_paths(card, dev):
         emit(record)

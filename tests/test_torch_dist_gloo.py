@@ -24,6 +24,7 @@ import torch.multiprocessing as mp
 
 import torchmetrics_tpu_torch as P
 from torchmetrics_tpu_torch.interop import state_to_numpy
+from torchmetrics_tpu_torch.observability.autotune import Autotuner
 from torchmetrics_tpu_torch.parallel import (HostSync, Reduction, SyncPolicy, default_sync_backend,
                                              reduce_state_in_graph, reduce_tensor_in_graph, reset_wire_stats,
                                              use_policy, wire_stats)
@@ -183,6 +184,17 @@ def _case_options(rank):
     out["quantized"] = float(quantized.compute())
     out["quantized_pure"] = reduce_state_in_graph({"a": torch.ones(2)}, {"a": Reduction.SUM},
                                                   policy=SyncPolicy(quantize_bits=16, quantize_threshold=1))["a"]
+    # the autotuner's wire model (the same sync over a stand-in group) against this group's wire ledger
+    out["wire_model"] = []
+    for policy, leaves, leaf_reds in (
+            (SyncPolicy(gather="all_gather"), state, reds), (SyncPolicy(gather="psum"), state, reds),
+            (SyncPolicy(reduce_scatter_threshold=4), {"s": torch.arange(10, dtype=torch.int32)}, {"s": Reduction.SUM}),
+            (SyncPolicy(quantize_bits=16, quantize_threshold=1), {"a": torch.ones(700)}, {"a": Reduction.SUM})):
+        before = wire_stats()
+        reduce_state_in_graph(leaves, leaf_reds, policy=policy)
+        after = wire_stats()
+        real = sum(after[k] - before[k] for k in ("bytes_reduced", "bytes_gathered"))
+        out["wire_model"].append((real, Autotuner()._model_wire_bytes(leaves, leaf_reds, policy, WORLD)))
     dist.barrier()
     return out
 
@@ -519,6 +531,7 @@ def test_sync_options_over_two_processes(tmp_path):
         # 1.0 per rank quantizes exactly at 8 bits; 1.0 at 16 bits comes back within a scale step
         assert got["quantized"] == 2.0
         np.testing.assert_allclose(got["quantized_pure"].numpy(), [2.0, 2.0], rtol=0, atol=2 * 2.0 / 32767)
+        assert len(got["wire_model"]) == 4 and all(modelled == real > 0 for real, modelled in got["wire_model"])
     assert (r0["step_local"], r1["step_local"]) == (3.0, 30.0)
 
 

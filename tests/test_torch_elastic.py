@@ -2,8 +2,8 @@
 package's, on the CPU.
 
 Each case of the JAX package's ``tests/parallel/test_elastic_sync.py`` runs
-on the port's ``ChaosSync``/``ElasticSync`` over ``FakeSync`` groups (its
-strict-mode budget case waits for the port's strict mode). Held against the
+on the port's ``ChaosSync``/``ElasticSync`` over ``FakeSync`` groups, its
+strict-mode budget case included. Held against the
 JAX package: ``ChaosSchedule(seed=...)`` events, the coverage record and the
 value of every window of the 210-window soak, and the synced values of the
 transient-timeout, dropped-rank and duplicate cases (bitwise).
@@ -154,6 +154,31 @@ def test_min_coverage_raises_and_state_survives():
     assert not ms[0]._is_synced and ms[0]._cache is None
     for k, v in ms[0].metric_state.items():
         assert torch.equal(v, before[k]), k
+
+
+def test_strict_mode_degraded_budget():
+    """JAX ``tests/parallel/test_elastic_sync.py:186``: a degraded round
+    under ``strict_mode()`` raises at budget 0 and leaves the metric
+    unsynced; budget 1 tolerates and annotates the same fault."""
+    from torchmetrics_tpu_torch.debug import StrictModeViolation, strict_mode
+
+    world = 2
+    ms, group = _ranked_accuracy(world)
+    backs = chaos_group(group, ChaosSchedule({0: [("timeout", 10)]}))
+    ms[0]._sync_backend = ElasticSync(backs[0], policy=FAST)
+    backs[0].advance_round()
+    with pytest.raises(StrictModeViolation, match="degraded sync"):
+        with strict_mode(transfer_guard=None):
+            ms[0].sync()
+    assert not ms[0]._is_synced
+    backs2 = chaos_group(group, ChaosSchedule({0: [("timeout", 10)]}))
+    ms[0]._sync_backend = ElasticSync(backs2[0], policy=FAST)
+    backs2[0].advance_round()
+    with strict_mode(transfer_guard=None, max_degraded_syncs=1) as stats:
+        ms[0].sync()
+        ms[0].unsync()
+    assert stats.degraded_syncs == 1
+    assert stats.coverage_fraction is not None and stats.coverage_fraction < 1.0
 
 
 def test_elastic_stats_surface_coverage():

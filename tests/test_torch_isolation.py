@@ -58,7 +58,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "'functional.text.squad', 'functional.text.perplexity', 'functional.text.bert', "
         "'functional.text.infolm', 'multimodal', 'multimodal.clip_score', 'multimodal.clip_iqa', "
         "'functional.multimodal', 'functional.multimodal.clip_score', 'functional.multimodal.clip_iqa', "
-        "'parallel.elastic', 'utils.checkpoint']\n"
+        "'parallel.elastic', 'utils.checkpoint', 'observability', 'observability.registry', "
+        "'observability.spans', 'observability.export', 'observability.ledger', 'observability.autotune', "
+        "'debug', 'utils.profiler']\n"
         "missing = [m for m in new if 'torchmetrics_tpu_torch.' + m not in names]\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
@@ -82,7 +84,8 @@ def _imported_modules(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / name for name in ("chip_smoke.py",
                                                                                        "bincount_ablation.py",
-                                                                                       "sdr_solve_probe.py")],
+                                                                                       "sdr_solve_probe.py",
+                                                                                       "untraced_update_timing.py")],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     for name in _imported_modules(path):

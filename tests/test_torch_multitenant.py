@@ -9,7 +9,9 @@ tenant's update is the template's own update body under ``torch.func.vmap``
 one call for every tenant). Float values computed by the JAX package agree
 within 1e-6 relative. Sync goes through the port's ``FakeSync`` (JAX
 ``tests/test_multitenant.py:55-250``); one test runs two gloo processes, so
-that the bool ``tenant_valid`` leaf (MAX) crosses a real collective.
+that the bool ``tenant_valid`` leaf (MAX) crosses a real collective. The
+two tenant tests of the JAX package that waited for strict mode and the
+ledger run the stacked update through ``OpByOpStep`` and on its graph key.
 """
 import pickle
 
@@ -29,6 +31,7 @@ from torchmetrics_tpu_torch.interop import state_to_numpy
 from torchmetrics_tpu_torch.parallel import FakeSync, SyncPolicy, reset_wire_stats, wire_stats
 from torchmetrics_tpu_torch.state import StackedMerge
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+from tests.test_torch_single_capture import op_by_op  # noqa: F401  (a fixture)
 
 CPU = {"device": "cpu"}
 RTOL = 1e-6
@@ -423,6 +426,65 @@ def test_churn_within_capacity_keeps_shapes_and_growth_drops_old_graphs():
     assert stack.tenant_ids == (4, 1, 2, 3)
     stack.add_tenant(5)  # past the capacity: 8 slots, and the old graphs go
     assert stack.slots == 8 and stack._update_graphs == {}
+
+
+def test_churn_within_capacity_zero_retraces_under_strict_mode(op_by_op):  # noqa: F811
+    """JAX ``tests/test_multitenant.py:281``: churn within a capacity, with
+    updates between, under ``strict_mode(max_new_executables=0)`` captures
+    nothing (the stacked update takes the lone captured route through
+    ``OpByOpStep``; the card's run is ``chip_smoke.py`` phase ``a14``)."""
+    from torchmetrics_tpu_torch._capture import graph_stats
+    from torchmetrics_tpu_torch.debug import strict_mode
+
+    stack = TenantStack(P.MeanMetric(**CPU), tenants=[0, 1, 2], capacity=4)
+    rng = np.random.RandomState(23)
+    feed = [torch.from_numpy(rng.rand(stack.slots, 3).astype(np.float32)) for _ in range(2)]
+    stack.update(feed[0])  # the update graph's capture
+    stack.add_tenant(3)
+    stack.remove_tenant(3)
+    before = graph_stats()
+    with strict_mode(max_new_executables=0) as stats:
+        stack.add_tenant(3)
+        stack.update(feed[1])
+        stack.remove_tenant(0)
+        stack.update(feed[0])
+    assert graph_stats()["recaptures"] == before["recaptures"] and graph_stats()["captures"] == before["captures"]
+    assert stats.compiles == 0 and len(op_by_op) == 1 and op_by_op[0].replays == 3
+    assert stack.tenant_ids == (1, 2, 3)
+
+
+def test_ledger_renders_stacked_executables():
+    """JAX ``tests/test_multitenant.py:318``, on the graph key the stack
+    builds for a stacked update (``_capture.graph_key``)."""
+    from torchmetrics_tpu_torch._capture import flatten_step, graph_key, signature_of
+    from torchmetrics_tpu_torch.observability.ledger import attribute_key, describe_key
+
+    def key_of(metric, *args):
+        leaves, spec = flatten_step(args, {})
+        return graph_key("update", signature_of(leaves, spec), (("metric", metric),), {"metric": metric._tensor_state()})
+
+    stack = TenantStack(_mcls(), tenants=list(range(256)))
+    key = key_of(stack, torch.zeros(256, 8, 4), torch.zeros(256, 8, dtype=torch.int64))
+    assert describe_key(key) == "update[TenantStack[MulticlassAccuracy]×256]"
+    attrs = attribute_key(key)
+    assert attrs["tenant_slots"] == 256
+    plain = key_of(P.MeanMetric(**CPU), torch.ones(3))
+    assert attribute_key(plain)["tenant_slots"] is None
+    assert describe_key(plain) == "update[MeanMetric]"
+
+
+def test_profile_key_tracks_slots_not_roster():
+    """JAX ``tests/test_multitenant.py:299``'s profile half: equal stacks of
+    other tenant ids share a profile, another capacity does not."""
+    from torchmetrics_tpu_torch.observability.autotune import ProfileCache, metric_set_key, topology_key
+
+    a = TenantStack(P.MeanMetric(**CPU), tenants=[0, 1])
+    b = TenantStack(P.MeanMetric(**CPU), tenants=["x", "y"])
+    c = TenantStack(P.MeanMetric(**CPU), tenants=[0, 1], capacity=4)
+    topo = topology_key(world=1)
+    key = lambda m: ProfileCache.profile_key(topo, metric_set_key(m))  # noqa: E731
+    assert key(a) == key(b)
+    assert key(c) != key(a)
 
 
 def test_reset_keeps_the_roster():

@@ -92,10 +92,25 @@ def test_functional_all_is_a_subset_of_the_jax_functional():
         assert hasattr(PF, name), name
 
 
+def test_observability_all_equals_the_jax_list_and_debug_and_profiler_exist():
+    import torchmetrics_tpu.observability as JO
+    import torchmetrics_tpu_torch.observability as PO
+    from torchmetrics_tpu_torch import debug
+    from torchmetrics_tpu_torch.utils import profiler
+
+    assert PO.__all__ == JO.__all__
+    for name in PO.__all__:
+        assert hasattr(PO, name), name
+    assert P.observability is PO
+    assert callable(debug.strict_mode) and issubclass(debug.StrictModeViolation, RuntimeError)
+    assert debug.__all__ == ["StrictModeViolation", "StrictStats", "strict_mode"]
+    assert profiler.__all__ == ["StepTimer", "annotate"]
+
+
 def test_root_lacks_only_the_names_of_later_slices():
     missing = set(J.__all__) - set(P.__all__)
-    # A14's observability and A15's version; every domain is in
-    assert missing == {"observability", "__version__"}
+    # A15's version; every domain and the observability package are in
+    assert missing == {"__version__"}
     a12 = {"SketchReduction", "StackedMerge", "TenantStack", "ApproxAUROC", "ApproxCalibrationError",
            "ApproxFrequency", "ApproxQuantile"}
     a11a = {"AdjustedMutualInfoScore", "AdjustedRandScore", "CalinskiHarabaszScore", "CompletenessScore",

@@ -27,6 +27,8 @@ import torchmetrics_tpu_torch as P
 import torchmetrics_tpu_torch.metric as metric_module
 from torchmetrics_tpu_torch import _capture
 from torchmetrics_tpu_torch.buffers import cat_rows
+from torchmetrics_tpu_torch.observability import ledger
+from torchmetrics_tpu_torch.ops import bincount
 from torchmetrics_tpu_torch.image import (PeakSignalNoiseRatio, RelativeAverageSpectralError,
                                           StructuralSimilarityIndexMeasure)
 from torchmetrics_tpu_torch.wrappers import ClasswiseWrapper, MetricTracker, MinMaxMetric
@@ -83,23 +85,34 @@ def _host_reads_raise():
 class OpByOpStep:
     """``CapturedStep``'s interface over CPU tensors: slots copied from the
     states at construction, a warm-up that applies nothing and refuses host
-    reads, and each ``run`` the step op by op over the slots, new states
-    written back by ``CapturedStep``'s own ``write_back`` (which keeps a
-    reshaped state as an output)."""
+    reads (preceded by a run under ``FlopCounterMode`` when the ledger is
+    armed), and
+    each ``run`` the step op by op over the slots, new states written back
+    by ``CapturedStep``'s own ``write_back`` (which keeps a reshaped state
+    as an output). Like ``CapturedStep`` it reports itself through
+    ``_capture.report_capture`` (counters, ledger, strict-mode observers)
+    with the key and recapture flag its owner passes."""
 
     built = []
 
-    def __init__(self, step, states, input_slots, device, label):
+    def __init__(self, step, states, input_slots, device, label, key=None, recapture=False):
         self.step, self.input_slots, self.label = step, input_slots, label
         self.state_slots = {o: {k: _capture._new_slot(v) for k, v in st.items()} for o, st in states.items()}
         self.replays = 0
+        self.flops = None
+        self.launches = bincount.LaunchRecord()
         trace = [None]
         try:
             with _host_reads_raise():
-                step(self.state_slots, input_slots, trace)
+                if ledger.ENABLED:
+                    _, self.flops = ledger.step_flops(lambda: step(self.state_slots, input_slots, trace))
+                new_states, self.appends = step(self.state_slots, input_slots, trace)
         except RuntimeError as err:
             raise _capture.CapturedStep._error(self, trace, "reads a value on the host or fails eagerly", err) from err
+        self.results = {o: {**slots, **{k: v for k, v in new_states[o].items() if v.shape != slots[k].shape}}
+                        for o, slots in self.state_slots.items()}
         OpByOpStep.built.append(self)
+        _capture.report_capture(key, self, recapture)
 
     def run(self, states):
         for owner, named in states.items():
@@ -110,6 +123,7 @@ class OpByOpStep:
         new_states, appends = self.step(self.state_slots, self.input_slots, [None])
         outputs = _capture.write_back(self.state_slots, new_states, self.label)
         self.replays += 1
+        _capture._REPLAYS.inc()
         return _capture.step_results(self.state_slots, outputs), appends
 
 

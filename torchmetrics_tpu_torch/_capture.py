@@ -35,8 +35,16 @@ executables between equal configurations).
 A member declared capturable whose step cannot be captured raises
 :class:`CaptureError`, naming the member and the op: nothing falls back to
 the eager loop.
+
+What a capture reports goes through one seam, :func:`report_capture`,
+which :class:`CapturedStep` calls after it captures: the ``graph.*``
+counters of the registry (a capture; a recapture when its owner already
+held a graph under another key, the counterpart of a JAX retrace; each
+replay), the compile observers of ``debug.strict_mode`` and, when armed,
+the executable ledger (:mod:`~torchmetrics_tpu_torch.observability.ledger`).
 """
 import contextlib
+import gc
 import traceback
 from contextlib import contextmanager
 from pathlib import Path
@@ -45,6 +53,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_flatten
 
+from .observability import ledger as _ledger
+from .observability.registry import REGISTRY as _REGISTRY
 from .ops import bincount
 
 Tensor = torch.Tensor
@@ -53,20 +63,42 @@ Step = Callable[[StepStates, List[Any], List[Optional[str]]], Tuple[StepStates, 
 
 SLOT_MARK = "_tm_graph_slot"
 _PKG_DIR = Path(__file__).resolve().parent
-# captures and replays in this process, as ``online_stats`` counts (no registry is ported)
-_GRAPH_STATS = {"captures": 0, "replays": 0}
+# registry-backed: captured CUDA graphs, recaptures (captures by an owner that
+# already held a graph under another key) and replays in this process
+_GRAPH_STATS = _REGISTRY.group(
+    "graph",
+    {"captures": 0, "recaptures": 0, "replays": 0},
+    help="captured CUDA graphs",
+)
+_REPLAYS = _REGISTRY.counter("graph.replays")  # the group's counter, bumped once per replay
+# observers called as cb(key, new_captures, recaptures) after every capture;
+# used by debug.strict_mode() to fail fast
+_COMPILE_OBSERVERS: List[Callable[[Any, int, int], None]] = []
 # Python numbers are staged as 0-d tensors in the JAX package's dtypes
 _SCALAR_DTYPES = {bool: torch.bool, int: torch.int32, float: torch.float32}
 
 
 def graph_stats() -> Dict[str, int]:
-    """Graphs captured and replays run in this process."""
+    """Graphs captured, recaptured and replayed in this process: a view of
+    the registry's ``graph.*`` counters."""
     return dict(_GRAPH_STATS)
 
 
 def reset_graph_stats() -> None:
-    for k in _GRAPH_STATS:
-        _GRAPH_STATS[k] = 0
+    _GRAPH_STATS.reset()
+
+
+def report_capture(key: Any, graph: Any, recapture: bool) -> None:
+    """What one capture reports: the ``graph.*`` counters, the ledger when
+    armed, then the compile observers (which may raise). ``graph`` is the
+    :class:`CapturedStep` just captured, ``key`` its :func:`graph_key`."""
+    _GRAPH_STATS["captures"] += 1
+    if recapture:
+        _GRAPH_STATS["recaptures"] += 1
+    if _ledger.ENABLED:
+        _ledger.record_capture(key, graph, 1, int(recapture))
+    for cb in list(_COMPILE_OBSERVERS):
+        cb(key, 1, int(recapture))
 
 
 class CaptureError(RuntimeError):
@@ -117,13 +149,19 @@ def signature_of(leaves: List[Any], spec: Any) -> tuple:
     return (spec, tuple(leaf_signature(leaf) for leaf in leaves))
 
 
-def graph_key(signature: Any, reps: Any, states: StepStates) -> tuple:
-    """What a graph bakes in beside its input slots, as a cache key: the
-    input signature, each member's state shapes and dtypes, and its
-    ``_apply_epoch`` (a device or dtype move rebinds the constant tensors
-    an update body reads, such as a threshold grid)."""
-    return (signature, tuple((name, rep._apply_epoch, tuple((k, v.shape, v.dtype) for k, v in states[name].items()))
-                             for name, rep in reps))
+def graph_key(op: Any, signature: Any, reps: Any, states: StepStates) -> tuple:
+    """What a graph bakes in beside its input slots, as a cache key: the op
+    (``"update"``, ``"mc_fused_update"``, ``("stream_flush", K)``), the
+    input signature, each member's class, ``_apply_epoch`` (a device or
+    dtype move rebinds the constant tensors an update body reads, such as a
+    threshold grid), state shapes and dtypes, and what the member adds
+    (``Metric._graph_key_extra``: a ``TenantStack``'s slot count). The
+    ledger and ``strict_mode`` name the metric and op from it
+    (``observability.ledger.describe_key``)."""
+    return (op, signature, tuple((name, type(rep), rep._apply_epoch,
+                                  tuple((k, v.shape, v.dtype) for k, v in states[name].items()),
+                                  rep._graph_key_extra())
+                                 for name, rep in reps))
 
 
 def new_input_slots(leaves: List[Any], device: torch.device, rows: Optional[int] = None) -> List[Any]:
@@ -241,15 +279,20 @@ class CapturedStep:
     dtypes and first values; ``input_slots`` are the caller's static input
     tensors, which it writes before each :meth:`run`. ``label`` names the
     owner in errors. ``step`` writes the name of the member it is running
-    into ``trace[0]``, so a failure names it.
+    into ``trace[0]``, so a failure names it. ``key`` is the owner's
+    :func:`graph_key` for it and ``recapture`` whether the owner already
+    holds a graph under another key; both go to :func:`report_capture`.
+    With the ledger armed the step runs once more before its warm-up, under
+    ``FlopCounterMode`` (``flops``).
     """
 
     def __init__(self, step: Step, states: StepStates, input_slots: List[Any], device: torch.device,
-                 label: str) -> None:
+                 label: str, key: Any = None, recapture: bool = False) -> None:
         self.device = device
         self.label = label
         self.input_slots = input_slots
         self.replays = 0
+        self.flops: Optional[float] = None
         trace: List[Optional[str]] = [None]
         with torch.cuda.device(device), torch.no_grad():
             self.state_slots = {o: {k: _new_slot(v) for k, v in st.items()} for o, st in states.items()}
@@ -258,11 +301,22 @@ class CapturedStep:
             side.wait_stream(current)
             try:
                 with torch.cuda.stream(side), _host_reads_raise():
+                    if _ledger.ENABLED:
+                        # the ledger's count, a run of its own: the warm-up below,
+                        # which runs the one-time setup the capture relies on,
+                        # stays as it is without the ledger
+                        _, self.flops = _ledger.step_flops(lambda: step(self.state_slots, input_slots, trace))
                     step(self.state_slots, input_slots, trace)
             except Exception as err:
                 raise self._error(trace, "reads a value on the host or fails eagerly", err) from err
             current.wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
+            # no garbage collection inside the capture: a collection there can
+            # finalise an old graph held by a reference cycle, and that graph's
+            # reset invalidates the capture (torch.cuda.graph collects before a
+            # capture only under torch.compiler.config.force_cudagraph_gc)
+            gc_was_enabled = gc.isenabled()
+            gc.disable()
             try:
                 with bincount.recording_launches() as record:
                     with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
@@ -272,6 +326,9 @@ class CapturedStep:
                 raise
             except Exception as err:
                 raise self._error(trace, "cannot be captured", err) from err
+            finally:
+                if gc_was_enabled:
+                    gc.enable()
         self.launches = record
         self.appends = appends
         self.results = step_results(self.state_slots, outputs)
@@ -281,7 +338,7 @@ class CapturedStep:
                     if not isinstance(inc, Tensor):
                         raise CaptureError(f"{label}: member {owner!r} appends a {type(inc).__name__} to "
                                            f"{name!r}; only tensor increments can leave a CUDA graph")
-        _GRAPH_STATS["captures"] += 1
+        report_capture(key, self, recapture)
 
     def _error(self, trace: List[Optional[str]], what: str, err: BaseException) -> CaptureError:
         return CaptureError(f"{self.label}: the update of member {trace[0]!r} {what}, at {_failing_op(err)}: "
@@ -301,5 +358,5 @@ class CapturedStep:
             self.graph.replay()
         bincount.count_replayed_launches(self.launches)
         self.replays += 1
-        _GRAPH_STATS["replays"] += 1
+        _REPLAYS.inc()
         return self.results, self.appends

@@ -37,6 +37,7 @@ from ._capture import (CapturedStep, capturable_leaf, flatten_step, graph_key, i
                        scalar_tensor, signature_of, write_inputs)
 from .buffers import CatBuffer
 from .metric import Metric, _filter_kwargs
+from .observability import spans as _spans
 from .parallel.reduction import Reduction
 from .parallel.strategies import SyncPolicy
 from .parallel.sync import reduce_state_in_graph
@@ -288,7 +289,12 @@ class MetricCollection(torch.nn.Module):
         captured, eager = self._fused_update_plan()
         leaves, spec = flatten_step(args, kwargs)
         if captured and all(capturable_leaf(leaf) for leaf in leaves):
-            self._run_fused_update(captured, leaves, spec, args, kwargs)
+            if _spans.ENABLED:
+                # fenced when sampled (fence_every): the span then waits for the replay
+                with _spans.start_span("collection.fused_update", members=len(captured)) as span:
+                    span.fence(self._run_fused_update(captured, leaves, spec, args, kwargs))
+            else:
+                self._run_fused_update(captured, leaves, spec, args, kwargs)
             pending = eager
         else:
             pending = captured + eager
@@ -315,11 +321,12 @@ class MetricCollection(torch.nn.Module):
         return self._fused_plan
 
     def _run_fused_update(self, captured: List[Tuple[str, Metric]], leaves: List[Any], spec: Any,
-                          args: tuple, kwargs: Dict[str, Any]) -> None:
+                          args: tuple, kwargs: Dict[str, Any]) -> Dict[str, Any]:
         """One step of every captured representative: validation and the
         bookkeeping on the host (JAX ``collections.py:338-375``), the update
         bodies as one graph replay on a card (one per input signature and
-        state layout, captured at its first use) or op by op on the CPU."""
+        state layout, captured at its first use) or op by op on the CPU.
+        Returns the new states."""
         for _, rep in captured:
             if rep._is_synced:
                 raise TorchMetricsUserError("The Metric is currently synced; call `unsync()` before `update`.")
@@ -334,13 +341,14 @@ class MetricCollection(torch.nn.Module):
         device = reps[0][1].device
         step = _fused_step(reps, spec)
         if device.type == "cuda":
-            key = graph_key(signature_of(leaves, spec), reps, states)
-            graph = self._fused_graphs.get(key)
+            key = graph_key("mc_fused_update", signature_of(leaves, spec), reps, states)
+            graphs = self._fused_graphs
+            graph = graphs.get(key)
             if graph is None:
                 slots = new_input_slots(leaves, device)
                 write_inputs(slots, leaves)
-                graph = self._fused_graphs[key] = CapturedStep(step, states, slots, device,
-                                                               f"{type(self).__name__}.update")
+                graph = graphs[key] = CapturedStep(step, states, slots, device, f"{type(self).__name__}.update",
+                                                   key=key, recapture=bool(graphs))
             else:
                 write_inputs(graph.input_slots, leaves)
             new_states, appends = graph.run(states)
@@ -350,6 +358,7 @@ class MetricCollection(torch.nn.Module):
         for name, rep in reps:
             rep._install_state(new_states[name])
             rep._extend_list_states(appends[name], borrowed=device.type == "cuda")
+        return new_states
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Batch values for every member + state accumulation.

@@ -58,8 +58,14 @@ a sync gathers the rows and re-shards them. Elastic sync: a backend with
 runs each sync as a membership round, and :attr:`Metric.coverage` reads the
 last round's coverage.
 
+Telemetry: while tracing is armed (:mod:`~torchmetrics_tpu_torch.observability`)
+``forward``, ``update``, ``compute`` and ``sync`` open ``metric.forward``,
+``metric.update``, ``metric.compute`` and ``metric.sync`` spans on the host
+(JAX ``metric.py:666,1774,1818,1231``); a replayed update's span carries
+``jit=True`` and is fenced when sampled. Disarmed, each costs one flag read.
+
 Not ported: the XLA executable cache (graphs are per instance, see
-:mod:`~torchmetrics_tpu_torch._capture`); not ported yet: spans/ledger/registry and ``plot``.
+:mod:`~torchmetrics_tpu_torch._capture`); not ported yet: ``plot``.
 """
 from __future__ import annotations
 
@@ -75,6 +81,7 @@ from torch.utils._pytree import tree_unflatten
 from ._capture import (CapturedStep, capturable_leaf, flatten_step, graph_key, is_graph_slot, new_input_slots,
                        signature_of, write_inputs)
 from .buffers import CatBuffer, CatLayoutError, ShardedCatBuffer, default_eval_mesh
+from .observability import spans as _spans
 from .parallel.reduction import ELEMENTWISE_REDUCTIONS, Reduction, resolve_reduction
 from .parallel.strategies import SyncPolicy, begin_sync, default_policy, dequantize_chunks, quantize_chunks
 from .parallel.sync import SyncBackend, default_sync_backend, reduce_state_in_graph
@@ -420,9 +427,14 @@ class Metric(torch.nn.Module):
             raise TorchMetricsUserError(
                 "The Metric has been synced and `forward` assumes local state; call `unsync()` first."
             )
-        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
-            return self._forward_full_state_update(*args, **kwargs)
-        return self._forward_reduce_state_update(*args, **kwargs)
+        _sp = _spans.start_span("metric.forward", metric=type(self).__name__) if _spans.ENABLED else None
+        try:
+            if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
+                return self._forward_full_state_update(*args, **kwargs)
+            return self._forward_reduce_state_update(*args, **kwargs)
+        finally:
+            if _sp is not None:
+                _sp.end()
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         self.update(*args, **kwargs)  # accumulate into global
@@ -816,32 +828,39 @@ class Metric(torch.nn.Module):
         declared capturable, and on a card."""
         return self._use_jit and self._device.type == "cuda"
 
-    def _replay_update(self, leaves: List[Any], spec: Any) -> None:
+    def _graph_key_extra(self) -> tuple:
+        """What this metric adds to the key of a graph of its update beyond
+        its class, states and input signature (``_capture.graph_key``)."""
+        return ()
+
+    def _replay_update(self, leaves: List[Any], spec: Any) -> Dict[str, StateDict]:
         """The update body as one replay of this metric's CUDA graph for the
         input signature, captured at the signature's first update (warm-up
         on a side stream, which applies nothing, then the capture); the
         graph's state slots become the states and its appends extend the
         cat states. Validation and the update count stay on the host."""
         states = {"metric": self._tensor_state()}
-        key = graph_key(signature_of(leaves, spec), (("metric", self),), states)
+        key = graph_key("update", signature_of(leaves, spec), (("metric", self),), states)
         graphs = self._update_graphs
         graph = graphs.get(key)
         if graph is None:
             slots = new_input_slots(leaves, self._device)
             write_inputs(slots, leaves)
             graph = graphs[key] = CapturedStep(_lone_step(self, spec), states, slots, self._device,
-                                               f"{type(self).__name__}.update")
+                                               f"{type(self).__name__}.update", key=key, recapture=bool(graphs))
         else:
             write_inputs(graph.input_slots, leaves)
         new_states, appends = graph.run(states)
         self._install_state(new_states["metric"])
         self._extend_list_states(appends["metric"], borrowed=True)
+        return new_states
 
-    def _apply_update(self, args: tuple, kwargs: dict, capture: bool) -> None:
+    def _apply_update(self, args: tuple, kwargs: dict, capture: bool) -> Optional[Dict[str, StateDict]]:
         """One update's books (validation, the update count) and its body:
         a replay of this metric's graph where ``capture`` and
         :meth:`_captures_updates` allow it and every input leaf can enter a
-        graph, op by op otherwise."""
+        graph, op by op otherwise. Returns the replay's new states (None
+        when the update ran op by op)."""
         # an eager update interleaved with staged ones extends the flushed state
         self._flush_pending()
         if self._is_synced:
@@ -855,11 +874,11 @@ class Metric(torch.nn.Module):
         if capture and self._captures_updates():
             leaves, spec = flatten_step(args, kwargs)
             if all(capturable_leaf(leaf) for leaf in leaves):
-                self._replay_update(leaves, spec)
-                return
+                return self._replay_update(leaves, spec)
         new_tensors, appends = self._pure_update(self._tensor_state(), args, kwargs)
         self._install_state(new_tensors)
         self._extend_list_states(appends)
+        return None
 
     def _eager_update(self, *args: Any, **kwargs: Any) -> None:
         """``update`` op by op, capturing no graph of this metric's own: a
@@ -909,13 +928,19 @@ class Metric(torch.nn.Module):
         if not should_sync or not backend.is_available():
             return
         cache = self._snapshot_state()
-        begin_sync()
-        elastic = hasattr(backend, "begin_round")
-        if elastic:
-            backend.begin_round(contrib=int(self._update_count), policy=self._sync_policy)
-        synced = self._gather_synced(backend)
-        if elastic:
-            backend.end_round()
+        _sp = (_spans.start_span("metric.sync", metric=type(self).__name__, world=backend.world_size())
+               if _spans.ENABLED else None)
+        try:
+            begin_sync()
+            elastic = hasattr(backend, "begin_round")
+            if elastic:
+                backend.begin_round(contrib=int(self._update_count), policy=self._sync_policy)
+            synced = self._gather_synced(backend)
+            if elastic:
+                backend.end_round()
+        finally:
+            if _sp is not None:
+                _sp.end()
         self._cache = cache
         for name, value in synced.items():
             if name in self._list_states:
@@ -1333,7 +1358,13 @@ def _wrap_update(update_fn: Callable) -> Callable:
             # against the installed state; the outer call keeps the books
             update_fn(self, *args, **kwargs)
             return
-        self._apply_update(args, kwargs, capture=True)
+        if not _spans.ENABLED:
+            self._apply_update(args, kwargs, capture=True)
+            return
+        with _spans.start_span("metric.update", metric=type(self).__name__) as span:
+            replayed = self._apply_update(args, kwargs, capture=True)
+            if replayed is not None:
+                span.set_attr(jit=True).fence(replayed)
 
     wrapped._tm_wrapped = True
     return wrapped
@@ -1365,8 +1396,13 @@ def _wrap_compute(compute_fn: Callable) -> Callable:
             )
         if self.compute_with_cache and self._computed is not None:
             return self._computed
-        with self.sync_context(should_sync=self.sync_on_compute):
-            value = _squeeze_if_scalar(self._compute_on_views(compute_fn, *args, **kwargs))
+        _sp = _spans.start_span("metric.compute", metric=type(self).__name__) if _spans.ENABLED else None
+        try:
+            with self.sync_context(should_sync=self.sync_on_compute):
+                value = _squeeze_if_scalar(self._compute_on_views(compute_fn, *args, **kwargs))
+        finally:
+            if _sp is not None:
+                _sp.end()
         if self.compute_with_cache:
             self._computed = value
         return value

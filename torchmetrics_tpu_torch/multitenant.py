@@ -228,9 +228,14 @@ class TenantStack(Metric):
         place: it is never handed out, and the next replay reads it where it
         is. Any other state may be shared (a handed-out ``metric_state``,
         a forward's cache), so it is rebound to an updated copy. Neither
-        changes a shape, so the update graph stays."""
+        changes a shape, so the update graph stays. The two flags are
+        filled on the device: a host tensor copied in would make a
+        synchronising copy, which ``strict_mode``'s guard refuses (the JAX
+        class stages its two host scalars explicitly for the same reason)."""
         self._flush_staged()
-        rows = {**self._view.defaults, "tenant_valid": torch.tensor(active), "tenant_count": torch.tensor(0)}
+        device = self._buffers["tenant_valid"].device
+        rows = {**self._view.defaults, "tenant_valid": torch.full((), active, dtype=torch.bool, device=device),
+                "tenant_count": torch.zeros((), dtype=torch.int32, device=device)}
         with torch.no_grad():
             for name, default in rows.items():
                 state = self._buffers[name]
@@ -284,6 +289,12 @@ class TenantStack(Metric):
         self.slots = 2 * old
         self._tenant_ids.extend([None] * old)
         self._update_graphs = {}
+
+    def _graph_key_extra(self) -> tuple:
+        """The slot count and the template's classes, as the JAX class's
+        executable key carries them (``("tenant_slots", n)``), so the ledger
+        renders the stack: ``update[TenantStack[MulticlassAccuracy]×256]``."""
+        return (("tenant_slots", self.slots), ("template", tuple(type(m) for _, _, m in self._view.members)))
 
     # ------------------------------------------------------------------
     # the stacked update: vmap of the template's pure update

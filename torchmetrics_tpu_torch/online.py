@@ -29,14 +29,15 @@ the cursor MAX, the counts SUM), so ``sync``, ``reduce_state``,
 ``state_dict`` and ``.to()`` work unchanged. ``windowed()`` takes SUM, MEAN,
 MAX, MIN and mergeable sketch states and its compute merges a sketch's
 slots with one n-way merge; ``decayed()`` takes SUM and decay-capable
-sketch states. The counters of :func:`online_stats` are a plain dict until
-the registry is ported (A14).
+sketch states. The counters of :func:`online_stats` live in the
+observability registry (``online.*``), as the JAX package keeps them.
 """
 from typing import Any, Dict
 
 import torch
 
 from .metric import Metric
+from .observability.registry import REGISTRY as _REGISTRY
 from .parallel.reduction import Reduction
 
 Tensor = torch.Tensor
@@ -45,13 +46,17 @@ __all__ = ["WindowedMetric", "DecayedMetric", "online_stats", "reset_online_stat
 
 # host-side counters: instances created, eager updates, and window rotations
 # estimated from each metric's update count (no device read)
-_ONLINE_STATS: Dict[str, int] = {
-    "windowed_metrics": 0,
-    "decayed_metrics": 0,
-    "windowed_updates": 0,
-    "decayed_updates": 0,
-    "window_rotations": 0,
-}
+_ONLINE_STATS = _REGISTRY.group(
+    "online",
+    {
+        "windowed_metrics": 0,
+        "decayed_metrics": 0,
+        "windowed_updates": 0,
+        "decayed_updates": 0,
+        "window_rotations": 0,
+    },
+    help="online-evaluation dispatch counters",
+)
 
 _WINDOWABLE = (Reduction.SUM, Reduction.MEAN, Reduction.MAX, Reduction.MIN)
 
@@ -90,8 +95,7 @@ def online_stats() -> Dict[str, int]:
 
 
 def reset_online_stats() -> None:
-    for k in _ONLINE_STATS:
-        _ONLINE_STATS[k] = 0
+    _ONLINE_STATS.reset()
 
 
 def _check_online_base(base: Metric, verb: str) -> None:

@@ -371,7 +371,20 @@ def _launch(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: int, o
         raise RuntimeError(f"weighted_bincount kernel launch failed: cudaError {err} "
                            f"({lib.tm_bincount_error_string(err).decode()})")
     weighted_bincount.launches += 1
+    if _RECORDING:
+        note_launch("weighted_bincount", bound_bytes(idx, weights, num_bins))
     return out
+
+
+def bound_bytes(idx: torch.Tensor, w: Optional[torch.Tensor], bins: int) -> int:
+    """Least bytes one call moves: every input read once (indices as
+    int32, weights as float32), the output written once. ``idx`` is (N,)
+    or (S, N), ``w`` None, (N,) or (S, N)."""
+    n = idx.shape[-1]
+    rows = idx.shape[0] if idx.dim() == 2 else 1
+    s = w.shape[0] if w is not None and w.dim() == 2 else rows
+    w_bytes = 0 if w is None else s * n * 4
+    return rows * n * 4 + w_bytes + s * bins * 4
 
 
 def _as_int32_indices(idx: torch.Tensor) -> torch.Tensor:
@@ -544,14 +557,29 @@ weighted_bincount.launches = 0
 COUNTED_KERNELS = [weighted_bincount]
 
 
+def note_launch(kernel: str, nbytes: int) -> None:
+    """One launch of ``kernel`` moving ``nbytes`` by its bound, into every
+    open :func:`recording_launches` record (the ledger's count of a graph's
+    launches)."""
+    for record in _RECORDING:
+        record.bytes_each.append((kernel, int(nbytes)))
+
+
+# the records of the captures in progress; each counted kernel's wrapper
+# notes its launches into them
+_RECORDING: list = []
+
+
 class LaunchRecord:
     """The kernel launches a CUDA graph recorded at capture: each replay runs
-    them. ``counts`` is per counted wrapper; ``count`` the bincount's."""
+    them. ``counts`` is per counted wrapper; ``count`` the bincount's;
+    ``bytes_each`` every launch as ``(kernel, bound bytes)``."""
 
-    __slots__ = ("counts",)
+    __slots__ = ("counts", "bytes_each")
 
     def __init__(self) -> None:
         self.counts = {}
+        self.bytes_each = []
 
     @property
     def count(self) -> int:
@@ -566,9 +594,11 @@ def recording_launches():
     :class:`LaunchRecord`."""
     record = LaunchRecord()
     before = {fn: fn.launches for fn in COUNTED_KERNELS}
+    _RECORDING.append(record)
     try:
         yield record
     finally:
+        _RECORDING.remove(record)
         for fn, n in before.items():
             record.counts[fn] = fn.launches - n
             fn.launches = n

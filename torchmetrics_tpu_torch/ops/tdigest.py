@@ -26,6 +26,7 @@ from pathlib import Path
 
 import torch
 
+from . import bincount
 from .bincount import COUNTED_KERNELS, build_library
 
 Tensor = torch.Tensor
@@ -143,7 +144,15 @@ def _launch(centroids: Tensor, compression: int) -> Tensor:
         raise RuntimeError(f"tdigest_compress kernel launch failed: cudaError {err} "
                            f"({lib.tm_tdigest_error_string(err).decode()})")
     tdigest_compress_sorted.launches += 1
+    if bincount._RECORDING:
+        bincount.note_launch("tdigest_compress_sorted", bound_bytes(s, m, compression))
     return out
+
+
+def bound_bytes(s: int, m: int, compression: int) -> int:
+    """Least bytes one call moves: S·M centroids read once and S·C written
+    once, float32 (mean, weight) pairs."""
+    return (s * m + s * compression) * 8
 
 
 @torch.library.custom_op("torchmetrics_tpu_torch::tdigest_compress_sorted", mutates_args=())

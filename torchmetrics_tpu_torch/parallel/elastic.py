@@ -32,9 +32,14 @@ with retries, each ``recovery_barrier`` waits up to ``_BACKOFF_CAP_S`` for a
 peer that is gone, the inner backend stays poisoned and the last attempt
 raises the poison ``RuntimeError`` (the JAX package's behaviour, kept).
 
-The counters are a plain module dict (:func:`elastic_stats`); the JAX
-package's spans are not ported, and ``_DEGRADE_OBSERVERS`` is kept for a
-strict mode to attach to.
+The counters live in the observability registry (``elastic.*``;
+:func:`elastic_stats` is a view of them). While tracing is armed a round
+opens an ``elastic.round`` span with its coverage, the probe an
+``elastic.probe`` span, each guarded attempt ``elastic.attempt``, each
+backoff ``elastic.backoff``, and a degrade and a rejoin merge record
+instants, with the JAX package's names and attributes.
+``debug.strict_mode`` attaches to ``_DEGRADE_OBSERVERS`` for its budget of
+degraded rounds.
 """
 from __future__ import annotations
 
@@ -48,6 +53,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..observability import spans as _spans
+from ..observability.registry import REGISTRY as _REGISTRY
 from .reduction import Reduction
 from .strategies import SyncPolicy, default_policy
 from .sync import SyncBackend, _default_device
@@ -114,17 +121,22 @@ class Coverage:
 # process-wide elastic counters
 # ---------------------------------------------------------------------------
 
-_ELASTIC: Dict[str, int] = {
-    "rounds": 0,             # elastic sync rounds completed
-    "epochs": 0,             # membership changes observed
-    "retries": 0,            # gather attempts repeated after a timeout
-    "timeouts": 0,           # gather timeouts observed (incl. retried ones)
-    "recoveries": 0,         # gathers that succeeded on a retry attempt
-    "degraded_syncs": 0,     # rounds that settled below 100% coverage
-    "rejoins": 0,            # membership-grew epochs (a rank came back)
-    "duplicates_dropped": 0,  # duplicated deliveries deduplicated by rank id
-    "overlap_deferred": 0,   # overlapped-flush gathers deferred to the barrier
-}
+# registry-backed (observability/registry.py), as the JAX package keeps them
+_ELASTIC = _REGISTRY.group(
+    "elastic",
+    {
+        "rounds": 0,             # elastic sync rounds completed
+        "epochs": 0,             # membership changes observed
+        "retries": 0,            # gather attempts repeated after a timeout
+        "timeouts": 0,           # gather timeouts observed (incl. retried ones)
+        "recoveries": 0,         # gathers that succeeded on a retry attempt
+        "degraded_syncs": 0,     # rounds that settled below 100% coverage
+        "rejoins": 0,            # membership-grew epochs (a rank came back)
+        "duplicates_dropped": 0,  # duplicated deliveries deduplicated by rank id
+        "overlap_deferred": 0,   # overlapped-flush gathers deferred to the barrier
+    },
+    help="elastic-sync health",
+)
 _LAST_COVERAGE: List[Optional[Coverage]] = [None]
 # bounded ring of recent rounds' coverage (newest last) — the
 # observability.autotune observer reads membership churn from this history
@@ -132,8 +144,8 @@ _LAST_COVERAGE: List[Optional[Coverage]] = [None]
 _COVERAGE_HISTORY_MAX = 64
 _COVERAGE_HISTORY: deque = deque(maxlen=_COVERAGE_HISTORY_MAX)
 
-# observers called as cb(coverage) whenever a round settles degraded (the JAX
-# package's strict mode enforces its degraded-compute budget through them)
+# observers called as cb(coverage) whenever a round settles degraded; used by
+# debug.strict_mode() to enforce its degraded-compute budget
 _DEGRADE_OBSERVERS: List[Callable[[Coverage], None]] = []
 
 
@@ -151,8 +163,7 @@ def coverage_history() -> List[Coverage]:
 
 
 def reset_elastic_stats() -> None:
-    for k in _ELASTIC:
-        _ELASTIC[k] = 0
+    _ELASTIC.reset()
     _LAST_COVERAGE[0] = None
     _COVERAGE_HISTORY.clear()
 
@@ -603,16 +614,22 @@ class ElasticSync(SyncBackend):
             return local()
         policy = self._policy()
         attempts = policy.retry_attempts
+        traced_on = _spans.ENABLED
         for attempt in range(attempts + 1):
+            _asp = _spans.start_span("elastic.attempt", attempt=attempt) if traced_on else None
             try:
                 out = op()
                 if attempt:
                     _ELASTIC["recoveries"] += 1
+                    if _asp is not None:
+                        _asp.set_attr(recovered=True)
                 return out
             except TimeoutError as exc:
                 _ELASTIC["timeouts"] += 1
                 suspects = tuple(getattr(exc, "suspect_ranks", ()) or ())
                 self._suspects.update(int(s) for s in suspects)
+                if _asp is not None:
+                    _asp.set_attr(timeout=True, suspects=list(suspects))
                 if attempt >= attempts:
                     break
             except RuntimeError as exc:
@@ -620,9 +637,18 @@ class ElasticSync(SyncBackend):
                 # below re-arms it, so a retry is meaningful
                 if attempt >= attempts or "poison" not in str(exc).lower():
                     raise
+            finally:
+                if _asp is not None:
+                    _asp.end()
             _ELASTIC["retries"] += 1
-            time.sleep(min(policy.backoff_base_s * (2 ** attempt), _BACKOFF_CAP_S))
-            self._shrink_membership()
+            backoff_s = min(policy.backoff_base_s * (2 ** attempt), _BACKOFF_CAP_S)
+            if traced_on:
+                with _spans.trace_span("elastic.backoff", attempt=attempt, sleep_s=backoff_s):
+                    time.sleep(backoff_s)
+                    self._shrink_membership()
+            else:
+                time.sleep(backoff_s)
+                self._shrink_membership()
         # budget exhausted: partial result over whatever answered, here
         # just this rank; end_round() reports the coverage fraction
         self._round_degraded = True
@@ -630,6 +656,8 @@ class ElasticSync(SyncBackend):
             self._present -= self._suspects
         else:
             self._present = {self._rank()}
+        if traced_on:
+            _spans.instant("elastic.degrade", suspects=sorted(self._suspects))
         return local()
 
     def _shrink_membership(self) -> None:
@@ -671,7 +699,15 @@ class ElasticSync(SyncBackend):
         self._present = set(range(self._expected)) - set(
             getattr(getattr(self._inner, "controller", None), "down", ())
         )
-        self._probe(int(contrib))
+        if _spans.ENABLED:
+            # cross-call span: opened here, closed (with coverage attrs) by
+            # end_round; the retry/backoff/degrade children nest under it
+            self._round_span = _spans.start_span("elastic.round", epoch=self.epoch, contrib=int(contrib))
+            with _spans.trace_span("elastic.probe"):
+                self._probe(int(contrib))
+        else:
+            self._round_span = None
+            self._probe(int(contrib))
 
     def _probe(self, contrib: int) -> None:
         inner = self._inner
@@ -731,7 +767,20 @@ class ElasticSync(SyncBackend):
         self._prev_present = present
         self.last_coverage = cov
         degraded = self._round_degraded or not cov.full
-        record_coverage(cov, degraded=degraded)
+        try:
+            record_coverage(cov, degraded=degraded)
+        finally:
+            _rsp = self.__dict__.get("_round_span")
+            if _rsp is not None:
+                _rsp.set_attr(
+                    degraded=degraded,
+                    coverage=cov.fraction,
+                    ranks_present=cov.ranks_present,
+                    ranks_expected=cov.ranks_expected,
+                    samples_present=cov.samples_present,
+                    samples_expected=cov.samples_expected,
+                ).end()
+                self._round_span = None
         policy = self._policy()
         self._round_policy = None
         if cov.fraction < policy.min_coverage:
@@ -762,6 +811,8 @@ class ElasticSync(SyncBackend):
         recovered = merge_checkpoint(metric, blob, devices=devices, mesh=mesh)
         self._adopted_contrib += recovered
         _ELASTIC["rejoins"] += 1
+        if _spans.ENABLED:
+            _spans.instant("elastic.merge_on_rejoin", samples=recovered)
         return recovered
 
     # -- guarded collectives ---------------------------------------------

@@ -32,17 +32,30 @@ same values the JAX package's int16 accumulator holds, so the result is
 bitwise the same. The requantized payload travels through the raw-byte
 gather, so int16 needs no reduction support either.
 
+Every collective goes through :func:`_group_api`, which is
+``torch.distributed`` except inside :func:`modelled_group`: a stand-in
+group of ``world`` ranks that moves nothing, under which the sync's own
+routes record the collectives they would issue (the autotuner's wire
+model).
+
 Every collective is counted in the process-wide wire ledger
-(:func:`wire_stats`) with the JAX package's ring-bandwidth model.
+(:func:`wire_stats`, a view of the registry's ``wire.*`` counters) with
+the JAX package's ring-bandwidth model, its payload observed in the
+``wire.collective_nbytes`` histogram, and, while tracing is armed, a
+``collective`` span instant carries the model's numbers.
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..observability import spans as _spans
+from ..observability.registry import REGISTRY as _REGISTRY
 
 Tensor = torch.Tensor
 
@@ -84,11 +97,31 @@ def pad_cat_rows(value: Tensor, target_rows: int, trailing: Tuple[int, ...], dty
 # ---------------------------------------------------------------------------
 
 _COUNTERS = ("bytes_reduced", "bytes_gathered", "collectives_issued")
-_WIRE: Dict[str, int] = {**dict.fromkeys(_COUNTERS, 0), "syncs": 0}
-_LAST_SYNC: Dict[str, int] = dict.fromkeys(_COUNTERS, 0)
+# registry-backed (observability/registry.py), as the JAX package keeps them
+_WIRE = _REGISTRY.group(
+    "wire",
+    {
+        "bytes_reduced": 0,     # elementwise all-reduce traffic (model, per rank)
+        "bytes_gathered": 0,    # cat/NONE gather traffic (model, per rank)
+        "collectives_issued": 0,
+        "syncs": 0,             # reduce_state_in_graph calls + eager Metric.sync calls
+    },
+    help="modelled ring-bandwidth wire traffic",
+)
+_LAST_SYNC = _REGISTRY.group(
+    "wire.last_sync", dict(_WIRE), help="per-collective breakdown of the latest sync"
+)
+# per-collective payload size distribution, labelled by kind: the autotuner's
+# observer reads it to size gather chunks and to decide whether quantization
+# can pay for its scale overhead
+_COLLECTIVE_NBYTES = _REGISTRY.histogram(
+    "wire.collective_nbytes",
+    "payload bytes per collective, by kind",
+    buckets=(64, 256, 1024, 4096, 16384, 65536, 262144, 1 << 20, 1 << 22, 1 << 24),
+)
 
 
-def record_collective(kind: str, nbytes: int, world: int) -> None:
+def record_collective(kind: str, nbytes: int, world: int, dtype: Any = None) -> None:
     """Account one collective over ``nbytes`` of payload on a ``world`` ring.
 
     The JAX package's model (bytes per rank): ``psum``/``pmean``/``pmax``/
@@ -96,7 +129,9 @@ def record_collective(kind: str, nbytes: int, world: int) -> None:
     ``(n-1)/n·S``, ``all_gather`` of an ``S``-byte row ``(n-1)·S``, the
     zeros+psum gather ``2(n-1)·S``; the eager backends' ``eager_gather``
     and ``eager_reduce`` (a gather, reduced after) ``(n-1)·S``. Nothing is
-    counted in a group of one.
+    counted in a group of one. While tracing is armed a ``collective``
+    instant carries the kind, the payload, the modelled wire bytes, the
+    world and the dtype (JAX ``strategies.py:153``).
     """
     n = max(int(world), 1)
     if n <= 1:
@@ -113,9 +148,20 @@ def record_collective(kind: str, nbytes: int, world: int) -> None:
         key, moved = "bytes_reduced", (n - 1) * nbytes
     else:
         raise ValueError(f"unknown collective kind {kind!r}")
-    for counters in (_WIRE, _LAST_SYNC):
-        counters[key] += moved
-        counters["collectives_issued"] += 1
+    _WIRE[key] += moved
+    _WIRE["collectives_issued"] += 1
+    _LAST_SYNC[key] += moved
+    _LAST_SYNC["collectives_issued"] += 1
+    _COLLECTIVE_NBYTES.observe(float(nbytes), kind=kind)
+    if _spans.ENABLED:
+        _spans.instant(
+            "collective",
+            kind=kind,
+            bytes=int(nbytes),
+            wire_bytes=int(moved),
+            world=n,
+            dtype=str(dtype) if dtype is not None else None,
+        )
 
 
 def begin_sync() -> None:
@@ -127,14 +173,17 @@ def begin_sync() -> None:
 
 def wire_stats() -> Dict[str, Any]:
     """Totals since process start or :func:`reset_wire_stats`, plus the
-    counters of the most recent sync under ``last_sync``."""
-    return {**_WIRE, "last_sync": dict(_LAST_SYNC)}
+    counters of the most recent sync under ``last_sync``: a view of the
+    registry's ``wire`` and ``wire.last_sync`` groups."""
+    out: Dict[str, Any] = dict(_WIRE)
+    out["last_sync"] = {k: _LAST_SYNC[k] for k in _COUNTERS}
+    return out
 
 
 def reset_wire_stats() -> None:
-    for counters in (_WIRE, _LAST_SYNC):
-        for k in counters:
-            counters[k] = 0
+    _WIRE.reset()
+    _LAST_SYNC.reset()
+    _COLLECTIVE_NBYTES.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -237,12 +286,72 @@ def use_policy(policy: SyncPolicy) -> Iterator[SyncPolicy]:
 # collectives over a torch.distributed group
 # ---------------------------------------------------------------------------
 
+class _ModelledGroup:
+    """``torch.distributed``'s calls over ``world`` ranks that move nothing:
+    a gather hands back ``world`` copies of this rank's tensor, a reduction
+    leaves its tensor as it is, and a reduce-scatter keeps this rank's
+    (rank 0's) slice. The tensors come back at the shapes a real group
+    gives, so every route runs as it would, and ranks that all hold this
+    rank's state exchange the same cat row counts."""
+
+    def __init__(self, world: int) -> None:
+        self.world = int(world)
+
+    def is_available(self) -> bool:
+        return True
+
+    def is_initialized(self) -> bool:
+        return True
+
+    def get_world_size(self, group: Any = None) -> int:
+        return self.world
+
+    def get_rank(self, group: Any = None) -> int:
+        return 0
+
+    def get_backend(self, group: Any = None) -> str:
+        return "gloo"  # its tensors may stay in host memory
+
+    def all_reduce(self, tensor: Tensor, op: Any = None, group: Any = None) -> None:
+        return None
+
+    def all_gather_into_tensor(self, out: Tensor, tensor: Tensor, group: Any = None) -> None:
+        out.copy_(tensor.reshape(-1).repeat(self.world))
+
+    def reduce_scatter_tensor(self, out: Tensor, tensor: Tensor, group: Any = None) -> None:
+        out.copy_(tensor.reshape(-1)[: out.numel()])
+
+
+_GROUP_API: contextvars.ContextVar = contextvars.ContextVar("group_api", default=dist)
+
+
+def _group_api() -> Any:
+    """``torch.distributed``, or the :func:`modelled_group` in force in this
+    thread's context."""
+    return _GROUP_API.get()
+
+
+@contextlib.contextmanager
+def modelled_group(world: int) -> Iterator[None]:
+    """Run the sync's collectives against a stand-in group of ``world``
+    ranks that moves nothing (:class:`_ModelledGroup`): each still records
+    itself in the wire ledger, so a sync run inside the block counts the
+    bytes it would move over such a group. Other threads keep the real
+    group."""
+    token = _GROUP_API.set(_ModelledGroup(world))
+    try:
+        yield
+    finally:
+        _GROUP_API.reset(token)
+
+
 def group_size(group: Any = None) -> int:
     """Ranks in ``group`` (the default group when ``None``); 1 when no
     process group is initialised."""
-    if not (dist.is_available() and dist.is_initialized()):
+    api = _group_api()
+    if not (api.is_available() and api.is_initialized()):
         return 1
-    return dist.get_world_size(group)
+    return api.get_world_size(group)
 
 
 def _as_bytes(value: Tensor) -> Tensor:
@@ -256,14 +365,15 @@ def _from_bytes(rows: Tensor, dtype: torch.dtype, shape: Tuple[int, ...]) -> Ten
 
 def _gather_bytes(flat: Tensor, group: Any, n: int, policy: SyncPolicy) -> Tensor:
     """``(n, flat.numel())`` uint8: every rank's bytes, in rank order."""
+    api = _group_api()
     if policy.use_all_gather():
         # a flat (world·n,) output: gloo refuses a (world, n) one
         out = torch.empty(n * flat.numel(), dtype=torch.uint8, device=flat.device)
-        dist.all_gather_into_tensor(out, flat, group=group)
+        api.all_gather_into_tensor(out, flat, group=group)
         return out.view(n, -1)
     rows = torch.zeros((n, flat.numel()), dtype=torch.uint8, device=flat.device)
-    rows[dist.get_rank(group)] = flat
-    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
+    rows[api.get_rank(group)] = flat
+    api.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
     return rows
 
 
@@ -288,7 +398,7 @@ def gather_bucket(flat: Tensor, group: Any = None, policy: Optional[SyncPolicy] 
     kind = "all_gather" if policy.use_all_gather() else "zeros_psum_gather"
     gathered = []
     for piece in pieces:
-        record_collective(kind, piece.numel() * piece.element_size(), n)
+        record_collective(kind, piece.numel() * piece.element_size(), n, dtype=piece.dtype)
         gathered.append(stack_gather(piece, group, policy))
     return gathered[0] if len(gathered) == 1 else torch.cat(gathered, dim=1)
 
@@ -304,14 +414,15 @@ def reduce_scatter_sum(flat: Tensor, group: Any = None, mean: bool = False,
     size = flat.numel()
     pad = (-size) % n
     padded = torch.cat([flat, flat.new_zeros(pad)]) if pad else flat.contiguous()
-    record_collective("psum_scatter", padded.numel() * padded.element_size(), n)
+    record_collective("psum_scatter", padded.numel() * padded.element_size(), n, dtype=padded.dtype)
+    api = _group_api()
     shard = padded.new_empty(padded.numel() // n)
-    dist.reduce_scatter_tensor(shard, padded, group=group)
+    api.reduce_scatter_tensor(shard, padded, group=group)
     if mean:
         shard = shard / n if shard.is_floating_point() else shard // n
-    record_collective("all_gather", shard.numel() * shard.element_size(), n)
+    record_collective("all_gather", shard.numel() * shard.element_size(), n, dtype=shard.dtype)
     out = shard.new_empty(shard.numel() * n)
-    dist.all_gather_into_tensor(out, shard, group=group)
+    api.all_gather_into_tensor(out, shard, group=group)
     return out[:size]
 
 
@@ -386,28 +497,29 @@ def quantized_allreduce(flat: Tensor, group: Any = None, mean: bool = False, pol
     padded, _ = _pad_to_multiple(x.reshape(-1), n * chunk)
     blocks = padded.reshape(-1, chunk)
 
+    api = _group_api()
     absmax = torch.amax(torch.abs(blocks), dim=1)
-    record_collective("pmax", absmax.numel() * absmax.element_size(), n)
-    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    record_collective("pmax", absmax.numel() * absmax.element_size(), n, dtype=absmax.dtype)
+    api.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
     scales = (absmax / qmax).to(blocks.dtype)
     q_in = _quantize_blocks(blocks, scales, bits)
     new_residual = (padded - (q_in.to(blocks.dtype) * scales[:, None]).reshape(-1))[:size]
 
     acc = q_in.to(torch.int32).reshape(-1)
-    record_collective("psum_scatter", acc.numel() * acc.element_size(), n)
+    record_collective("psum_scatter", acc.numel() * acc.element_size(), n, dtype=acc.dtype)
     shard_acc = acc.new_empty(acc.numel() // n)
-    dist.reduce_scatter_tensor(shard_acc, acc, group=group)
+    api.reduce_scatter_tensor(shard_acc, acc, group=group)
 
     per_shard = scales.numel() // n
-    rank = dist.get_rank(group)
+    rank = api.get_rank(group)
     shard_scales = scales[rank * per_shard:(rank + 1) * per_shard]
     shard = (shard_acc.reshape(-1, chunk).to(blocks.dtype) * shard_scales[:, None]).reshape(-1)
     if mean:
         shard = shard / n
     q_out, out_scales, _ = quantize_chunks(shard, bits, chunk)
     gather = SyncPolicy(gather="all_gather")
-    record_collective("all_gather", q_out.numel() * q_out.element_size(), n)
+    record_collective("all_gather", q_out.numel() * q_out.element_size(), n, dtype=q_out.dtype)
     gathered_q = stack_gather(q_out, group, gather).reshape(-1)
-    record_collective("all_gather", out_scales.numel() * out_scales.element_size(), n)
+    record_collective("all_gather", out_scales.numel() * out_scales.element_size(), n, dtype=out_scales.dtype)
     gathered_scales = stack_gather(out_scales, group, gather).reshape(-1)
     return dequantize_chunks(gathered_q, gathered_scales, flat.dtype)[:size], new_residual

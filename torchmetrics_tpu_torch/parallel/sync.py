@@ -46,6 +46,7 @@ from .strategies import (  # noqa: F401  (re-exported: the JAX package's import 
     use_policy,
     wire_stats,
 )
+from .strategies import _group_api
 
 Tensor = torch.Tensor
 StateDict = Dict[str, Any]
@@ -142,9 +143,9 @@ def _route_elementwise(value: Tensor, reduction: Reduction, group: Any, policy: 
         out = reduce_scatter_sum(value.reshape(-1), group, mean=reduction == Reduction.MEAN, policy=policy)
         return out.reshape(value.shape)
     kind, op = _ALL_REDUCE[reduction]
-    record_collective(kind, value.numel() * value.element_size(), n)
+    record_collective(kind, value.numel() * value.element_size(), n, dtype=value.dtype)
     out = value.clone()
-    dist.all_reduce(out, op=op, group=group)
+    _group_api().all_reduce(out, op=op, group=group)
     if reduction == Reduction.MEAN:  # lax.pmean: psum / n, floats for integer input
         out = out / n
     return out
@@ -195,7 +196,8 @@ def _default_device(group: Any) -> torch.device:
     """Where a rank puts tensors it makes for a collective (metadata, empty
     rows): host memory on a gloo group, so reading them waits for no card,
     and the current card otherwise (NCCL moves device memory only)."""
-    if dist.is_initialized() and dist.get_backend(group) != "gloo":
+    api = _group_api()
+    if api.is_initialized() and api.get_backend(group) != "gloo":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
@@ -213,7 +215,7 @@ def _plan_cat_leaves(cats: List[Tuple[str, Any]], group: Any, n: int, device: Op
         metas = [words]
     else:
         mine = torch.tensor(words, dtype=torch.int32, device=_default_device(group))
-        record_collective("all_gather", mine.numel() * mine.element_size(), n)
+        record_collective("all_gather", mine.numel() * mine.element_size(), n, dtype=mine.dtype)
         metas = stack_gather(mine, group, SyncPolicy()).tolist()
     out: Dict[str, Any] = {}
     for i, ((name, value), rows) in enumerate(zip(cats, local)):
@@ -460,7 +462,7 @@ class HostSync(SyncBackend):
 
     def sync_tensor(self, value: Tensor, reduction) -> Tensor:
         kind = "eager_reduce" if reduction in ELEMENTWISE_REDUCTIONS else "eager_gather"
-        record_collective(kind, value.numel() * value.element_size(), self.world_size())
+        record_collective(kind, value.numel() * value.element_size(), self.world_size(), dtype=value.dtype)
         if reduction == Reduction.CAT:
             rows = value.reshape(1) if value.ndim == 0 else value
             return self._gather_cat(rows, rows.shape[0])
@@ -548,7 +550,7 @@ class FakeSync(SyncBackend):
     def sync_tensor(self, value: Tensor, reduction) -> Tensor:
         name = self._current_name
         kind = "eager_reduce" if reduction in ELEMENTWISE_REDUCTIONS else "eager_gather"
-        record_collective(kind, value.numel() * value.element_size(), self.world_size())
+        record_collective(kind, value.numel() * value.element_size(), self.world_size(), dtype=value.dtype)
         empty = torch.as_tensor(value).reshape(-1)[:0] if value.ndim == 0 else value[:0]
         if self._is_range(name):
             key, start, stop = name

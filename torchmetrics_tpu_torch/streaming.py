@@ -36,9 +36,15 @@ Counterpart of ``torchmetrics_tpu/streaming.py``: :class:`BufferedMetric`
   counters (``elastic_stats()["overlap_deferred"]``); an elastic backend
   runs the barrier as one membership round.
 
-Not ported: the spans and registry (A14); :func:`stream_stats` counts
-flushes instead.
+Telemetry (JAX :56-69, :236-415): :func:`stream_stats` is a view of the
+registry's ``streaming.*`` counters, every flush observes its host seconds
+in the ``streaming.flush_latency_s`` histogram (labelled by window), and,
+while tracing is armed, a buffered metric opens ``buffered.stage``,
+``buffered.flush``, ``buffered.scan`` (around the replay, fenced when
+sampled), ``buffered.overlap_issue`` and ``buffered.overlap_barrier``
+spans, with the JAX package's names and attributes.
 """
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -48,6 +54,8 @@ from ._capture import (CapturedStep, capturable_leaf, flatten_step, graph_key, n
                        signature_of, write_inputs)
 from .buffers import CatBuffer
 from .metric import Metric, StateDict, _filter_kwargs
+from .observability import spans as _spans
+from .observability.registry import REGISTRY as _REGISTRY
 from .parallel.elastic import note_overlap_deferred
 from .parallel.reduction import Reduction
 from .parallel.strategies import begin_sync
@@ -57,17 +65,27 @@ __all__ = ["BufferedMetric", "BufferedMetricCollection", "reset_stream_stats", "
 
 Tensor = torch.Tensor
 
-_STREAM_STATS = {"flushes": 0, "staged_steps": 0, "overlap_deferred": 0}
+_STREAM_STATS = _REGISTRY.group(
+    "streaming",
+    {"flushes": 0, "staged_steps": 0, "overlap_deferred": 0},
+    help="buffered streaming updates",
+)
+# host seconds of each flush (the replay is asynchronous: its enqueue),
+# labelled by window size; one observation per flush, so always on. The
+# autotuner reads it when it chooses the buffered window K.
+_FLUSH_LATENCY = _REGISTRY.histogram(
+    "streaming.flush_latency_s", "seconds per scanned flush dispatch"
+)
 
 
 def stream_stats() -> Dict[str, int]:
-    """Flushes, staged steps and deferred overlapped gathers in this process."""
+    """Flushes, staged steps and deferred overlapped gathers in this
+    process: a view of the registry's ``streaming.*`` counters."""
     return dict(_STREAM_STATS)
 
 
 def reset_stream_stats() -> None:
-    for k in _STREAM_STATS:
-        _STREAM_STATS[k] = 0
+    _STREAM_STATS.reset()
 
 
 def _input_signature(args: tuple, kwargs: dict) -> tuple:
@@ -211,20 +229,35 @@ class _Staging:
         slot.copy_(const)
         return slot
 
-    def _run_window(self, reps: Tuple[Tuple[str, Metric], ...], label: str) -> int:
+    def _run_window(self, reps: Tuple[Tuple[str, Metric], ...], label: str, traced: bool = False) -> int:
         """Apply the current ring's steps to ``reps``: one graph replay on a
-        card, the plain masked loop on the CPU. Returns the staged count."""
+        card, the plain masked loop on the CPU. Returns the staged count.
+        ``traced``: inside a ``buffered.scan`` span, fenced when sampled."""
         ring = self.__dict__["_ring"]
         valid = ring.take()
+        if traced:
+            with _spans.trace_span("buffered.scan", valid=int(valid)) as scan_sp:
+                new_states = self._apply_window(reps, ring, valid, label)
+                scan_sp.fence(new_states)
+        else:
+            self._apply_window(reps, ring, valid, label)
+        _STREAM_STATS["flushes"] += 1
+        return valid
+
+    def _apply_window(self, reps: Tuple[Tuple[str, Metric], ...], ring: "_Ring", valid: int, label: str) -> Any:
+        """The window's replay (or masked loop) and the install of its
+        states and appends; returns the new states."""
         device = reps[0][1].device
         states = {name: rep._tensor_state() for name, rep in reps}
         step = _window_step(reps, ring.spec, self.window)
         if device.type == "cuda":
-            key = graph_key(ring.signature, reps, states)
+            key = graph_key(("stream_flush", self.window), ring.signature, reps, states)
             slots = [*ring.slots, self._valid_slot(valid, device)]
-            graph = self.__dict__["_graphs"].get(key)
+            graphs = self.__dict__["_graphs"]
+            graph = graphs.get(key)
             if graph is None:
-                graph = self.__dict__["_graphs"][key] = CapturedStep(step, states, slots, device, label)
+                graph = graphs[key] = CapturedStep(step, states, slots, device, label, key=key,
+                                                   recapture=bool(graphs))
             new_states, appends = graph.run(states)
         else:
             with torch.no_grad():
@@ -232,8 +265,7 @@ class _Staging:
         for name, rep in reps:
             rep._install_state(new_states[name])
             rep._extend_list_states_stacked(appends[name], valid, borrowed=device.type == "cuda")
-        _STREAM_STATS["flushes"] += 1
-        return valid
+        return new_states
 
 
 class BufferedMetric(_Staging):
@@ -295,24 +327,32 @@ class BufferedMetric(_Staging):
             m.update(*args, **kwargs)
             return
         m._eager_validate(*args, **kwargs)
-        self._stage(leaves, spec, m.device)
-        m._computed = None
-        m._update_count += 1
-        if self.__dict__["_ring"].full:
-            self.flush()
+        _sp = _spans.start_span("buffered.stage", metric=type(m).__name__) if _spans.ENABLED else None
+        try:
+            self._stage(leaves, spec, m.device)
+            m._computed = None
+            m._update_count += 1
+            if self.__dict__["_ring"].full:
+                self.flush()
+        finally:
+            if _sp is not None:
+                _sp.end()
 
     def flush(self) -> None:
         """Apply every staged step (one asynchronous graph replay on a card)."""
         if self.pending == 0 or self.__dict__["_flushing"]:
             return
         self.__dict__["_flushing"] = True
+        _sp = _spans.start_span("buffered.flush", staged=self.pending) if _spans.ENABLED else None
+        _t0 = time.perf_counter()
         try:
             m = self.__dict__["_metric"]
             # the cat rows earlier windows produced exist on every rank that
             # reached this flush: safe to gather while this window runs
             pre_counts = ({name: len(m._state_view()[name]) for name in self._ov_cat_names()}
                           if self.__dict__["_overlap"] else None)
-            self._run_window((("metric", m),), f"{type(m).__name__}.buffered(window={self.window})")
+            self._run_window((("metric", m),), f"{type(m).__name__}.buffered(window={self.window})",
+                             traced=_sp is not None)
             if pre_counts is not None:
                 backend = m.sync_backend
                 if backend.is_available() and not m._is_synced:
@@ -320,12 +360,19 @@ class BufferedMetric(_Staging):
                     # times out leaves its rows to the compute barrier (the
                     # synced index advances only after a state's gather)
                     try:
-                        self._ov_issue(backend, pre_counts)
+                        if _sp is None:
+                            self._ov_issue(backend, pre_counts)
+                        else:
+                            with _spans.trace_span("buffered.overlap_issue"):
+                                self._ov_issue(backend, pre_counts)
                     except TimeoutError:
                         _STREAM_STATS["overlap_deferred"] += 1
                         note_overlap_deferred()
         finally:
             self.__dict__["_flushing"] = False
+            _FLUSH_LATENCY.observe(time.perf_counter() - _t0, window=str(self.window))
+            if _sp is not None:
+                _sp.end()
 
     # -- sync/compute overlap -------------------------------------------
     def _ov_cat_names(self) -> List[str]:
@@ -369,6 +416,8 @@ class BufferedMetric(_Staging):
             raise TorchMetricsUserError("The Metric has already been synced.")
         cat_names = self._ov_cat_names()
         m._cache = m._snapshot_state()
+        _sp = (_spans.start_span("buffered.overlap_barrier", metric=type(m).__name__, world=backend.world_size())
+               if _spans.ENABLED else None)
         try:
             begin_sync()
             # an elastic backend runs the barrier as one membership round, as
@@ -385,6 +434,9 @@ class BufferedMetric(_Staging):
         except Exception:
             m._cache = None
             raise
+        finally:
+            if _sp is not None:
+                _sp.end()
         for name, value in synced.items():
             if name in m._list_states:
                 m.__dict__[name] = value
@@ -547,6 +599,7 @@ class BufferedMetricCollection(_Staging):
         if self.pending == 0 or self.__dict__["_flushing"]:
             return
         self.__dict__["_flushing"] = True
+        _t0 = time.perf_counter()
         try:
             coll = self.__dict__["_collection"]
             captured, _ = coll._fused_update_plan()
@@ -554,6 +607,7 @@ class BufferedMetricCollection(_Staging):
             coll._create_state_refs()
         finally:
             self.__dict__["_flushing"] = False
+            _FLUSH_LATENCY.observe(time.perf_counter() - _t0, window=str(self.window))
 
     # -- observation (flush first) --------------------------------------
     def compute(self) -> Dict[str, Any]:
