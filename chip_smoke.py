@@ -20,11 +20,14 @@ not 0 and no result line is printed:
    never calls it: its device time from a profiler trace, and its host
    round trip) and the memory-bandwidth bound. The t-digest compress kernel
    (tdigest_compress_sorted) at the sketch paths' shapes, S=1 digest of
-   M=65,664 centroids and S=256 of 4,224: one launch each, bitwise equal to
-   its plain version run on the host on a copy of the inputs, weights
-   bitwise and means within 1e-5 relative of the plain version on the card
-   (whose index_add_ adds with float atomics); timed beside that plain
-   version and its bound (no PyTorch call computes the same function);
+   M=65,664 centroids and S=256 of 4,224, a decayed digest's update (S=1,
+   M=65,664, non-integer weights) and a windowed metric's merge of 8 slots
+   (S=1, M=1,024): one launch each, bitwise equal to its plain version run
+   on the host on a copy of the inputs, weights bitwise (the decayed
+   digest's within 1e-5 relative) and means within 1e-5 relative of the
+   plain version on the card (whose cumsum and index_add_ add in another
+   order); timed beside that plain version and its bound (no PyTorch call
+   computes the same function);
 4. paths: each a MetricCollection driven through update -> compute and
    through the pure init_state / update_state / compute_state API, with
    kernel launches counted over each drive, compute groups checked, states
@@ -3802,12 +3805,14 @@ def run_model_paths(card: str, dev) -> list:
 # ---------------------------------------------------------------------------
 
 LATENCY_QS = (0.5, 0.9, 0.99, 0.999)
-# (S, M, C) of the compress kernel on the sketch paths: one latency update
-# (a 128-slot digest and 65,536 new values), and tenant_fleet (b)'s 256
-# tenants of 4,096 values
-TDIGEST_CASES = ((1, 65_664, 128), (256, 4_224, 128))
-# the kernel's means against the plain version run on the card, whose
-# index_add_ adds each slot's products with float atomics in another order
+# (S, M, C, input) of the compress kernel on the sketch paths: one latency
+# update (a 128-slot digest and 65,536 new values), tenant_fleet (b)'s 256
+# tenants of 4,096 values, a decayed latency update (the digest's weights
+# scaled by powers of 2^(-1/32)) and a windowed metric's merge of 8 slots
+TDIGEST_CASES = ((1, 65_664, 128, "update"), (256, 4_224, 128, "update"), (1, 65_664, 128, "decayed"),
+                 (1, 1_024, 128, "window_merge"))
+# the kernel's means (and a decayed digest's weights) against the plain
+# version run on the card, whose cumsum and index_add_ add in another order
 TDIGEST_CARD_PLAIN_RTOL = 1e-5
 # reservoir keys log(u)/w: torch's CPU log and CUDA's logf differ by an ulp
 # on some inputs, which moves neither the order nor the kept rows
@@ -3821,28 +3826,40 @@ def _latencies(g, dev, shape):
     return torch.exp(3.9 + 0.6 * torch.randn(shape, generator=g, device=dev))
 
 
-def _tdigest_kernel_input(g, dev, s: int, m: int, compression: int):
-    """S sorted centroid lists as an update gives them: a digest's C slots
-    after earlier data (integer weights) and M - C new unit-weight values."""
+def _tdigest_kernel_input(g, dev, s: int, m: int, compression: int, kind: str = "update"):
+    """S sorted centroid lists. ``update``: as an update gives them, a
+    digest's C slots after earlier data (integer weights) and M - C new
+    unit-weight values; ``decayed``: the same with each slot's weight
+    scaled by 2^(-r/32), r in [0, 256); ``window_merge``: the C slots of
+    each of M / C digests (one per window slot) merged into one list."""
     import torch
 
     from torchmetrics_tpu_torch.ops.tdigest import tdigest_compress_sorted_plain
     from torchmetrics_tpu_torch.sketches.tdigest import _sort_centroids
 
-    def points():
-        vals = _latencies(g, dev, (s, m - compression))
+    def points(rows, n):
+        vals = _latencies(g, dev, (rows, n))
         return torch.stack([vals, torch.ones_like(vals)], dim=-1)
 
-    empty = torch.tensor([float("inf"), 0.0], device=dev).expand(s, compression, 2)
     sort = torch.func.vmap(_sort_centroids)
-    body = tdigest_compress_sorted_plain(sort(torch.cat([empty, points()], dim=1)), compression)
-    return sort(torch.cat([body, points()], dim=1))
+    if kind == "window_merge":
+        slots = m // compression
+        empty = torch.tensor([float("inf"), 0.0], device=dev).expand(slots, compression, 2)
+        bodies = tdigest_compress_sorted_plain(sort(torch.cat([empty, points(slots, 4_096)], dim=1)), compression)
+        return sort(bodies.reshape(s, m, 2))
+    empty = torch.tensor([float("inf"), 0.0], device=dev).expand(s, compression, 2)
+    body = tdigest_compress_sorted_plain(sort(torch.cat([empty, points(s, m - compression)], dim=1)), compression)
+    if kind == "decayed":
+        r = torch.randint(0, 256, (s, compression), generator=g, device=dev)
+        body = torch.stack([body[..., 0], body[..., 1] * torch.exp2(-r.float() / 32)], dim=-1)
+    return sort(torch.cat([body, points(s, m - compression)], dim=1))
 
 
 def check_tdigest_kernel(dev) -> dict:
     """The compress kernel at the sketch paths' shapes: one launch each;
     weights and means bitwise equal to the plain version run on the host on
-    a copy of the same inputs; weights bitwise and means within
+    a copy of the same inputs; weights bitwise (integer weights; a decayed
+    digest's within TDIGEST_CARD_PLAIN_RTOL) and means within
     TDIGEST_CARD_PLAIN_RTOL of the plain version run on the card. Timed
     beside the plain version on the card and the bound."""
     import torch
@@ -3851,9 +3868,9 @@ def check_tdigest_kernel(dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(7)
     cases, worst = [], 0.0
-    for s, m, c in TDIGEST_CASES:
-        name = f"tdigest_s{s}_m{m}_c{c}"
-        cent = _tdigest_kernel_input(g, dev, s, m, c)
+    for s, m, c, kind in TDIGEST_CASES:
+        name = f"tdigest_s{s}_m{m}_c{c}" + ("" if kind == "update" else f"_{kind}")
+        cent = _tdigest_kernel_input(g, dev, s, m, c, kind)
         before = tdigest.tdigest_compress_sorted.launches
         got = tdigest.tdigest_compress_sorted(cent, c)
         launched = tdigest.tdigest_compress_sorted.launches - before
@@ -3864,7 +3881,13 @@ def check_tdigest_kernel(dev) -> dict:
             raise AssertionError(f"kernel {name}: {launched} launches, expected 1")
         if not torch.equal(got.cpu(), host_plain):
             raise AssertionError(f"kernel {name}: not bitwise equal to the plain version run on the host")
-        if not torch.equal(got[..., 1], card_plain[..., 1]) or not torch.equal(got[..., 1], got[..., 1].round()):
+        weight_rel = float(((got[..., 1] - card_plain[..., 1]).abs().double()
+                            / card_plain[..., 1].abs().double().clamp(min=1e-38)).max())
+        if kind == "decayed":
+            if not weight_rel <= TDIGEST_CARD_PLAIN_RTOL:
+                raise AssertionError(f"kernel {name}: centroid weights {weight_rel} off the plain version on the "
+                                     f"card (relative; tolerance {TDIGEST_CARD_PLAIN_RTOL})")
+        elif not torch.equal(got[..., 1], card_plain[..., 1]) or not torch.equal(got[..., 1], got[..., 1].round()):
             raise AssertionError(f"kernel {name}: centroid weights differ from the plain version on the card")
         finite = torch.isfinite(card_plain[..., 0])
         if not torch.equal(finite, torch.isfinite(got[..., 0])):
@@ -3880,8 +3903,10 @@ def check_tdigest_kernel(dev) -> dict:
         plain_ms = statistics.median(_timed(lambda: tdigest.tdigest_compress_sorted_plain(cent, c))[1]
                                      for _ in range(3))
         cases.append({
-            "case": name, "s": s, "m": m, "compression": c, "launches": launched,
-            "bitwise_host_plain": True, "weights_bitwise_card_plain": True, "mean_rel_err_card_plain": rel,
+            "case": name, "s": s, "m": m, "compression": c, "input": kind, "launches": launched,
+            "cluster": tdigest.cluster_size(s, m, torch.cuda.get_device_properties(dev).multi_processor_count),
+            "bitwise_host_plain": True, "weights_bitwise_card_plain": weight_rel == 0.0,
+            "weight_rel_err_card_plain": weight_rel, "mean_rel_err_card_plain": rel,
             "max_abs_err": err, "slots_used": int((got[0, :, 1] > 0).sum()), "ms": ms, "host_ms": host_ms,
             "ms_covered": covered, "plain_ms": plain_ms,
             "bound_ms": tdigest.bound_bytes(s, m, c) / hbm_bytes_per_s() * 1e3, "bound_by": "bytes",

@@ -85,6 +85,7 @@ def _imported_modules(path: pathlib.Path):
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / name for name in ("chip_smoke.py",
                                                                                        "bincount_ablation.py",
                                                                                        "sdr_solve_probe.py",
+                                                                                       "tdigest_pass_breakdown.py",
                                                                                        "untraced_update_timing.py")],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):

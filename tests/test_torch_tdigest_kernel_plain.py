@@ -5,8 +5,10 @@ oracle and the CPU path. Here it is held against:
 
 - a sequential oracle written as the JAX package writes the scan
   (``torchmetrics_tpu/sketches/tdigest.py:78-88``): one Python loop over
-  float32 scalars for the walk, running float64 sum rounded to float32 for
-  the cumulative weight, float32 sums in order within each slot. The k1
+  float32 scalars for the walk, the kernel's blocked float64 running sum
+  (each block of ``BLOCK`` weights in order, then the block totals in
+  order) rounded to float32 for the cumulative weight, float32 sums in
+  order within each slot. The k1
   scale values come from the module's ``k_scale`` over the whole array (the
   same float32 ``asin``), so the test checks the walk, the sums and the
   clamp bitwise;
@@ -19,6 +21,7 @@ the launch for a recorder, as the bincount's routing test does. The kernel
 itself is held against this plain version by ``chip_smoke.py``.
 """
 import math
+import re
 
 import numpy as np
 import pytest
@@ -35,15 +38,35 @@ from torchmetrics_tpu_torch.sketches.tdigest import _sort_centroids, tdigest_com
 MEAN_RTOL = 1e-6
 
 
-def _oracle(centroids: np.ndarray, compression: int) -> np.ndarray:
-    """One sorted (M, 2) list, sequentially, as the JAX scan body reads."""
-    mean = centroids[:, 0].astype(np.float32)
-    w = centroids[:, 1].astype(np.float32)
+def _sequential_sum(w: np.ndarray) -> np.ndarray:
+    """Running float64 sum of float32 weights in order, each prefix rounded to float32."""
     acc = 0.0
     cum = np.empty_like(w)
     for i, wi in enumerate(w):
         acc += float(wi)
         cum[i] = np.float32(acc)
+    return cum
+
+
+def _blocked_sum(w: np.ndarray) -> np.ndarray:
+    """The kernel's running sum: float64 chains within blocks of BLOCK weights,
+    a float64 chain over the block totals, one add and one round to float32."""
+    cum = np.empty_like(w)
+    offset = 0.0
+    for lo in range(0, len(w), port_tdigest.BLOCK):
+        within = 0.0
+        for i in range(lo, min(lo + port_tdigest.BLOCK, len(w))):
+            within += float(w[i])
+            cum[i] = np.float32(offset + within)
+        offset += within
+    return cum
+
+
+def _oracle(centroids: np.ndarray, compression: int) -> np.ndarray:
+    """One sorted (M, 2) list, sequentially, as the JAX scan body reads."""
+    mean = centroids[:, 0].astype(np.float32)
+    w = centroids[:, 1].astype(np.float32)
+    cum = _blocked_sum(w)
     safe = np.float32(max(cum[-1], np.float32(1e-38)))
     q_left = ((cum - w) / safe).astype(np.float32)
     q_right = (cum / safe).astype(np.float32)
@@ -77,6 +100,8 @@ def _digests(seed: int, s: int, m: int, compression: int, weights: str) -> torch
         w = np.ones((s, n), np.float32)
     elif weights == "integer":
         w = rng.randint(0, 4, (s, n)).astype(np.float32)  # zeros drop observations
+    elif weights == "decayed":  # a decayed digest's weights: powers of 2^(-1/32) over 64 halvings
+        w = (rng.rand(s, n) * 3 * np.exp2(-rng.randint(0, 64 * 32, (s, n)) / 32)).astype(np.float32)
     else:
         w = (rng.rand(s, n) * 3).astype(np.float32)
     pts = np.stack([np.where(w > 0, vals, np.inf), w], axis=-1)
@@ -94,6 +119,11 @@ CASES = [
     (5, 5, 64, 16, "unit"),
     (6, 2, 2100, 128, "random"),
     (7, 1, 40, 32, "unit"),  # fewer observations than slots
+    (8, 2, 3 * 256 - 1, 16, "decayed"),  # across running-sum blocks: 3 B - 1, 3 B, 3 B + 1
+    (9, 2, 3 * 256, 16, "decayed"),
+    (10, 2, 3 * 256 + 1, 32, "random"),
+    (11, 3, 200, 16, "decayed"),  # fewer centroids than one block
+    (12, 1, 65_664, 128, "integer"),  # one latency update: 65,536 values into a 128-slot digest
 ]
 
 
@@ -106,7 +136,50 @@ def test_plain_version_equals_the_sequential_scan_bitwise(seed, s, m, compressio
         np.testing.assert_array_equal(got[r].numpy(), _oracle(cent[r].numpy(), compression))
 
 
-@pytest.mark.parametrize("seed,s,m,compression,weights", [c for c in CASES if c[4] != "random"])
+@pytest.mark.parametrize("seed,s,m,compression,weights", [c for c in CASES if c[4] in ("unit", "integer")])
+def test_blocked_running_sum_is_the_sequential_sum_for_integer_weights(seed, s, m, compression, weights):
+    """Every partial sum of integers below 2^24 is exact, so the order does not matter."""
+    w = _digests(seed, s, m, compression, weights)[..., 1]
+    got = port_tdigest.blocked_running_sum(w)
+    np.testing.assert_array_equal(got.numpy(), torch.cumsum(w, dim=-1, dtype=torch.float64).to(torch.float32).numpy())
+    for r in range(s):
+        np.testing.assert_array_equal(got[r].numpy(), _sequential_sum(w[r].numpy()))
+
+
+@pytest.mark.parametrize("seed,s,m,compression,weights", [c for c in CASES if c[4] not in ("unit", "integer")])
+def test_blocked_running_sum_equals_the_blocked_oracle(seed, s, m, compression, weights):
+    w = _digests(seed, s, m, compression, weights)[..., 1]
+    got = port_tdigest.blocked_running_sum(w)
+    for r in range(s):
+        np.testing.assert_array_equal(got[r].numpy(), _blocked_sum(w[r].numpy()))
+
+
+def test_blocked_order_is_the_contract_where_float64_rounds():
+    """Block 0 ends on a float32 tie, 2^60 + 2^36; block 1 adds ones. In order,
+    each one is lost to float64 rounding and the tie rounds to even (2^60);
+    blocked, block 1's 256 ones are exact and lift every later prefix past it."""
+    b = port_tdigest.BLOCK
+    w = np.zeros(3 * b, np.float32)
+    w[0], w[1], w[b:2 * b] = 2.0 ** 60, 2.0 ** 36, 1.0
+    got = port_tdigest.blocked_running_sum(torch.from_numpy(w)[None])[0].numpy()
+    np.testing.assert_array_equal(got, _blocked_sum(w))
+    assert _sequential_sum(w)[-1] == np.float32(2.0 ** 60) and got[-1] == np.float32(2.0 ** 60 + 2.0 ** 37)
+
+
+def test_block_constant_matches_the_kernel_source():
+    text = port_tdigest.SOURCE.read_text()
+    found = re.search(r"constexpr int kBlock = (\d+);", text)
+    assert found and int(found.group(1)) == port_tdigest.BLOCK
+
+
+@pytest.mark.parametrize("s,m,sms,want", [(1, 65_664, 132, 16), (1, 1_024, 132, 1), (8, 65_664, 132, 16),
+                                           (16, 65_664, 132, 8), (17, 65_664, 132, 4), (40, 65_664, 132, 2),
+                                           (256, 4_224, 132, 1), (256, 65_664, 132, 1), (1, 8_192, 4, 4)])
+def test_cluster_size_spreads_few_large_digests(s, m, sms, want):
+    assert port_tdigest.cluster_size(s, m, sms) == want
+
+
+@pytest.mark.parametrize("seed,s,m,compression,weights", [c for c in CASES if c[4] in ("unit", "integer")])
 def test_compress_matches_jax_weights_bitwise_means_within_1e6(seed, s, m, compression, weights):
     """The JAX function sorts its own input; the port sorts with two stable sorts."""
     cent = _digests(seed, s, m, compression, weights)

@@ -36,6 +36,14 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "tdigest.cu"
 TINY = 1e-38
 # centroids each digest's walk tests per round in the plain version
 PLAIN_WINDOW = 512
+# the running sum's block: each block of BLOCK weights is one float64 chain in
+# order, and the block totals are another (csrc/tdigest.cu kBlock)
+BLOCK = 256
+# CTAs (a thread-block cluster) that share one digest, at most (the kernel
+# takes 8 where the card cannot place a cluster of 16), and the fewest
+# centroids for which the kernel spreads a digest over more than one
+CLUSTER_MAX = 16
+CLUSTER_MIN_M = 8192
 
 
 def build() -> Path:
@@ -52,15 +60,57 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int,  # M
         ctypes.c_int,  # C
         ctypes.c_float,  # k1 scale
-        ctypes.c_void_p,  # cum scratch (S, M) float32
-        ctypes.c_void_p,  # starts scratch (S, C) int32
+        ctypes.c_int,  # CTAs per digest
+        ctypes.c_void_p,  # block offsets and total scratch (S, ceil(M / BLOCK) + 1) float64
+        ctypes.c_void_p,  # k-value scratch (S, kv_floats(M)) float32
+        ctypes.c_void_p,  # slot-start scratch (S, C + 1) int32
         ctypes.c_void_p,  # out (S, C, 2) float32
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tm_tdigest_compress.restype = ctypes.c_int
+    lib.tm_tdigest_prepare.argtypes = []
+    lib.tm_tdigest_prepare.restype = ctypes.c_int
     lib.tm_tdigest_error_string.argtypes = [ctypes.c_int]
     lib.tm_tdigest_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _prepared(index: int) -> ctypes.CDLL:
+    """The library, set up on card ``index`` (the kernel's shared-memory and
+    cluster limits raised, the largest cluster the card can place found):
+    once per card, at its first launch (a graph capture's warm-up launch
+    comes before the capture)."""
+    lib = _library()
+    with torch.cuda.device(index):
+        err = lib.tm_tdigest_prepare()
+    if err != 0:
+        raise RuntimeError(f"tdigest_compress kernel setup failed: cudaError {err} "
+                           f"({lib.tm_tdigest_error_string(err).decode()})")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kv_floats(m: int) -> int:
+    """Floats of one digest's k-value scratch (csrc/tdigest.cu ``kv_stride``):
+    M rounded up to whole strips of 32, twice, and the strip maxima rounded up
+    to a multiple of 4."""
+    mp = -(-m // 32) * 32
+    return 2 * mp + -(-(mp // 32) // 4) * 4
+
+
+def cluster_size(s: int, m: int, sms: int) -> int:
+    """CTAs that share each digest: 1 for small digests or when S digests
+    fill the card's ``sms`` multiprocessors, else the largest power of two
+    up to ``CLUSTER_MAX`` that S clusters still fit."""
+    if m < CLUSTER_MIN_M:
+        return 1
+    fit = max(1, min(CLUSTER_MAX, sms // s))
+    return 1 << (fit.bit_length() - 1)
 
 
 def delta_of(compression: int) -> float:
@@ -79,11 +129,32 @@ def k_scale(q: Tensor, compression: int) -> Tensor:
     return torch.asin(torch.clamp(q, 0.0, 1.0) * 2.0 - 1.0) * k_scale_factor(compression)
 
 
+def blocked_running_sum(w: Tensor) -> Tensor:
+    """The kernel's running weight of ``(S, M)`` float32 weights, in float32.
+
+    Each block of ``BLOCK`` weights is summed in order in float64, the block
+    totals are summed in order in float64 (the first block's offset is 0
+    exactly), and each prefix is its block's offset plus the within-block
+    prefix, one float64 add, rounded once to float32. M is padded to a
+    multiple of ``BLOCK`` with zero weights (adding 0.0 is exact), and
+    ``torch.cumsum`` is sequential along a row on the CPU. While the weights
+    are integers below 2^24 every partial sum is exact, so this equals the
+    sequential float64 sum, and JAX's float32 cumsum, bitwise.
+    """
+    s, m = w.shape
+    nb = -(-m // BLOCK)
+    padded = torch.zeros((s, nb * BLOCK), dtype=torch.float64, device=w.device)
+    padded[:, :m] = w
+    within = torch.cumsum(padded.view(s, nb, BLOCK), dim=-1)
+    totals = torch.cumsum(within[..., -1], dim=-1)
+    offset = torch.cat([torch.zeros((s, 1), dtype=torch.float64, device=w.device), totals[:, :-1]], dim=1)
+    return (offset[..., None] + within).view(s, nb * BLOCK)[:, :m].to(torch.float32)
+
+
 def tdigest_compress_sorted_plain(centroids: Tensor, compression: int) -> Tensor:
     """Plain PyTorch version of the kernel, on any device.
 
-    The running weight is a float64 sum in order, each prefix rounded to
-    float32 (``torch.cumsum(dtype=float64)``, sequential on the CPU). The
+    The running weight is :func:`blocked_running_sum`, the kernel's order. The
     scan is walked for all S digests together: each round tests the next
     ``PLAIN_WINDOW`` centroids of every digest against its current
     ``k_start`` and stops each digest at its first opening, which is the
@@ -94,7 +165,7 @@ def tdigest_compress_sorted_plain(centroids: Tensor, compression: int) -> Tensor
     s, m, _ = centroids.shape
     dev = centroids.device
     mean, w = centroids[..., 0], centroids[..., 1]
-    cum = torch.cumsum(w, dim=-1, dtype=torch.float64).to(torch.float32)
+    cum = blocked_running_sum(w)
     safe = torch.clamp(cum[:, -1:], min=TINY)
     q_left = (cum - w) / safe
     k_right = k_scale(cum / safe, compression)
@@ -134,11 +205,14 @@ def _launch(centroids: Tensor, compression: int) -> Tensor:
         x = x.clone()
     if s * m >= 2**31 or s * compression >= 2**31:
         raise ValueError(f"tdigest_compress kernel takes fewer than 2^31 centroids, got {s} x {m}")
+    index = x.device.index
+    lib = _prepared(index)
     out = torch.empty((s, compression, 2), dtype=torch.float32, device=x.device)
-    cum = torch.empty((s, m), dtype=torch.float32, device=x.device)
-    starts = torch.empty((s, compression), dtype=torch.int32, device=x.device)
-    lib = _library()
-    err = lib.tm_tdigest_compress(x.data_ptr(), s, m, compression, k_scale_factor(compression), cum.data_ptr(),
+    wsum = torch.empty((s, -(-m // BLOCK) + 1), dtype=torch.float64, device=x.device)
+    kv = torch.empty((s, kv_floats(m)), dtype=torch.float32, device=x.device)
+    starts = torch.empty((s, compression + 1), dtype=torch.int32, device=x.device)
+    err = lib.tm_tdigest_compress(x.data_ptr(), s, m, compression, k_scale_factor(compression),
+                                  cluster_size(s, m, _sm_count(index)), wsum.data_ptr(), kv.data_ptr(),
                                   starts.data_ptr(), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tdigest_compress kernel launch failed: cudaError {err} "
@@ -180,7 +254,7 @@ def tdigest_compress_sorted(centroids: Tensor, compression: int) -> Tensor:
 
     Rows are sorted by mean, ties by weight; empty centroids carry weight 0
     (and mean +inf, so they sort last). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (one CTA per digest), counted in
+    CUDA tensors launch the kernel (one cluster of CTAs per digest), counted in
     ``tdigest_compress_sorted.launches``.
     """
     if centroids.dim() != 3 or centroids.shape[-1] != 2:
