@@ -403,6 +403,34 @@ not 0 and no result line is printed:
        max_degraded_syncs=N), N counted in a first run: StrictStats counts
        N, as elastic_stats() and the registry's elastic.* do; N - 1 raises.
 
+18. a15 (ROADMAP A15, ring attention and the train template), after the
+   model paths and before dist_sync, one line: parts (a) and (b) at NCCL
+   world size 1 in this process, then in two gloo ranks spawned on the one
+   card (a deadline, file:// init, as dist_sync):
+   (a) the counterpart of the JAX package's multichip program 2 at
+       Llama-2-7B's attention widths (32 heads of 128, vocabulary 32,000,
+       context 4,096, batch 4): causal ring attention over sp (1, then
+       2: 2,048 rows a rank), the heads merged and projected to logits,
+       Perplexity reduced over dp and sp, bench config 2's fused
+       Accuracy + F1 + binned AUROC collection reduced over dp; the
+       attention within 1e-5 of full attention in one process (float32,
+       TF32 off), bf16 within 0.05 returning bf16, the two ranks' reduced
+       states against the world-1 run's (counts bitwise, floats within
+       1e-6 relative); ms a step and the ring exchange's share of the
+       attention;
+   (b) the dp x pp x tp train template (program 1) at the JAX entry's
+       widths for 40 steps (the loss falls by more than 0.5) and at
+       Llama-2-7B's MLP widths (d_model 4,096, d_hidden 11,008, vocabulary
+       32,000, batch 8 x 512) for 3, on (1, 1, 1), then (1, 1, 2) (experts
+       on tp) and (2, 1, 1): the first step's loss and parameters within
+       1e-5 of the model's one-process reference, Accuracy and Perplexity
+       updated on the logits each step, ms a step;
+   (c) plotting: _MATPLOTLIB_AVAILABLE as find_spec says, the package's
+       import pulling in no matplotlib, and without it Metric.plot,
+       MetricCollection.plot and the curve and confusion plots raising the
+       JAX package's ModuleNotFoundError (with it: figures under Agg).
+   Its bincount launches are counted into the kernels line.
+
 The last lines are the native record, the kernels' record, the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -8590,6 +8618,399 @@ def dist_sync_two_ranks_gloo(tmpdir: str, world: int = 2, device: str = "cuda") 
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase a15: ring attention, the expert all-to-all, the train template, plotting
+# ---------------------------------------------------------------------------
+
+# Llama-2-7B's published config (Meta's Llama-2-7b-hf config.json): the
+# attention and MLP widths of part (a) and of part (b)'s second run
+LLAMA2_7B = {"heads": 32, "head_dim": 128, "hidden": 4096, "ffn": 11008, "vocab": 32000, "context": 4096}
+A15_EVAL = {"batch": 4, "steps": 3, "classes": 100, "cls_batch": 1024, "seed": 150}
+A15_ATTN_TOL = 1e-5  # ring attention against full attention, float32, TF32 off
+A15_BF16_TOL = 0.05
+A15_VALUE_RTOL = 1e-6  # reduced float states and values against the world-1 run
+A15_TRAIN_TOL = 1e-5  # the first step's loss and parameters against the one-process reference
+# the JAX entry's widths (vocab 32, d_model 16, d_hidden 32, 2 microbatches) at
+# the JAX test's batch and rate, 40 steps; then Llama-2-7B's MLP widths
+DEMO_RUNS = {
+    "jax_entry": {"vocab": 32, "d_model": 16, "d_hidden": 32, "batch": 8, "seq": 8, "lr": 1.0, "steps": 40},
+    "llama2_7b_mlp": {"vocab": LLAMA2_7B["vocab"], "d_model": LLAMA2_7B["hidden"], "d_hidden": LLAMA2_7B["ffn"],
+                      "batch": 8, "seq": 512, "lr": 0.1, "steps": 3},
+}
+A15_DEADLINE_S = 600
+PLOT_ERROR = "Plotting requires matplotlib. Install it with `pip install matplotlib`."
+
+
+def _a15_init(device: str, world: int, rank: int, init_file: str) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    backend = "nccl" if device == "cuda" and world == 1 else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{init_file}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+
+
+def _a15_mesh(dev, shape: tuple, names: tuple):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def _full_attention_rows(q, k, v, first: int, heads_per_chunk: int = 8):
+    """Causal softmax attention of the query rows ``first ..`` of the
+    sequence against all of ``k``, ``v``, in one process, a few heads at a
+    time (each head is independent)."""
+    import torch
+    t_q, t_k = q.shape[-2], k.shape[-2]
+    keep = (first + torch.arange(t_q, device=q.device))[:, None] >= torch.arange(t_k, device=q.device)[None, :]
+    outs = []
+    for h in range(0, q.shape[1], heads_per_chunk):
+        s = q[:, h:h + heads_per_chunk] @ k[:, h:h + heads_per_chunk].transpose(-1, -2) * q.shape[-1] ** -0.5
+        outs.append(torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1) @ v[:, h:h + heads_per_chunk])
+        del s
+    return torch.cat(outs, dim=1)
+
+
+def _a15_eval_data(dev, batch: int, context: int, classes: int, cls_batch: int, seed: int) -> dict:
+    """Part (a)'s global inputs, drawn on the card: q, k, v of (B, 32, T, 128),
+    the 4,096 -> 32,000 output projection (scaled so the logits are of
+    order one), the target tokens and bench config 2's classifier batch."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, dh, vocab = LLAMA2_7B["heads"], LLAMA2_7B["head_dim"], LLAMA2_7B["vocab"]
+    q, k, v = (torch.randn(batch, h, context, dh, generator=g, device=dev) for _ in range(3))
+    wo = torch.randn(h * dh, vocab, generator=g, device=dev) * (h * dh) ** -0.5
+    tokens = torch.randint(0, vocab, (batch, context), generator=g, device=dev)
+    preds = torch.softmax(torch.randn(cls_batch, classes, generator=g, device=dev), dim=-1)
+    labels = torch.randint(0, classes, (cls_batch,), generator=g, device=dev)
+    return {"q": q, "k": k, "v": v, "wo": wo, "tokens": tokens, "preds": preds, "labels": labels}
+
+
+def _a15_eval(dev, batch: int = A15_EVAL["batch"], context: int = LLAMA2_7B["context"],
+              steps: int = A15_EVAL["steps"], classes: int = A15_EVAL["classes"],
+              cls_batch: int = A15_EVAL["cls_batch"]) -> dict:
+    """Part (a) on this rank, the counterpart of the JAX package's multichip
+    program 2: a (dp, sp) = (1, world) mesh; each step runs causal ring
+    attention over this rank's (B, 32, T / sp, 128) block, merges the heads,
+    projects to 32,000 logits, updates Perplexity reduced over dp then sp,
+    and updates a fused Accuracy + F1 + binned AUROC collection on the
+    classifier batch, reduced over dp. Returns the record and the reduced
+    states (numpy) of the last step."""
+    import torch
+    import torch.distributed as dist
+    from torchmetrics_tpu_torch.interop import state_to_numpy
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+    from torchmetrics_tpu_torch.parallel import ring_attention
+    from torchmetrics_tpu_torch.parallel.ring import ring_shift
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = _a15_mesh(dev, (1, world), ("dp", "sp"))
+    sp_group, dp_group = mesh.get_group("sp"), mesh.get_group("dp")
+    data = _a15_eval_data(dev, batch, context, classes, cls_batch, A15_EVAL["seed"])
+    t_loc = context // world
+    rows = slice(rank * t_loc, (rank + 1) * t_loc)
+    q, k, v = (data[n][:, :, rows].contiguous() for n in ("q", "k", "v"))
+    tokens = data["tokens"][:, rows].contiguous()
+    coll = multiclass_path(num_classes=classes, batch=cls_batch, steps=1)["make"](dev)
+    ppl = Perplexity(device=dev)
+
+    def step():
+        attn = ring_attention(q, k, v, group=sp_group, causal=True)
+        b, h, t, dh = attn.shape
+        logits = attn.transpose(1, 2).reshape(b, t, h * dh) @ data["wo"]
+        ps = ppl.update_state(ppl.init_state(), logits, tokens)
+        ps = ppl.reduce_state(ppl.reduce_state(ps, dp_group), sp_group)
+        cs = coll.reduce_state(coll.update_state(coll.init_state(), data["preds"], data["labels"]), dp_group)
+        return attn, ps, cs
+
+    weighted_bincount.launches = 0
+    step_ms = []
+    with torch.no_grad():
+        for _ in range(steps):
+            dist.barrier()
+            (attn, ps, cs), ms = _timed(step)
+            step_ms.append(ms)
+        launches = weighted_bincount.launches
+        want = _full_attention_rows(q, data["k"], data["v"], rank * t_loc)
+        attn_err = float((attn - want).abs().max())
+        del want
+        if not attn_err <= A15_ATTN_TOL:
+            raise AssertionError(f"a15 eval: ring attention is {attn_err} off full attention (tol {A15_ATTN_TOL})")
+        bf16 = ring_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), group=sp_group, causal=True)
+        bf16_err = float((bf16.float() - attn).abs().max())
+        if bf16.dtype != torch.bfloat16 or not bf16_err <= A15_BF16_TOL:
+            raise AssertionError(f"a15 eval: bf16 ring attention gave {bf16.dtype}, {bf16_err} off float32")
+        del bf16
+        dist.barrier()
+        _, ring_ms = _timed(lambda: ring_attention(q, k, v, group=sp_group, causal=True))
+        dist.barrier()
+        kv = torch.stack((k, v))
+        exchange_ms = _timed(lambda: ring_shift(kv, sp_group))[1] * (world - 1)
+        del kv
+    ppl_value = float(ppl.compute_state(ps))
+    values = {k: _summary(x) for k, x in coll.compute_state(cs).items()}
+    record = {"world": world, "sp": world, "dp": 1, "backend": dist.get_backend(),
+              "shape": {"batch": batch, "heads": LLAMA2_7B["heads"], "t_local": t_loc, "head_dim": LLAMA2_7B["head_dim"],
+                        "vocab": LLAMA2_7B["vocab"], "classes": classes, "cls_batch": cls_batch},
+              "step_ms": step_ms, "ms_per_step": statistics.median(step_ms[1:] or step_ms),
+              "ring_attention_ms": ring_ms, "exchange_ms": exchange_ms, "attention_alone_ms": ring_ms - exchange_ms,
+              "exchange_share": exchange_ms / ring_ms, "attn_max_abs_err": attn_err, "bf16_max_abs_err": bf16_err,
+              "launches": launches, "perplexity": ppl_value, "values": values,
+              "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20 if dev.type == "cuda" else None}
+    states = {"perplexity": {k: x.tolist() for k, x in state_to_numpy(ps).items()},
+              "collection": {k: x.tolist() for k, x in _flat_numpy(state_to_numpy(cs)).items()}}
+    return record, states
+
+
+def _flat_numpy(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, x in tree.items():
+            out.update(_flat_numpy(x, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def _demo_reference(params: dict, tokens, targets, lr: float, experts: int) -> tuple:
+    """The train template's model and SGD step in one process, on the global
+    batch: the stages in order, each with ``experts`` experts over the
+    hidden dim's slices, expert ``e`` on the ``e``-th slice of positions.
+    Returns (loss, updated parameters)."""
+    import torch
+    import torch.nn.functional as F
+    p = {k: x.detach().clone().requires_grad_(True) for k, x in params.items()}
+    x = p["embed"][tokens]
+    t, dh = x.shape[1], p["w1"].shape[-1]
+    for s in range(p["w1"].shape[0]):
+        x = x + F.gelu(x @ p["w1"][s], approximate="tanh") @ p["w2"][s]
+        parts = []
+        for e in range(experts):
+            hid = slice(e * dh // experts, (e + 1) * dh // experts)
+            xe = x[:, e * t // experts:(e + 1) * t // experts]
+            parts.append(F.gelu(xe @ p["we1"][s][:, hid], approximate="tanh") @ p["we2"][s][hid])
+        x = x + torch.cat(parts, dim=1)
+    logits = x @ p["out"]
+    loss = -torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None]).mean()
+    loss.backward()
+    return float(loss.detach()), {k: (x - lr * x.grad).detach() for k, x in p.items()}
+
+
+def _a15_train(dev, mesh_shape: tuple, run: str) -> dict:
+    """Part (b) on this rank: the train template on a (pp, dp, tp) mesh at
+    one of DEMO_RUNS' widths. The first step's loss and this rank's
+    parameters after it against the one-process reference; then the run's
+    remaining steps on the same batch with Accuracy and Perplexity updated
+    on the logits each step."""
+    import torch
+    import torch.distributed as dist
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy
+    from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+    from torchmetrics_tpu_torch.parallel import init_demo_params, make_demo_train_step
+    from torchmetrics_tpu_torch.parallel.train_demo import local_batch, local_demo_params
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    cfg = DEMO_RUNS[run]
+    pp, dp, tp = mesh_shape
+    mesh = _a15_mesh(dev, mesh_shape, ("pp", "dp", "tp"))
+    g = torch.Generator(device=dev).manual_seed(151)
+    full = init_demo_params(g, cfg["vocab"], cfg["d_model"], cfg["d_hidden"], pp=pp, tp=tp, device=dev)
+    tokens, targets = (torch.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]), generator=g, device=dev)
+                       for _ in range(2))
+    ref_loss, ref_params = _demo_reference(full, tokens, targets, cfg["lr"], experts=tp)
+    ref_local = local_demo_params(ref_params, mesh)
+    params = local_demo_params(full, mesh)
+    del full, ref_params
+    tok, tgt = local_batch(tokens, mesh), local_batch(targets, mesh)
+    step = make_demo_train_step(mesh, microbatches=2, lr=cfg["lr"])
+    acc = MulticlassAccuracy(num_classes=cfg["vocab"], average="micro", device=dev)
+    ppl = Perplexity(device=dev)
+    weighted_bincount.launches = 0
+    losses, step_ms = [], []
+    for i in range(cfg["steps"]):
+        dist.barrier()
+        (params, loss, logits), ms = _timed(lambda: step(params, tok, tgt))
+        step_ms.append(ms)
+        acc.update(logits.reshape(-1, cfg["vocab"]), tgt.reshape(-1))
+        ppl.update(logits, tgt)
+        losses.append(float(loss))
+        if i == 0:
+            loss_err = abs(losses[0] - ref_loss)
+            param_err = {k: float((params[k] - ref_local[k]).abs().max()) for k in params}
+            del ref_local
+            if not (loss_err <= A15_TRAIN_TOL and max(param_err.values()) <= A15_TRAIN_TOL):
+                raise AssertionError(f"a15 train {run} {mesh_shape}: first step off the one-process reference by "
+                                     f"{loss_err} (loss), {param_err} (parameters)")
+    launches = weighted_bincount.launches
+    if run == "jax_entry" and not losses[-1] < losses[0] - 0.5:
+        raise AssertionError(f"a15 train {run} {mesh_shape}: the loss fell from {losses[0]} to {losses[-1]} only")
+    acc_value, ppl_value = float(acc.compute()), float(ppl.compute())
+    if not (0.0 <= acc_value <= 1.0 and ppl_value > 1.0 and ppl_value == ppl_value):
+        raise AssertionError(f"a15 train {run}: accuracy {acc_value}, perplexity {ppl_value}")
+    return {"mesh": {"pp": pp, "dp": dp, "tp": tp}, "backend": dist.get_backend(), **cfg,
+            "first_loss": losses[0], "last_loss": losses[-1], "loss_err": loss_err,
+            "param_max_abs_err": max(param_err.values()), "accuracy": acc_value, "perplexity": ppl_value,
+            "step_ms": step_ms, "ms_per_step": statistics.median(step_ms[1:] or step_ms), "launches": launches}
+
+
+def _a15_run(device: str, world: int, rank: int, init_file: str, meshes: tuple) -> dict:
+    """Parts (a) and (b) in one process group: the eval step, then each
+    train mesh at each width."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    _a15_init(device, world, rank, init_file)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        eval_record, eval_states = _a15_eval(dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        train = {f"{run}_pp{m[0]}_dp{m[1]}_tp{m[2]}": _a15_train(dev, m, run) for m in meshes for run in DEMO_RUNS}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        dist.destroy_process_group()
+    return {"rank": rank, "eval": eval_record, "eval_states": eval_states, "train": train}
+
+
+def _a15_rank(rank: int, world: int, init_file: str, out_dir: str, device: str = "cuda") -> None:
+    """One gloo rank of a15's two-rank run; writes ``a15_rank{r}.json`` or
+    ``a15_rank{r}.err``."""
+    import pathlib
+    import traceback
+    out = pathlib.Path(out_dir)
+    try:
+        report = _a15_run(device, world, rank, init_file, ((1, 1, 2), (2, 1, 1)))
+        (out / f"a15_rank{rank}.json").write_text(json.dumps(report))
+    except BaseException:
+        (out / f"a15_rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _a15_same_states(label: str, got: dict, want: dict) -> float:
+    """Integer-valued states bitwise, float ones within A15_VALUE_RTOL
+    relative; returns the largest relative error."""
+    import numpy as np
+    worst = 0.0
+    for part in want:
+        for k, w in want[part].items():
+            g, w = np.asarray(got[part][k]), np.asarray(w)
+            if np.array_equal(w, np.round(w)) and np.abs(w).max(initial=0) < 2 ** 24:
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"a15 {label}: {part}/{k} counts differ from the world-1 run")
+                continue
+            rel = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+            worst = max(worst, rel)
+            if not rel <= A15_VALUE_RTOL:
+                raise AssertionError(f"a15 {label}: {part}/{k} is {rel} off the world-1 run (rtol {A15_VALUE_RTOL})")
+    return worst
+
+
+def a15_plotting() -> dict:
+    """Part (c): without matplotlib every plot raises the JAX package's
+    error; with it, bench config 2's collection, a MulticlassROC and the
+    Cityscapes confusion matrix render under Agg. Importing the package in
+    a fresh process must not import matplotlib."""
+    import importlib.util
+
+    import torch
+    from torchmetrics_tpu_torch.classification import MulticlassConfusionMatrix, MulticlassROC
+    from torchmetrics_tpu_torch.utils import imports
+
+    present = importlib.util.find_spec("matplotlib") is not None
+    if imports._MATPLOTLIB_AVAILABLE != present:
+        raise AssertionError(f"a15 plot: _MATPLOTLIB_AVAILABLE is {imports._MATPLOTLIB_AVAILABLE}, "
+                             f"find_spec says {present}")
+    probe = subprocess.run([sys.executable, "-c", "import sys, torchmetrics_tpu_torch; "
+                            "print('matplotlib' in sys.modules)"], capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0 or probe.stdout.strip() != "False":
+        raise AssertionError(f"a15 plot: importing the package imported matplotlib ({probe.stdout!r} {probe.stderr})")
+    dev = torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+    g = torch.Generator(device=dev).manual_seed(152)
+    coll = multiclass_path(num_classes=100, batch=1024, steps=1)["make"](dev)
+    preds = torch.softmax(torch.randn(1024, 100, generator=g, device=dev), dim=-1)
+    labels = torch.randint(0, 100, (1024,), generator=g, device=dev)
+    coll.update(preds, labels)
+    roc = MulticlassROC(num_classes=100, thresholds=64, device=dev)
+    roc.update(preds, labels)
+    confmat = MulticlassConfusionMatrix(num_classes=19, ignore_index=255, device=dev)
+    confmat.update(torch.randint(0, 19, (512, 1024), generator=g, device=dev),
+                   torch.randint(0, 19, (512, 1024), generator=g, device=dev))
+    calls = {"Metric.plot": lambda: coll["acc"].plot(), "MetricCollection.plot": coll.plot,
+             "MulticlassROC.plot": roc.plot, "MulticlassConfusionMatrix.plot": confmat.plot}
+    out = {"matplotlib": present}
+    if not present:
+        for name, call in calls.items():
+            try:
+                call()
+            except ModuleNotFoundError as err:
+                if str(err) != PLOT_ERROR:
+                    raise AssertionError(f"a15 plot: {name} raised {err!r}") from err
+            else:
+                raise AssertionError(f"a15 plot: {name} drew without matplotlib")
+        out["without_matplotlib"] = {name: "ModuleNotFoundError, the JAX message" for name in calls}
+        return out
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    drawn = {}
+    for name, call in calls.items():
+        figs = call()
+        figs = figs if isinstance(figs, list) else [figs]
+        drawn[name] = len(figs)
+        for fig, _ in figs:
+            fig.canvas.draw()
+            plt.close(fig)
+    out["figures"] = drawn
+    return out
+
+
+def run_a15(card: str, device: str = "cuda") -> tuple:
+    """Phase a15: (a) and (b) at NCCL world 1 in this process, then in two
+    gloo ranks spawned on the one card, their eval states held against the
+    world-1 run's; then (c). Returns the record and the bincount launches.
+    ``device`` other than ``cuda`` rehearses on the CPU (gloo throughout)."""
+    import pathlib
+    import tempfile
+
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        one = _a15_run(device, 1, 0, f"{tmpdir}/a15_world1", ((1, 1, 1),))
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_a15_rank, args=(r, 2, f"{tmpdir}/a15_gloo", tmpdir, device)) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + A15_DEADLINE_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+        errors = [f.read_text() for f in sorted(pathlib.Path(tmpdir).glob("a15_rank*.err"))]
+        if errors or hung or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"a15: ranks failed (hung: {len(hung)}, exit codes {[p.exitcode for p in procs]}):\n"
+                                 + "\n".join(errors))
+        ranks = [json.loads((pathlib.Path(tmpdir) / f"a15_rank{r}.json").read_text()) for r in range(2)]
+    worst = max(_a15_same_states(f"eval rank {r['rank']}", r["eval_states"], one["eval_states"]) for r in ranks)
+    launches = one["eval"]["launches"] + sum(t["launches"] for t in one["train"].values())
+    launches += sum(r["eval"]["launches"] + sum(t["launches"] for t in r["train"].values()) for r in ranks)
+    if not one["eval"]["launches"] or not all(r["eval"]["launches"] for r in ranks):
+        raise AssertionError("a15: an eval run launched the bincount kernel no time")
+    record = {"phase": "a15", "card": card, "seconds": time.perf_counter() - t0,
+              "eval_world1": one["eval"], "eval_two_ranks": [r["eval"] for r in ranks],
+              "eval_states_max_rel_err_vs_world1": worst,
+              "train_world1": one["train"], "train_two_ranks": [r["train"] for r in ranks],
+              "plot": a15_plotting(), "kernel_launches": launches}
+    return record, launches
+
+
 def dist_sync(card: str) -> tuple:
     """Phase dist_sync: part (a), then part (b); any failure raises.
     Returns the record and each kernel's launches."""
@@ -8688,6 +9109,9 @@ def main() -> int:
     kernel["cases"].append(a13_kernel_row)
     for record in run_model_paths(card, dev):
         emit(record)
+    record, a15_launches = run_a15(card)
+    emit(record)
+    launches += a15_launches
     record, dist_launches = dist_sync(card)
     emit(record)
     launches += dist_launches["weighted_bincount"]

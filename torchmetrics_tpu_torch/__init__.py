@@ -6,13 +6,14 @@ on the CUDA card unless ``device=`` says otherwise, and the counting kernel
 of the classification path is a hand-written CUDA weighted bincount
 (``ops.weighted_bincount``). See README.md, "PyTorch/CUDA port".
 
-``__all__`` is the JAX package's root list less the one name not ported
-yet, ``__version__``.
+``__all__`` is the JAX package's root list.
 The task classes (``BinaryAUROC``, ``MulticlassAccuracy``, ...), the sync
 names and the interop helpers are reachable here and from their
 subpackages (``classification``, ``parallel``, ``interop``, ``ops``) but
 are not exported, as in the JAX root.
 """
+__version__ = "0.1.0"
+
 from . import functional, observability
 from .aggregation import (CatMetric, DecayedMean, DecayedSum, MaxMetric, MeanMetric, MinMetric, RunningMean,
                           RunningSum, SumMetric, WindowedMax, WindowedMean, WindowedMin, WindowedSum)
@@ -214,6 +215,7 @@ __all__ = [
     "WordErrorRate",
     "WordInfoLost",
     "WordInfoPreserved",
+    "__version__",
     "functional",
     "label_results",
     "observability",

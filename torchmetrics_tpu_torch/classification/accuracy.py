@@ -29,6 +29,8 @@ class BinaryAccuracy(BinaryStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def compute(self) -> Tensor:
@@ -39,6 +41,9 @@ class BinaryAccuracy(BinaryStatScores):
 class MulticlassAccuracy(MulticlassStatScores):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
     full_state_update = False
 
     def compute(self) -> Tensor:
@@ -51,6 +56,9 @@ class MulticlassAccuracy(MulticlassStatScores):
 class MultilabelAccuracy(MultilabelStatScores):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
     full_state_update = False
 
     def compute(self) -> Tensor:

@@ -47,6 +47,9 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    plot = Metric.plot  # a value, not a curve
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(self, max_fpr: Optional[float] = None, thresholds: Thresholds = None,
                  ignore_index: Optional[int] = None, validate_args: bool = True,
@@ -95,6 +98,10 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
     """
 
     higher_is_better = True
+    plot = Metric.plot  # a value, not a curve
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def __init__(self, num_classes: int, average: Optional[str] = "macro", thresholds: Thresholds = None,
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:
@@ -115,6 +122,10 @@ class MultilabelAUROC(MultilabelPrecisionRecallCurve):
     JAX class does."""
 
     higher_is_better = True
+    plot = Metric.plot  # a value, not a curve
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def __init__(self, num_labels: int, average: Optional[str] = "macro", thresholds: Thresholds = None,
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:

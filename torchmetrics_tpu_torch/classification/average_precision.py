@@ -36,6 +36,9 @@ class BinaryAveragePrecision(BinaryPrecisionRecallCurve):
     binned (0, not NaN, then)."""
 
     higher_is_better = True
+    plot = Metric.plot  # a value, not a curve
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def compute(self):
         if self.thresholds is None:
@@ -49,6 +52,10 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
     kept in the average)."""
 
     higher_is_better = True
+    plot = Metric.plot  # a value, not a curve
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def __init__(self, num_classes: int, average: Optional[str] = "macro", thresholds: Thresholds = None,
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:
@@ -70,6 +77,10 @@ class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
     weighted 0) or of the binned state summed over labels."""
 
     higher_is_better = True
+    plot = Metric.plot  # a value, not a curve
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def __init__(self, num_labels: int, average: Optional[str] = "macro", thresholds: Thresholds = None,
                  ignore_index: Optional[int] = None, validate_args: bool = True, **kwargs: Any) -> None:

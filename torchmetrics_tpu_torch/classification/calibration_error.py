@@ -26,6 +26,8 @@ Tensor = torch.Tensor
 class BinaryCalibrationError(Metric):
     is_differentiable = False
     higher_is_better = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, n_bins: int = 15, norm: str = "l1", ignore_index: Optional[int] = None,
@@ -71,6 +73,8 @@ class MulticlassCalibrationError(Metric):
 
     is_differentiable = False
     higher_is_better = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, num_classes: int, n_bins: int = 15, norm: str = "l1",

@@ -19,6 +19,9 @@ Tensor = torch.Tensor
 class BinaryCohenKappa(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
+    plot = Metric.plot  # a value, not a confusion matrix
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, threshold: float = 0.5, ignore_index: Optional[int] = None,
@@ -34,6 +37,9 @@ class BinaryCohenKappa(BinaryConfusionMatrix):
 class MulticlassCohenKappa(MulticlassConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
+    plot = Metric.plot  # a value, not a confusion matrix
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, num_classes: int, ignore_index: Optional[int] = None,

@@ -5,7 +5,7 @@ int32 ``confmat`` state summed over updates, each update one launch of the
 CUDA bincount on the card. Each task class is its own ``_signature_base``,
 so JaccardIndex, CohenKappa and MatthewsCorrCoef (subclasses that keep its
 update) share one update in a collection; ``normalize`` only changes
-``compute`` and stays out of the signature. ``plot`` is not ported.
+``compute`` and stays out of the signature.
 """
 from typing import Any, Optional
 
@@ -51,6 +51,13 @@ class BinaryConfusionMatrix(Metric):
     def compute(self) -> Tensor:
         return _confusion_matrix_reduce(self.confmat, self.normalize)
 
+    def plot(self, val=None, ax=None, add_text=True, labels=None):
+        """Heatmap of ``val`` or of ``compute()``; needs matplotlib."""
+        from ..utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
+
 
 class MulticlassConfusionMatrix(Metric):
     """Confusion matrix for multiclass tasks: rows are targets, columns predictions.
@@ -86,6 +93,13 @@ class MulticlassConfusionMatrix(Metric):
 
     def compute(self) -> Tensor:
         return _confusion_matrix_reduce(self.confmat, self.normalize)
+
+    def plot(self, val=None, ax=None, add_text=True, labels=None):
+        """Heatmap of ``val`` or of ``compute()``; needs matplotlib."""
+        from ..utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
 
 
 class MultilabelConfusionMatrix(Metric):

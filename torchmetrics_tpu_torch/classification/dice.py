@@ -30,6 +30,8 @@ class Dice(MulticlassStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, num_classes: Optional[int] = None, average: Optional[str] = "micro",

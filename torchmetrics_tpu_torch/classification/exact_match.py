@@ -25,6 +25,8 @@ Tensor = torch.Tensor
 class _AbstractExactMatch(Metric):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def _create_state(self, multidim_average: str) -> None:

@@ -18,6 +18,8 @@ Tensor = torch.Tensor
 class BinaryFBetaScore(BinaryStatScores):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, beta: float, threshold: float = 0.5, multidim_average: str = "global",
@@ -35,6 +37,9 @@ class BinaryFBetaScore(BinaryStatScores):
 class MulticlassFBetaScore(MulticlassStatScores):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
     full_state_update = False
 
     def __init__(self, beta: float, num_classes: int, top_k: int = 1, average: Optional[str] = "macro",
@@ -55,6 +60,9 @@ class MulticlassFBetaScore(MulticlassStatScores):
 class MultilabelFBetaScore(MultilabelStatScores):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
     full_state_update = False
 
     def __init__(self, beta: float, num_labels: int, threshold: float = 0.5, average: Optional[str] = "macro",

@@ -25,6 +25,7 @@ class BinaryHingeLoss(Metric):
 
     is_differentiable = True
     higher_is_better = False
+    plot_lower_bound = 0.0
     full_state_update = False
 
     def __init__(self, squared: bool = False, ignore_index: Optional[int] = None,
@@ -52,6 +53,7 @@ class MulticlassHingeLoss(Metric):
 
     is_differentiable = True
     higher_is_better = False
+    plot_lower_bound = 0.0
     full_state_update = False
 
     def __init__(self, num_classes: int, squared: bool = False, multiclass_mode: str = "crammer-singer",

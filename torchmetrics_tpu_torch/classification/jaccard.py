@@ -20,6 +20,9 @@ Tensor = torch.Tensor
 class BinaryJaccardIndex(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
+    plot = Metric.plot  # a value, not a confusion matrix
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, threshold: float = 0.5, ignore_index: Optional[int] = None,
@@ -46,6 +49,10 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
 
     is_differentiable = False
     higher_is_better = True
+    plot = Metric.plot  # a value, not a confusion matrix
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
     full_state_update = False
 
     def __init__(self, num_classes: int, average: Optional[str] = "macro", ignore_index: Optional[int] = None,
@@ -61,6 +68,9 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
 class MultilabelJaccardIndex(MultilabelConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
     full_state_update = False
 
     def __init__(self, num_labels: int, threshold: float = 0.5, average: Optional[str] = "macro",

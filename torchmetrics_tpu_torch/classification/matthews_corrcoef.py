@@ -19,6 +19,9 @@ Tensor = torch.Tensor
 class BinaryMatthewsCorrCoef(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
+    plot = Metric.plot  # a value, not a confusion matrix
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, threshold: float = 0.5, ignore_index: Optional[int] = None,
@@ -32,6 +35,9 @@ class BinaryMatthewsCorrCoef(BinaryConfusionMatrix):
 class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
+    plot = Metric.plot  # a value, not a confusion matrix
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, num_classes: int, ignore_index: Optional[int] = None,
@@ -45,6 +51,8 @@ class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
 class MultilabelMatthewsCorrCoef(MultilabelConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def __init__(self, num_labels: int, threshold: float = 0.5, ignore_index: Optional[int] = None,

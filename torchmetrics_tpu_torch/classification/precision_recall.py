@@ -12,6 +12,8 @@ from .stat_scores import BinaryStatScores, MulticlassStatScores, MultilabelStatS
 class _BinaryPR(BinaryStatScores):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
     _stat = "precision"
 
@@ -24,6 +26,9 @@ class _BinaryPR(BinaryStatScores):
 class _MulticlassPR(MulticlassStatScores):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
     full_state_update = False
     _stat = "precision"
 
@@ -36,6 +41,9 @@ class _MulticlassPR(MulticlassStatScores):
 class _MultilabelPR(MultilabelStatScores):
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
     full_state_update = False
     _stat = "precision"
 

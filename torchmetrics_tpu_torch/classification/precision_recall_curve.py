@@ -121,6 +121,15 @@ class BinaryPrecisionRecallCurve(_CurveState):
             return _binary_precision_recall_curve_compute(self._exact_state(), None)
         return _binary_precision_recall_curve_compute(self.confmat, self.thresholds)
 
+    def plot(self, curve=None, score=None, ax=None):
+        """Recall against precision (the curve's first two outputs swapped),
+        of ``curve`` or of ``compute()``; needs matplotlib."""
+        from ..utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve((curve[1], curve[0], curve[2]), score=score, ax=ax,
+                          label_names=("Recall", "Precision"), name=type(self).__name__)
+
 
 class MulticlassPrecisionRecallCurve(_CurveState):
     """One-vs-rest precision-recall curves: per-class exact curves by
@@ -151,6 +160,8 @@ class MulticlassPrecisionRecallCurve(_CurveState):
         if self.thresholds is None:
             return _multiclass_precision_recall_curve_compute(self._exact_state(), self.num_classes, None)
         return _multiclass_precision_recall_curve_compute(self.confmat, self.num_classes, self.thresholds)
+
+    plot = BinaryPrecisionRecallCurve.plot
 
 
 class MultilabelPrecisionRecallCurve(_CurveState):
@@ -186,6 +197,8 @@ class MultilabelPrecisionRecallCurve(_CurveState):
             return _multilabel_precision_recall_curve_compute(self._exact_state(), self.num_labels, None,
                                                               self.ignore_index)
         return _multilabel_precision_recall_curve_compute(self.confmat, self.num_labels, self.thresholds)
+
+    plot = BinaryPrecisionRecallCurve.plot
 
 
 BinaryPrecisionRecallCurve._signature_base = BinaryPrecisionRecallCurve

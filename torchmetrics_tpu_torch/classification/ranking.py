@@ -55,6 +55,7 @@ class MultilabelCoverageError(_AbstractRanking):
     """
 
     higher_is_better = False
+    plot_lower_bound = 0.0
     _update_fn = staticmethod(_multilabel_coverage_error_update)
 
 
@@ -72,6 +73,8 @@ class MultilabelRankingAveragePrecision(_AbstractRanking):
     """
 
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     _update_fn = staticmethod(_multilabel_ranking_average_precision_update)
 
 
@@ -90,4 +93,5 @@ class MultilabelRankingLoss(_AbstractRanking):
     """
 
     higher_is_better = False
+    plot_lower_bound = 0.0
     _update_fn = staticmethod(_multilabel_ranking_loss_update)

@@ -62,6 +62,8 @@ class _AtFixed:
     ``True`` on the binary family only; the multiclass and multilabel
     classes keep their curve base's ``None``."""
 
+    plot = Metric.plot  # a value, not a curve
+
     _use_roc = False
     _pick = staticmethod(_recall_precision)
     _objective_first = True

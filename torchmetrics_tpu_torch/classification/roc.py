@@ -25,6 +25,13 @@ class BinaryROC(BinaryPrecisionRecallCurve):
             return _binary_roc_compute(self._exact_state(), None)
         return _binary_roc_compute(self.confmat, self.thresholds)
 
+    def plot(self, curve=None, score=None, ax=None):
+        """TPR against FPR, of ``curve`` or of ``compute()``; needs matplotlib."""
+        from ..utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("FPR", "TPR"), name=type(self).__name__)
+
 
 class MulticlassROC(MulticlassPrecisionRecallCurve):
     """One-vs-rest ROC: per-class lists of exact curves, or (C, T) binned."""
@@ -34,6 +41,8 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
             return _multiclass_roc_compute(self._exact_state(), self.num_classes, None)
         return _multiclass_roc_compute(self.confmat, self.num_classes, self.thresholds)
 
+    plot = BinaryROC.plot
+
 
 class MultilabelROC(MultilabelPrecisionRecallCurve):
     """ROC per label: per-label lists of exact curves, or (L, T) binned."""
@@ -42,6 +51,8 @@ class MultilabelROC(MultilabelPrecisionRecallCurve):
         if self.thresholds is None:
             return _multilabel_roc_compute(self._exact_state(), self.num_labels, None, self.ignore_index)
         return _multilabel_roc_compute(self.confmat, self.num_labels, self.thresholds)
+
+    plot = BinaryROC.plot
 
 
 class ROC(_ClassificationTaskWrapper):

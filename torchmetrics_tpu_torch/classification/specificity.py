@@ -12,6 +12,8 @@ class BinarySpecificity(BinaryStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
     full_state_update = False
 
     def compute(self):
@@ -24,6 +26,9 @@ class MulticlassSpecificity(MulticlassStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
     full_state_update = False
 
     def compute(self):
@@ -36,6 +41,9 @@ class MultilabelSpecificity(MultilabelStatScores):
 
     is_differentiable = False
     higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
     full_state_update = False
 
     def compute(self):

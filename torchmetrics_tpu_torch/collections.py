@@ -497,6 +497,50 @@ class MetricCollection(torch.nn.Module):
     def compute_groups(self) -> Dict[int, List[str]]:
         return self._groups
 
+    def plot(
+        self,
+        val: Optional[Union[Dict, Sequence[Dict]]] = None,
+        ax: Any = None,
+        together: bool = False,
+    ) -> Any:
+        """Plot every member's value(s) (JAX ``collections.py:555``).
+
+        ``together=False`` (default) returns ``[(fig, ax), ...]``, one per
+        member, each from that metric's own ``plot``; ``together=True`` puts
+        all values on one axis. ``val`` may be one compute/forward result
+        dict or a sequence of them (one per step); omitted, ``compute`` is
+        called.
+        """
+        from .utils.plot import plot_single_or_multi_val
+
+        if not isinstance(together, bool):
+            raise ValueError(f"Expected argument `together` to be a boolean, but got {type(together)}")
+        if not together and ax is not None:
+            if not isinstance(ax, Sequence) or len(ax) != len(self):
+                raise ValueError(
+                    "Expected argument `ax` to be a sequence of matplotlib axis objects with the same "
+                    f"length as the number of metrics in the collection, but got {type(ax)} "
+                    "when `together=False`"
+                )
+        if val is None:
+            val = self.compute()
+        if together:
+            return plot_single_or_multi_val(val, ax=ax)
+        fig_axs = []
+        # keep_base=False: the keys are compute()'s (prefixed) names. A member
+        # whose compute returns a dict is spread by inner key in compute(),
+        # so its own name is absent from ``val``: it plots its own compute.
+        for i, (k, m) in enumerate(self.items(keep_base=False, copy_state=False)):
+            member_ax = ax[i] if ax is not None else None
+            if isinstance(val, dict):
+                f, a = m.plot(val[k], ax=member_ax) if k in val else m.plot(ax=member_ax)
+            elif val and k in val[0]:
+                f, a = m.plot([v[k] for v in val], ax=member_ax)
+            else:
+                f, a = m.plot(ax=member_ax)
+            fig_axs.append((f, a))
+        return fig_axs
+
     # ------------------------------------------------------------------
     # pure-functional API: one dict of member states for the whole collection
     # ------------------------------------------------------------------

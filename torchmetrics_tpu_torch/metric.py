@@ -65,7 +65,7 @@ Telemetry: while tracing is armed (:mod:`~torchmetrics_tpu_torch.observability`)
 ``jit=True`` and is fenced when sampled. Disarmed, each costs one flag read.
 
 Not ported: the XLA executable cache (graphs are per instance, see
-:mod:`~torchmetrics_tpu_torch._capture`); not ported yet: ``plot``.
+:mod:`~torchmetrics_tpu_torch._capture`).
 """
 from __future__ import annotations
 
@@ -213,6 +213,9 @@ class Metric(torch.nn.Module):
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = False
+    plot_lower_bound: Optional[float] = None
+    plot_upper_bound: Optional[float] = None
+    plot_legend_name: Optional[str] = None
 
     _signature_base: Optional[type] = None  # engine base whose update must be unoverridden
     # the update body may be captured into a CUDA graph: no host reads, no
@@ -1203,6 +1206,25 @@ class Metric(torch.nn.Module):
         up this one's beside its own: what :mod:`~torchmetrics_tpu_torch.interop`
         carries for a wrapper. A plain metric has none."""
         return {}
+
+    # ------------------------------------------------------------------
+    # plotting (JAX metric.py:1639-1650)
+    # ------------------------------------------------------------------
+    def plot(self, val: Any = None, ax: Any = None):
+        """Plot ``val`` (one value, a sequence of them, or a dict), or this
+        metric's ``compute()``, between the class's plot bounds; values are
+        copied to the host here. Needs matplotlib."""
+        from .utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name or type(self).__name__,
+        )
 
     # ------------------------------------------------------------------
     # hashing and composition (JAX metric.py:1609-1753)

@@ -1,6 +1,6 @@
-"""State reductions, sync over ``torch.distributed``, elastic rounds and
-sharded compute (counterpart of ``torchmetrics_tpu/parallel``; the ring
-attention and train-demo modules are not ported)."""
+"""State reductions, sync over ``torch.distributed``, elastic rounds,
+sharded compute, ring attention with the expert all-to-all, and the
+dp x pp x tp train template (counterpart of ``torchmetrics_tpu/parallel``)."""
 from .elastic import (
     ChaosController,
     ChaosSchedule,
@@ -17,6 +17,7 @@ from .elastic import (
     reset_elastic_stats,
 )
 from .reduction import ELEMENTWISE_REDUCTIONS, Reduction, resolve_reduction
+from .ring import expert_all_to_all, ring_attention
 from .strategies import SyncPolicy, reset_wire_stats, use_policy, wire_stats
 from .sync import (
     FakeSync,
@@ -27,6 +28,7 @@ from .sync import (
     reduce_state_in_graph,
     reduce_tensor_in_graph,
 )
+from .train_demo import demo_param_shardings, init_demo_params, make_demo_train_step
 
 __all__ = [
     "ChaosController",
@@ -46,7 +48,11 @@ __all__ = [
     "chaos_group",
     "checkpoint_metric",
     "default_sync_backend",
+    "demo_param_shardings",
     "elastic_stats",
+    "expert_all_to_all",
+    "init_demo_params",
+    "make_demo_train_step",
     "merge_checkpoint",
     "reduce_state_in_graph",
     "reduce_tensor_in_graph",
@@ -54,6 +60,7 @@ __all__ = [
     "reset_elastic_stats",
     "reset_wire_stats",
     "resolve_reduction",
+    "ring_attention",
     "use_policy",
     "wire_stats",
 ]

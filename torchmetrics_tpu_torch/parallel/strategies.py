@@ -354,6 +354,15 @@ def group_size(group: Any = None) -> int:
     return api.get_world_size(group)
 
 
+def group_rank(group: Any = None) -> int:
+    """This process's rank in ``group`` (the default group when ``None``); 0
+    when no process group is initialised."""
+    api = _group_api()
+    if not (api.is_available() and api.is_initialized()):
+        return 0
+    return api.get_rank(group)
+
+
 def _as_bytes(value: Tensor) -> Tensor:
     return value.contiguous().reshape(-1).view(torch.uint8)
 

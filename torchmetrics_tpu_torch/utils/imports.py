@@ -1,10 +1,9 @@
 """Optional-dependency gating.
 
-Counterpart of the two names of ``torchmetrics_tpu/utils/imports.py`` that
-the multimodal metrics need (``_TRANSFORMERS_AVAILABLE`` at ``:20`` and
-``ModuleNotFoundHint`` at ``:30``); the module's other flags are ROADMAP
-A15. Availability is looked up without importing the module, so importing
-this package never imports ``transformers``.
+Counterpart of ``torchmetrics_tpu/utils/imports.py``: the same availability
+flags (``:18-27``) and ``ModuleNotFoundHint`` (``:30``). Availability is
+looked up without importing the module, so importing this package never
+imports ``transformers`` or ``matplotlib``.
 """
 import importlib.util
 from functools import lru_cache
@@ -18,7 +17,16 @@ def _module_available(name: str) -> bool:
         return False
 
 
+_SCIPY_AVAILABLE = _module_available("scipy")
+_SKLEARN_AVAILABLE = _module_available("sklearn")
 _TRANSFORMERS_AVAILABLE = _module_available("transformers")
+_MATPLOTLIB_AVAILABLE = _module_available("matplotlib")
+_NLTK_AVAILABLE = _module_available("nltk")
+_REGEX_AVAILABLE = _module_available("regex")
+_PIL_AVAILABLE = _module_available("PIL")
+_PESQ_AVAILABLE = _module_available("pesq")
+_PYSTOI_AVAILABLE = _module_available("pystoi")
+_FLAX_AVAILABLE = _module_available("flax")
 
 
 class ModuleNotFoundHint(ModuleNotFoundError):
