@@ -12,11 +12,14 @@ not 0 and no result line is printed:
    package's flags), one compiler for each, started together, timed;
 3. kernel: the CUDA kernel through weighted_bincount_batched (the metric
    path's batched calls) and weighted_bincount (1-D), against the plain
-   PyTorch versions on the card, at the metric path's shapes, past the
-   largest cluster, at the sparse plan's shape (the ImageNet-1k confusion
+   PyTorch versions on the card, at the metric path's shapes, at 1,000,000
+   bins, at far fewer inputs than bins (the ImageNet-1k confusion
    matrix), at the group-fairness count of the Jigsaw path, at the
-   BootStrapper's 3 x 10 rows of the composition path and at edge
-   cases; each call must launch once. Timed beside the plain version, torch.bincount (a yardstick only; the package
+   BootStrapper's 3 x 10 rows of the composition path, at the cluster
+   sums' 2,048 weight rows (the rows plan, run twice: the same bits) and at
+   edge cases; each call must run its plan's kernels (one; two for the
+   rows plan of several sample chunks: its histogram, then their merge),
+   and each wrapper counts every kernel it runs. Timed beside the plain version, torch.bincount (a yardstick only; the package
    never calls it: its device time from a profiler trace, and its host
    round trip) and the memory-bandwidth bound. The t-digest compress kernel
    (tdigest_compress_sorted) at the sketch paths' shapes, S=1 digest of
@@ -58,7 +61,7 @@ not 0 and no result line is printed:
      before the two groups are found), then 2; 2 per pure update;
    - imagenet1k_confmat: MulticlassConfusionMatrix, MulticlassCohenKappa,
      MulticlassMatthewsCorrCoef (one confusion-matrix group, 1,000,000
-     cells: the kernel's sparse plan) and MulticlassCalibrationError
+     cells: the kernel's global plan) and MulticlassCalibrationError
      (n_bins=15) at C=1000, batch 1000, 50 updates; 3 launches, then 1; 1
      per pure update; and 1 per compute, where the calibration error bins
      its cat states;
@@ -230,8 +233,9 @@ not 0 and no result line is printed:
      EMI_RTOL;
    - imagenet_clustering_embeddings: Calinski-Harabasz, Davies-Bouldin and
      Dunn over 50,000 x 2,048 float32 features of a seeded mixture of 1,000
-     Gaussians (50 updates of 1,000 rows, 410 MB of cat states); 2, 3 and 2
-     launches per compute, each compute's peak under half the 8.2 GB
+     Gaussians (50 updates of 1,000 rows, 410 MB of cat states); 3, 4 and 3
+     launches per compute (the sums' rows plan runs its histogram over two
+     sample chunks, then their merge), each compute's peak under half the 8.2 GB
      (k, k, D) array, scores within A11A_RTOL of float64 on the card;
    - model_agreement_nominal: Cramer's V, Tschuprow's T, Pearson's C and
      Theil's U at 1,000 classes between two classifiers' top-1 labels on
@@ -462,15 +466,15 @@ TIMED_CASES = ("stat_scores_c100", "curve_c100_t64", "stat_scores_c1000", "curve
                "unweighted_int32", "random_f32_weights", "confmat_cityscapes", "stat_scores_cityscapes",
                "confmat_imagenet1k", "calibration_imagenet1k", "fairness_jigsaw", "bootstrap_c100_b10",
                "countmin_popularity", "ece_ctr_compute", "tenant_stack_c1000", "contingency_imagenet1k",
-               "nominal_update_c1000", "cluster_counts_imagenet1k", "cluster_sums_imagenet1k", "fleiss_cifar10h",
-               "panoptic_intersections_cityscapes")
+               "nominal_update_c1000", "cluster_counts_imagenet1k", "cluster_sums_imagenet1k",
+               "cluster_sums_10k_clusters", "fleiss_cifar10h", "panoptic_intersections_cityscapes")
 # the cases of the confusion, calibration, fairness, bootstrap, sketch, A11.a, A11.b and A13 paths, reported
 # beside the main one in the kernels line (phase a13 times its own case at the Criteo histogram's shape)
 SLICE_CASES = ("confmat_cityscapes", "stat_scores_cityscapes", "confmat_imagenet1k", "calibration_imagenet1k",
                "fairness_jigsaw", "bootstrap_c100_b10", "countmin_popularity", "ece_ctr_compute",
                "tenant_stack_c1000", "contingency_imagenet1k", "nominal_update_c1000", "cluster_counts_imagenet1k",
-               "cluster_sums_imagenet1k", "fleiss_cifar10h", "panoptic_intersections_cityscapes",
-               "histogram_criteo_auroc")
+               "cluster_sums_imagenet1k", "cluster_sums_10k_clusters", "fleiss_cifar10h",
+               "panoptic_intersections_cityscapes", "histogram_criteo_auroc")
 
 
 def emit(obj) -> None:
@@ -563,12 +567,12 @@ def kernel_cases(device):
         # multilabel curve at COCO's 80 labels, batch 1,024: shared idx of
         # N = 81,920, S=2, bins = L * (T + 1) = 5,200
         ("curve_multilabel_l80_t64", "batched", ints((81_920,), 0, 5_200), mask01((2, 81_920)), 5_200, True),
-        # past the largest cluster (16 CTAs of 227 KB): the bins are tiled
+        # 1,000,000 bins, as many as inputs: past what 16 CTAs' shared memory holds
         ("past_cluster", "1d", ints((1_000_000,), 0, 1_000_000), mask01((1_000_000,)), 1_000_000, True),
         ("unweighted_int32", "batched", ints((2, 1_000_000), 0, 65_000), None, 65_000, True),
         ("out_of_range", "batched", ints((200_000,), -50_000, 120_000), mask01((2, 200_000)), 65_000, True),
         ("empty", "batched", ints((0,), 0, 10), mask01((2, 0)), 10, True),
-        # clusters with scalar inputs: a view off 16-byte alignment (scalar
+        # scalar inputs: a view off 16-byte alignment (scalar
         # head and tail), ragged rows (N % 4 != 0: every input scalar), and
         # few bins with ragged rows
         ("misaligned_1d", "1d", mis_idx[1:], mis_w[0, 1:], 65_000, True),
@@ -585,8 +589,7 @@ def kernel_cases(device):
         ("confmat_cityscapes", "batched", city, None, 361, True),
         # the stat scores of Dice and pixel accuracy there: 3 rows of 2,097,152
         ("stat_scores_cityscapes", "batched", ints((3, 2_097_152), 0, 19), mask01((3, 2_097_152)), 19, True),
-        # confusion matrix at ImageNet-1k: 1,000 samples into 1,000,000 cells,
-        # the sparse plan
+        # confusion matrix at ImageNet-1k: 1,000 samples into 1,000,000 cells
         ("confmat_imagenet1k", "batched", ints((1, 1000), 0, 1_000_000), None, 1_000_000, True),
         # calibration error over ImageNet-1k val: counts, confidence and
         # accuracy sums of 50,000 samples in 15 bins over one shared index;
@@ -612,18 +615,33 @@ def kernel_cases(device):
          torch.stack([torch.ones_like(ctr_conf), ctr_conf, mask01((65_536,))]), 15, False),
         ("tenant_stack_c1000", "batched", ints((3 * 1024, 64), 0, 1000), mask01((3 * 1024, 64)), 1000, True),
         # the A11.a paths: the contingency matrix of ImageNet-1k clustering
-        # (50,000 joint labels into 1,000 x 1,000 cells, the sparse plan), a
+        # (50,000 joint labels into 1,000 x 1,000 cells, the global plan), a
         # nominal update (1,000 pairs of top-1 labels into 1,000 x 1,000
         # cells), the per-cluster counts (50,000 labels, 1,000 clusters), the
         # per-cluster sums of 50,000 x 2,048 float32 features (2,048 weight
-        # rows over one shared index) and Fleiss kappa's "probs" count over
-        # CIFAR-10H (10,000 images x 51 raters into 10,000 x 10 bins)
+        # rows over one shared index, the (N, D) features passed as data.T,
+        # the way the caller passes them: the rows plan), the same over
+        # 10,000 clusters (bins past one CTA's shared memory: bin tiles) and
+        # Fleiss kappa's "probs" count over CIFAR-10H (10,000 images x 51
+        # raters into 10,000 x 10 bins)
         ("contingency_imagenet1k", "1d", ints((50_000,), 0, 1000) * 1000 + ints((50_000,), 0, 1000), None,
          1_000_000, True),
         ("nominal_update_c1000", "1d", ints((1000,), 0, 1000) * 1000 + ints((1000,), 0, 1000), None, 1_000_000, True),
         ("cluster_counts_imagenet1k", "1d", ints((50_000,), 0, 1000), None, 1000, True),
         ("cluster_sums_imagenet1k", "batched", ints((50_000,), 0, 1000),
-         torch.randn((2048, 50_000), generator=g, device=device), 1000, False),
+         torch.randn((50_000, 2048), generator=g, device=device).T, 1000, False),
+        ("cluster_sums_10k_clusters", "batched", ints((50_000,), 0, 10_000),
+         torch.randn((50_000, 2048), generator=g, device=device).T, 10_000, False),
+        # the rows plan's edges: 40 columns (one warp's 64, partly idle) with
+        # out-of-range labels and a ragged last block; 130 contiguous rows
+        # (strides (N, 1)) over a misaligned label view; 1,100 columns (a
+        # full column tile and a ragged one)
+        ("rows_narrow_transposed", "batched", ints((30_001,), -3, 1003),
+         torch.randn((30_001, 40), generator=g, device=device).T, 1000, False),
+        ("rows_contiguous_misaligned", "batched", ints((20_001,), -2, 502)[1:],
+         torch.randn((130, 20_000), generator=g, device=device), 500, False),
+        ("rows_ragged_columns", "batched", ints((9_000,), 0, 3000),
+         torch.randn((9_000, 1100), generator=g, device=device).T, 3000, False),
         ("fleiss_cifar10h", "1d", (torch.arange(10_000, device=device, dtype=torch.int32)[:, None] * 10
                                    + ints((10_000, 51), 0, 10)).reshape(-1), None, 100_000, True),
         # the A11.b path: panoptic quality's table of intersections of one
@@ -701,24 +719,32 @@ def check_kernel(device) -> dict:
         rows = idx.shape[0] if idx.dim() == 2 else 1
         s = w.shape[0] if w is not None and w.dim() == 2 else rows
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        # a shared index with more weight rows than one launch stages takes one launch per group of rows
-        group = bincount.shared_rows_per_launch(n, s, bins) if rows == 1 and s > 1 and w is not None else s
-        if n and launched != -(-s // group):
-            raise AssertionError(f"kernel {name}: {launched} launches, expected {-(-s // group)}")
+        plan = bincount.launch_plan(n, rows, s, bins, w is not None, sms)
+        # one launch a call, whatever the number of weight rows; two kernels
+        # for the rows plan of several sample chunks (their merge)
+        if n and launched != plan.kernels:
+            raise AssertionError(f"kernel {name}: {launched} launches, expected {plan.kernels}")
         if exact:
             # int32 counts and sums of 0/1 weights are exact in any order
             if got.dtype != want.dtype or not torch.equal(got, want):
                 raise AssertionError(f"kernel {name}: not bitwise equal to the plain version")
         else:
-            # float32 shared-memory atomics add in another order than
-            # index_add_: agree per bin within rtol 1e-5
+            # float32 atomics, or the rows plan's chunks, add in another order
+            # than index_add_: agree per bin within rtol 1e-5
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
         max_abs_err = max(max_abs_err, err)
-        plan = bincount.launch_plan(n, rows, group, bins, w is not None, sms)
         row = {"case": name, "entry": entry, "s": s, "n": n, "bins": bins, "shared_idx": rows == 1 and s > 1,
-               "weighted": w is not None, "plan": plan._asdict(), "rows_per_launch": group, "launches": launched,
+               "weighted": w is not None, "plan": plan._asdict(), "launches": launched,
                "bitwise": bool(torch.equal(got, want)), "max_abs_err": err}
+        if plan.kind == "rows":
+            # the rows plan adds in a fixed order: a second run gives the same bits
+            again = call()
+            torch.cuda.synchronize()
+            row["run_twice_bitwise"] = bool(torch.equal(again, got))
+            if not row["run_twice_bitwise"]:
+                raise AssertionError(f"kernel {name}: two runs of the rows plan differ")
+            del again
         if n and name in TIMED_CASES:
             row["ms"], row["host_ms"], row["ms_covered"] = time_ms(call)
             row["plain_ms"], row["plain_host_ms"], row["plain_covered"] = time_ms(plain)
@@ -729,12 +755,6 @@ def check_kernel(device) -> dict:
             row["library_ms"], _, row["library_covered"] = time_ms(library_call(idx, w, bins), reps=5)
             row["bound_ms"] = bincount.bound_bytes(idx, w, bins) / hbm_bytes_per_s() * 1e3
             row["bound_by"] = "bytes"
-        if name == "cluster_sums_imagenet1k":
-            # the per-cluster sums take the (N, D) features as D weight rows:
-            # the (D, N) copy that the kernel's contiguous rows need, timed alike
-            features = w.T.contiguous()
-            row["transpose_ms"], row["transpose_host_ms"], _ = time_ms(lambda f=features: f.T.contiguous())
-            del features
         results.append(row)
     return {"cases": results, "max_abs_err": max_abs_err}
 
@@ -4753,9 +4773,9 @@ def run_imagenet_clustering_embeddings(card: str, dev, classes: int = 1000, per_
     labels) per cluster; Davies-Bouldin adds one launch for its scatter. The peak
     device memory of each compute stays under half the (k, k, D) array the
     JAX formula builds. Scores within A11A_RTOL of float64 on the card.
-    (The sums are 36 launches of 57 rows on the card: a launch stages every
-    weight row of a shared index, see ``ops.bincount.shared_rows_per_launch``.)
-    Returns (record, launches)."""
+    (The sums are one call of the kernel's rows plan, which reads the
+    features' transpose as it lies: two kernels, its histogram over two
+    sample chunks and their merge.) Returns (record, launches)."""
     import torch
 
     import torchmetrics_tpu_torch as tm
@@ -4781,13 +4801,13 @@ def run_imagenet_clustering_embeddings(card: str, dev, classes: int = 1000, per_
     launches = _warm_computes(tm.MetricCollection({name: getattr(tm, name)(device=dev) for name in EMBEDDING_SCORES}),
                               (data[:batch], labels[:batch]))
     values, computes = _member_computes(coll, dev)
-    # the counts are one launch; the D sums rows over the shared label index take one launch per group of
-    # rows the kernel stages (the plain version on the CPU is one call)
+    # the counts are one launch; the D sums rows over the shared label index one call of the rows plan, whose
+    # kernels (two where it cuts the samples into chunks) are each counted (a CPU rehearsal counts one plain call)
     sums = 1
     if dev.type == "cuda":
-        from torchmetrics_tpu_torch.ops.bincount import shared_rows_per_launch
+        from torchmetrics_tpu_torch.ops.bincount import launch_plan
 
-        sums = -(-dim // shared_rows_per_launch(n, dim, classes))
+        sums = launch_plan(n, 1, dim, classes, True, torch.cuda.get_device_properties(dev).multi_processor_count).kernels
     want_launches = {"CalinskiHarabaszScore": 1 + sums, "DaviesBouldinScore": 2 + sums, "DunnIndex": 1 + sums}
     kkd_mb = classes * classes * dim * 4 / 2**20
     for name, cost in computes.items():
@@ -9140,7 +9160,8 @@ def main() -> int:
         "shape": {"s": main_case["s"], "n": main_case["n"], "bins": main_case["bins"], "shared_idx": True,
                   "weighted": True},
         "slice_cases": {c["case"]: {k: c[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_device_ms",
-                                                      "library_ms", "max_abs_err", "plan", "transpose_ms", "n", "bins")
+                                                      "library_ms", "max_abs_err", "plan", "launches",
+                                                      "run_twice_bitwise", "n", "bins")
                                     if k in c}
                         for c in kernel["cases"] if c["case"] in SLICE_CASES},
     }, {

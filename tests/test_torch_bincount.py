@@ -139,112 +139,123 @@ def test_build_without_nvcc_raises(monkeypatch):
         port_bincount._nvcc()
 
 
+def _check_plan_invariants(plan, n, rows, out_rows, bins, weighted, sms):
+    """What every plan keeps: its shared memory within one CTA's, all bins
+    covered, the partial histograms added into the output (smem plans of
+    several CTAs) no more bytes than the inputs, and a grid that follows the
+    SM count."""
+    assert port_bincount.smem_bytes(plan, out_rows) <= port_bincount.SMEM_BYTES
+    assert plan.tiles * plan.tile_bins >= bins and (plan.tiles == 1) == (plan.tile_bins == bins)
+    if plan.kind == "smem":
+        in_bytes = 4 * rows * n + (4 * out_rows * n if weighted else 0)
+        assert plan.ctas == 1 or plan.ctas * out_rows * bins * 4 <= in_bytes
+        assert plan.ctas <= max(1, sms) and plan.chunks == 1
+    elif plan.kind == "global":
+        assert plan.ctas <= sms * port_bincount.GLOBAL_CTAS_PER_SM and plan.tiles == 1 and plan.chunks == 1
+    else:
+        assert weighted and rows == 1 and out_rows >= port_bincount.ROWS_PLAN_MIN_ROWS
+        assert plan.ctas == -(-out_rows // port_bincount.rows_tile_cols(out_rows)) * plan.tiles * plan.chunks
+        assert plan.tiles <= port_bincount.MAX_GRID_YZ and plan.chunks <= port_bincount.MAX_GRID_YZ
+
+
 @pytest.mark.parametrize(
     "n,rows,out_rows,bins,weighted,expect",
     [
         # stat scores, one batched call: one CTA writes the output directly
-        (1024, 3, 3, 100, True, (1, 1, 1, 100, 100, 0)),
-        (1000, 3, 3, 1000, True, (1, 1, 1, 1000, 1000, 0)),
+        (1024, 3, 3, 100, True, ("smem", 1, 1, 100)),
+        (1000, 3, 3, 1000, True, ("smem", 1, 1, 1000)),
         # binned curve at C=100, shared idx: 13,000 counters fit one CTA; 23
         # CTAs count disjoint inputs, capped by the merge bound
-        (102_400, 1, 2, 6_500, True, (23, 1, 1, 6_500, 6_500, 0)),
-        # binned curve at C=1000: 130,000 counters need a cluster of 4
-        # (130 KB each, two stages of 256 vectors), 23 clusters by the merge bound
-        (1_000_000, 1, 2, 65_000, True, (23, 4, 1, 65_000, 16_252, 256)),
-        # the 1-D entry at that shape: a cluster of 2 would hold the bins, but
-        # clusters of 4 keep 120 CTAs busy at the same number of clusters
-        (1_000_000, 1, 1, 65_000, True, (30, 4, 1, 65_000, 16_252, 640)),
-        (1_000_000, 2, 2, 65_000, False, (15, 4, 1, 65_000, 16_252, 768)),
-        # more weight rows than the kernel specialises, over a cluster
-        (300_000, 1, 6, 20_000, True, (17, 4, 1, 20_000, 5_000, 96)),
-        # past the largest cluster: two bin tiles, each re-reads the inputs
-        (1_000_000, 1, 1, 1_000_000, True, (2, 16, 2, 500_000, 31_252, 96)),
-        # many inputs, few bins: one CTA per SM, no cluster
-        (10**8, 1, 1, 1000, True, (132, 1, 1, 1000, 1000, 0)),
+        (102_400, 1, 2, 6_500, True, ("smem", 23, 1, 6_500)),
+        # binned curve at C=1000: 130,000 counters do not fit one CTA, so
+        # every input is added into the zeroed output; 489 CTAs of 2,048 reads
+        (1_000_000, 1, 2, 65_000, True, ("global", 489, 1, 65_000)),
+        # the 1-D entry at that shape
+        (1_000_000, 1, 1, 65_000, True, ("global", 489, 1, 65_000)),
+        # 2,000,000 reads: the grid's cap, four CTAs an SM
+        (1_000_000, 2, 2, 65_000, False, ("global", 528, 1, 65_000)),
+        # more weight rows than the kernel specialises, counters past one CTA:
+        # one input a thread, one CTA an SM
+        (300_000, 1, 6, 20_000, True, ("global", 132, 1, 20_000, 1, False)),
+        # 1,000,000 bins: one tile, no input read twice
+        (1_000_000, 1, 1, 1_000_000, True, ("global", 489, 1, 1_000_000)),
+        # many inputs, few bins: one CTA per SM
+        (10**8, 1, 1, 1000, True, ("smem", 132, 1, 1000)),
         # binary pixel curve (32 masks of 256 x 256), shared idx: 130 counters
         # in each of 132 CTAs
-        (2_097_152, 1, 2, 65, True, (132, 1, 1, 65, 65, 0)),
+        (2_097_152, 1, 2, 65, True, ("smem", 132, 1, 65)),
         # COCO multilabel curve (80 labels, batch 1,024): 20 CTAs
-        (81_920, 1, 2, 5_200, True, (20, 1, 1, 5_200, 5_200, 0)),
+        (81_920, 1, 2, 5_200, True, ("smem", 20, 1, 5_200)),
         # Cityscapes confusion matrix (one 1024 x 2048 image, 19^2 cells),
         # int32: 132 CTAs that each hold the 361 counters
-        (2_097_152, 1, 1, 361, False, (132, 1, 1, 361, 361, 0)),
+        (2_097_152, 1, 1, 361, False, ("smem", 132, 1, 361)),
         # Cityscapes stat scores (Dice, pixel accuracy): 3 rows of 2,097,152
-        (2_097_152, 3, 3, 19, True, (132, 1, 1, 19, 19, 0)),
+        (2_097_152, 3, 3, 19, True, ("smem", 132, 1, 19)),
         # ImageNet-1k calibration (50,000 samples, 15 bins), three weight rows
         # over one shared index: 13 CTAs
-        (50_000, 1, 3, 15, True, (13, 1, 1, 15, 15, 0)),
+        (50_000, 1, 3, 15, True, ("smem", 13, 1, 15)),
     ],
 )
 def test_launch_plan(n, rows, out_rows, bins, weighted, expect):
-    """Every plan that PERF.md's kernel table measured stays as it was:
-    none of these shapes takes the sparse plan."""
+    """The plans of PERF.md's kernel table: the shared-memory plan where the
+    counters fit one CTA, else global reductions."""
     plan = port_bincount.launch_plan(n, rows, out_rows, bins, weighted, 132)
-    assert plan == port_bincount.LaunchPlan(*expect) and not plan.sparse
-    streams = 1 + (out_rows // rows if weighted else 0)
-    assert port_bincount.smem_bytes(plan, out_rows, streams) <= port_bincount.SMEM_BYTES
-    assert plan.cluster <= port_bincount.MAX_CLUSTER and plan.cluster & (plan.cluster - 1) == 0
-    assert plan.tiles * plan.tile_bins >= bins and plan.cluster * plan.bs >= plan.tile_bins
-    if plan.cluster > 1:
-        # bulk copies and reductions need 16-byte steps
-        assert plan.bs % 4 == 0 and plan.tile_bins % 4 == 0
-        assert port_bincount.MIN_STAGE_VECTORS <= plan.chv <= port_bincount.MAX_STAGE_VECTORS
-    # the partial histograms added into the output move no more bytes than the inputs
-    in_bytes = 4 * rows * n + (4 * out_rows * n if weighted else 0)
-    assert plan.clusters == 1 or plan.clusters * out_rows * bins * 4 <= in_bytes
-    # the kernel's owner lookup (b * magic) >> 40 is b // bs over the whole tile
-    b = np.arange(plan.tile_bins, dtype=np.uint64)
-    magic = np.uint64(port_bincount.slice_magic(plan.bs))
-    np.testing.assert_array_equal((b * magic) >> np.uint64(40), b // np.uint64(plan.bs))
-
-
-SPARSE = port_bincount.SPARSE_BINS_PER_INPUT
+    assert plan == port_bincount.LaunchPlan(*expect)
+    _check_plan_invariants(plan, n, rows, out_rows, bins, weighted, 132)
 
 
 @pytest.mark.parametrize(
     "n,rows,out_rows,bins,weighted,ctas",
     [
-        # ImageNet-1k confusion matrix: 1,000 samples into 1,000,000 cells,
-        # int32; two CTAs of 512 threads
+        # ImageNet-1k confusion matrix: 1,000 samples into 1,000,000 cells, int32
         (1000, 1, 1, 1_000_000, False, 2),
-        # at the cut-over, with inputs enough for one CTA per SM
-        (1_000_000 // SPARSE, 1, 1, 1_000_000, False, 132),
+        # as many inputs as half the bins
+        (500_000, 1, 1, 1_000_000, False, 245),
         # weighted, shared idx: two weight rows over 200,000 bins each
         (10_000, 1, 2, 200_000, True, 20),
-        # per-row idx, int32
+        # per-row idx, int32: the count-min update's shape at a twentieth
         (5_000, 3, 3, 100_000, False, 30),
     ],
 )
-def test_launch_plan_sparse(n, rows, out_rows, bins, weighted, ctas):
-    """Counters that do not fit one CTA, fed far fewer inputs per row than
-    they have bins: each input goes straight into the zeroed output."""
+def test_launch_plan_global(n, rows, out_rows, bins, weighted, ctas):
+    """Counters that do not fit one CTA, at any number of inputs: each input
+    goes straight into the zeroed output, one tile of all bins. Calls below
+    131,072 index reads take one input a thread, 512 a CTA, up to one CTA an
+    SM; larger ones 16-byte vectors, 2,048 reads a CTA."""
     plan = port_bincount.launch_plan(n, rows, out_rows, bins, weighted, 132)
-    assert plan == port_bincount.LaunchPlan(ctas, 1, 1, bins, bins, 0, sparse=True)
+    assert plan == port_bincount.LaunchPlan("global", ctas, 1, bins,
+                                            vectors=rows * n >= port_bincount.GLOBAL_VECTOR_INPUTS and
+                                            (not weighted or out_rows // rows <= 2))
+    _check_plan_invariants(plan, n, rows, out_rows, bins, weighted, 132)
 
 
 @pytest.mark.parametrize(
-    "n,rows,out_rows,bins,weighted",
+    "n,rows,out_rows,bins,weighted,kind",
     [
-        # one input past the cut-over: the cluster plan with tiles
-        (1_000_000 // SPARSE + 1, 1, 1, 1_000_000, False),
+        # one input past half the bins: still global (no cut-over by inputs)
+        (500_001, 1, 1, 1_000_000, False, "global"),
         # few inputs, but the counters fit one CTA: the single-CTA plan
-        (10, 1, 1, 40_000, False),
-        (10, 1, 2, 20_000, True),
+        (10, 1, 1, 40_000, False, "smem"),
+        (10, 1, 2, 20_000, True, "smem"),
     ],
 )
-def test_launch_plan_not_sparse(n, rows, out_rows, bins, weighted):
+def test_launch_plan_kind_follows_the_counters(n, rows, out_rows, bins, weighted, kind):
     plan = port_bincount.launch_plan(n, rows, out_rows, bins, weighted, 132)
-    assert not plan.sparse
-    streams = 1 + (out_rows // rows if weighted else 0)
-    assert port_bincount.smem_bytes(plan, out_rows, streams) <= port_bincount.SMEM_BYTES
+    assert plan.kind == kind
+    _check_plan_invariants(plan, n, rows, out_rows, bins, weighted, 132)
 
 
 @pytest.mark.parametrize("sms", [1, 78, 114, 132])
 def test_launch_plan_scales_with_sm_count(sms):
-    """The grid follows the card, not N: at most about one CTA per SM."""
-    plan = port_bincount.launch_plan(1_000_000, 1, 2, 65_000, True, sms)
-    assert plan.tiles == 1 and plan.cluster * plan.bs >= 65_000
-    assert plan.clusters * plan.cluster <= max(sms, plan.cluster)
+    """The grid follows the card, not N: at most GLOBAL_CTAS_PER_SM CTAs an
+    SM for global reductions, one for the shared-memory plan, and the rows
+    plan's chunks no more than fill the SMs."""
+    for shape in ((1_000_000, 1, 2, 65_000, True), (102_400, 1, 2, 6_500, True), (50_000, 1, 2048, 1000, True)):
+        plan = port_bincount.launch_plan(*shape, sms)
+        _check_plan_invariants(plan, *shape, sms)
+        if plan.kind == "rows":
+            # two column tiles of 1,024 rows times the bin tiles and chunks: one wave where it can
+            assert plan.ctas <= max(sms, 2 * plan.tiles) and (plan.chunks == 1 or plan.ctas <= sms)
 
 
 def test_plan_struct_mirrors_the_kernel_source():
@@ -373,7 +384,7 @@ def test_batched_plain_is_per_row_plain():
 def test_slice_shapes_scaled_down_match_jax_vmap(case):
     """The confusion-matrix and calibration calls of this slice, at a
     tenth or less of their size: int32 counts over C^2 cells with dropped
-    (masked) indices, a call with far fewer inputs than bins (the sparse
+    (masked) indices, a call with far fewer inputs than bins (the global
     plan's shape), and three float32 weight rows over 15 bins."""
     rng = np.random.RandomState(43)
     if case == "confmat_cityscapes":

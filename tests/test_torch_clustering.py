@@ -237,6 +237,46 @@ def test_ami_matches_sklearn_where_jax_cannot_run():
                                atol=1e-6)
 
 
+# NMI and AMI where one side is a single cluster, or AMI's expected mutual
+# information equals the mutual information: (preds, target).
+SINGLE_CLUSTER_CASES = {
+    "five_against_one": (np.repeat(np.arange(5), [58, 65, 50, 68, 59]).astype(np.int32), np.zeros(300, np.int32)),
+    "one_against_two": (np.zeros(5, np.int32), np.array([0, 1, 0, 1, 1], np.int32)),
+    "three_against_five": (np.array([0, 0, 1, 1, 2], np.int32), np.arange(5, dtype=np.int32)),
+}
+# The JAX package's values there, a fault of the reference: it spells its
+# sums float64 but runs without x64, so they are float32, and float32 noise
+# passes its |mi| < 1e-15 and float64-eps guards
+# (torchmetrics_tpu/functional/clustering/extrinsic.py:55,76-80). NMI lies in
+# [0, 1]; sklearn and the port give 0, or 1 for the last case.
+SINGLE_CLUSTER_JAX_VALUES = {
+    ("five_against_one", "normalized_mutual_info_score", "min"): 3178925.5,
+    ("five_against_one", "normalized_mutual_info_score", "geometric"): 2510050.25,
+    ("five_against_one", "adjusted_mutual_info_score", "min"): 4364820.5,
+    ("five_against_one", "adjusted_mutual_info_score", "geometric"): 1593618.5,
+    ("one_against_two", "adjusted_mutual_info_score", "min"): 0.8,
+    ("one_against_two", "adjusted_mutual_info_score", "geometric"): 0.178,
+    ("three_against_five", "adjusted_mutual_info_score", "min"): 0.0,
+}
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE_CLUSTER_CASES))
+@pytest.mark.parametrize("method", ["min", "geometric", "arithmetic", "max"])
+@pytest.mark.parametrize("name", ["normalized_mutual_info_score", "adjusted_mutual_info_score"])
+def test_single_cluster_nmi_ami_match_sklearn(name, method, case):
+    """The port against sklearn at every input and method, and the JAX
+    package's values where its float32 sums fail recorded as its bug."""
+    metrics = pytest.importorskip("sklearn.metrics")
+    p, t = SINGLE_CLUSTER_CASES[case]
+    want = getattr(metrics, name)(t, p, average_method=method)
+    np.testing.assert_allclose(float(getattr(PF, name)(_t(p), _t(t), method)), want, atol=1e-6)
+    bug = SINGLE_CLUSTER_JAX_VALUES.get((case, name, method))
+    if bug is not None:
+        jax_value = float(getattr(JF, name)(jnp.asarray(p), jnp.asarray(t), method))
+        assert abs(jax_value - want) > 0.1
+        np.testing.assert_allclose(jax_value, bug, rtol=1e-3)
+
+
 @pytest.mark.parametrize("name", EXTRINSIC)
 def test_label_classes_match_their_functional_and_jax(name):
     p, t = LABEL_CASES["sparse_negative"]

@@ -4,11 +4,12 @@ Counterpart of ``torchmetrics_tpu/functional/clustering/intrinsic.py``.
 The per-cluster moments go through the hand-written bincount kernel on the
 card: the counts are one int32 ``weighted_bincount`` launch, the sums of the
 (N, D) data one ``weighted_bincount_batched`` call of D float32 rows over
-the shared label index (one launch per group of rows the kernel stages: 36
-of 57 rows at D = 2,048 and 1,000 clusters; the kernel's float32 atomics add
-in no fixed order, so those sums, and what follows from them, may differ in
-the last bits from run to run), and Davies-Bouldin's per-cluster scatter
-one more float32 launch. Dunn's per-cluster maximum is ``scatter_reduce_``
+the shared label index, passed as the view ``data.T`` (from D = 32 on, one
+launch of the kernel's rows plan, which reads the view as it lies and adds
+in a fixed order, so those sums are the same bits on every run), and
+Davies-Bouldin's per-cluster scatter one more float32 launch (its atomics
+add in no fixed order: that score may differ in the last bits from run to
+run). Dunn's per-cluster maximum is ``scatter_reduce_``
 with ``"amax"``.
 
 The (k, k) centroid distances are the JAX formula's differences and

@@ -3,7 +3,7 @@
 Counterpart of ``torchmetrics_tpu/functional/clustering/utils.py``. The
 contingency matrix is one int32 ``weighted_bincount`` call over the joint
 index ``preds * num_target + target`` with ``R * C`` bins: on the card, one
-launch of the hand-written CUDA kernel (its sparse plan at ImageNet-1k's
+launch of the hand-written CUDA kernel (its global plan at ImageNet-1k's
 1,000 x 1,000 cells).
 
 Marginals, entropies, mutual information and pair counts are float64 on the

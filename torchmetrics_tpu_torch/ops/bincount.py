@@ -20,7 +20,8 @@ Both entries call custom operators (``torch.library.custom_op``) whose
 rows: the counterpart of the Pallas call's ``def_vmap`` (JAX :100-110).
 
 Launch counts under CUDA graphs: ``weighted_bincount.launches`` is a host
-counter, bumped where ``_launch`` enqueues the kernel. Inside a graph
+counter, bumped where ``_launch`` enqueues the kernels of a call (two for
+the rows plan of several sample chunks, else one). Inside a graph
 capture that host code runs once and the kernel does not run at all, and a
 replay runs the kernel with no host code. :func:`recording_launches` takes
 the capture's counts back off, for every wrapper in ``COUNTED_KERNELS``, and
@@ -49,37 +50,41 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# shared memory one Hopper CTA may use (227 KB)
+# shared memory one Hopper CTA may use (227 KB), and one SM holds (228 KB)
 SMEM_BYTES = 232_448
-# CTAs per cluster: clusters above 8 are non-portable, and 16 is the most Hopper launches
-MAX_CLUSTER = 16
+SM_SMEM_BYTES = 233_472
+# threads of every CTA the kernels launch, and the most one SM runs
+THREADS = 512
+SM_THREADS = 2048
 # up to this many index reads, with counters that fit one CTA, one CTA counts
 # everything and writes the output directly: one launch, no merge
 SINGLE_CTA_INPUTS = 16_384
-# a CTA of a multi-CTA plan counts at least about this many inputs, so that
-# zeroing and flushing its counters stays small against the counting
+# a CTA of a multi-CTA shared-memory plan counts at least about this many
+# inputs, so that zeroing and flushing its counters stays small against the
+# counting
 MIN_INPUTS_PER_CTA = 4096
-# clusters larger than this are used only when the bins need them: every CTA
-# of a cluster receives all of the cluster's inputs, and clusters of 8 and 16
-# measured slower than clusters of 4 at the same or more CTAs
-# (bincount_ablation.py, PERF.md)
-PREFERRED_CLUSTER = 4
-# 16-byte vectors of each input stream each CTA of a cluster brings in per
-# stage (of two): at least 32 so a stage is worth its cluster barrier, at
-# most 1024 (16 KB)
-MIN_STAGE_VECTORS = 32
-MAX_STAGE_VECTORS = 1024
-# sparse plan: when the counters do not fit one CTA and each output row gets
-# at most 1/SPARSE_BINS_PER_INPUT as many inputs as it has bins, every input
-# is added straight into the zeroed output with a global atomic.
-# bincount_ablation.py's sweep measured it faster than the cluster plans at
-# every point, from 1,000 bins per input to 16 inputs per bin (PERF.md); 2
-# is the lowest ratio that keeps every plan measured before it (the
-# past-cluster case has ratio 1)
-SPARSE_BINS_PER_INPUT = 2
-# index reads per CTA of the sparse plan before its grid reaches one CTA per
-# SM: one for each of the kernel's 512 threads
-SPARSE_INPUTS_PER_CTA = 512
+# global plan (counters that do not fit one CTA): from GLOBAL_VECTOR_INPUTS
+# index reads on, 16-byte vectors and GLOBAL_INPUTS_PER_CTA reads a CTA (a
+# vector a thread) up to GLOBAL_CTAS_PER_SM CTAs an SM; below, and for more
+# than two weight rows over a shared index, one input a thread,
+# GLOBAL_SMALL_INPUTS_PER_CTA a CTA, up to one CTA an SM.
+# bincount_ablation.py's sweep set all three (PERF.md)
+GLOBAL_VECTOR_INPUTS = 131_072
+GLOBAL_INPUTS_PER_CTA = 2048
+GLOBAL_SMALL_INPUTS_PER_CTA = 512
+GLOBAL_CTAS_PER_SM = SM_THREADS // THREADS
+# rows plan: a shared index with at least this many float32 weight rows (one
+# CTA's column tile) sums them per bin in shared memory, in a fixed order
+ROWS_PLAN_MIN_ROWS = 32
+# rows plan, mirrored from csrc/bincount.cu: weight rows ("columns") a warp
+# owns and a CTA at most (16 warps), labels a CTA lists per block
+ROWS_WARP_COLS = 64
+ROWS_CTA_COLS = 1024
+ROWS_BLOCK = 8192
+# rows plan: samples a chunk holds at least, when chunks fill the SMs
+ROWS_MIN_CHUNK = 4096
+# the most CTAs along a grid's y or z
+MAX_GRID_YZ = 65_535
 
 
 def _nvcc(source: Path = SOURCE) -> str:
@@ -138,15 +143,15 @@ class _PlanStruct(ctypes.Structure):
         ("rows", ctypes.c_int),
         ("wrows", ctypes.c_int),
         ("num_bins", ctypes.c_int),
-        ("clusters", ctypes.c_int),
-        ("cluster", ctypes.c_int),
+        ("kind", ctypes.c_int),
+        ("ctas", ctypes.c_int),
+        ("vectors", ctypes.c_int),
         ("tiles", ctypes.c_int),
         ("tile_bins", ctypes.c_int),
-        ("bs", ctypes.c_int),
-        ("chv", ctypes.c_int),
-        ("magic", ctypes.c_ulonglong),
+        ("chunks", ctypes.c_int),
+        ("w_row_stride", ctypes.c_int),
+        ("w_col_stride", ctypes.c_int),
         ("device", ctypes.c_int),
-        ("sparse", ctypes.c_int),
     ]
 
 
@@ -158,6 +163,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # idx (int32)
         ctypes.c_void_p,  # weights (float32) or None
         ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # scratch (rows plan of several chunks) or None
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tm_bincount.restype = ctypes.c_int
@@ -171,27 +177,38 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-class LaunchPlan(NamedTuple):
-    """How one call is laid out: ``clusters`` clusters of ``cluster`` CTAs
-    for each of ``tiles`` tiles of ``tile_bins`` bins; each CTA owns ``bs``
-    bins of its tile in every output row and, in a cluster, brings in
-    ``chv`` 16-byte vectors of each input stream per stage. More than one
-    cluster per tile adds its counters into a zeroed output. A ``sparse``
-    plan is ``clusters`` CTAs that add every input straight into the zeroed
-    output with global atomics (``cluster`` 1, one tile of all bins)."""
+# the plan kinds, as ``struct Plan`` numbers them
+KINDS = {"smem": 0, "global": 1, "rows": 2}
 
-    clusters: int
-    cluster: int
+
+class LaunchPlan(NamedTuple):
+    """How one call is laid out.
+
+    ``smem``: ``ctas`` CTAs that each hold every counter in shared memory;
+    several add theirs into a zeroed output. ``global``: ``ctas`` CTAs that
+    add every input straight into the zeroed output. ``rows``: ``ctas`` CTAs,
+    column tiles of up to 1,024 weight rows times ``tiles`` tiles of
+    ``tile_bins`` bins times ``chunks`` chunks of the samples, whose sums a
+    second kernel adds in chunk order. ``vectors``: the first two read
+    16-byte vectors where the inputs allow, else one input a thread."""
+
+    kind: str
+    ctas: int
     tiles: int
     tile_bins: int
-    bs: int
-    chv: int
-    sparse: bool = False
+    chunks: int = 1
+    vectors: bool = True
+
+    @property
+    def kernels(self) -> int:
+        """Kernels one call runs: two for the rows plan of several chunks
+        (its histogram, then the merge of the chunks), else one."""
+        return 2 if self.chunks > 1 else 1
 
 
 class NoLaunchPlan(ValueError):
-    """No layout of the kernel fits a call in shared memory (a shared index
-    with more weight rows than a cluster can stage)."""
+    """No layout of the kernel fits a call (the rows plan's bin tiles past
+    the grid's limit)."""
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -202,115 +219,122 @@ def _align4(x: int) -> int:
     return _cdiv(x, 4) * 4
 
 
-def smem_bytes(plan: LaunchPlan, out_rows: int, streams: int) -> int:
-    """Shared memory of one CTA, as the kernel lays it out: two barriers,
-    ``out_rows`` rows of counters padded to 16-byte phase and, in a cluster,
-    two stages of ``cluster * chv`` vectors per input stream."""
-    counters = _cdiv(out_rows * (_align4(plan.bs) + 4) * 4, 16) * 16
-    stages = 2 * plan.cluster * plan.chv * 16 * streams if plan.cluster > 1 else 0
-    return 16 + counters + stages
+def smem_bytes(plan: LaunchPlan, out_rows: int) -> int:
+    """Shared memory of one CTA, as the kernel lays it out: ``smem``, the
+    ``out_rows`` rows of counters padded to 16-byte phase; ``global`` none;
+    ``rows``, a block's list of samples, a count a warp and ``tile_bins``
+    rows of float32 sums, one a column of the tile and a pad word."""
+    if plan.kind == "smem":
+        return _cdiv(out_rows * (_align4(plan.tile_bins) + 4) * 4, 16) * 16
+    if plan.kind == "rows":
+        return (ROWS_BLOCK + THREADS // 32) * 4 + plan.tile_bins * (rows_tile_cols(out_rows) + 1) * 4
+    return 0
+
+
+def rows_tile_cols(out_rows: int) -> int:
+    """The rows plan's columns a CTA: the weight rows rounded up to a warp's
+    64, at most ``ROWS_CTA_COLS``."""
+    return min(ROWS_CTA_COLS, _cdiv(out_rows, ROWS_WARP_COLS) * ROWS_WARP_COLS)
+
+
+def _rows_cost(n: int, out_rows: int, num_bins: int, tiles: int, chunks: int, waves: int, sm_count: int) -> float:
+    """The rows plan's bytes an SM reads, for choosing its grid: each wave's
+    CTA reads its chunk's labels and the weights of its tile's share of them
+    (labels spread evenly over the bins), and with several chunks the second
+    kernel reads the partial sums and writes the output."""
+    chunk = _cdiv(n, chunks)
+    per_cta = 4 * chunk + chunk / tiles * rows_tile_cols(out_rows) * 4
+    merge = (chunks + 1) * out_rows * num_bins * 4 / sm_count if chunks > 1 else 0.0
+    return waves * per_cta + merge
 
 
 def launch_plan(n: int, rows: int, out_rows: int, num_bins: int, weighted: bool, sm_count: int) -> LaunchPlan:
     """Plan for ``rows`` index rows of ``n`` inputs into ``out_rows`` x
     ``num_bins`` counters.
 
-    When every counter fits one CTA, each CTA holds them all: one CTA for
-    small calls (at most ``SINGLE_CTA_INPUTS`` index reads), else a grid of
-    such CTAs reading disjoint inputs. Otherwise the bins are split over a
-    power-of-two cluster whose CTAs hold their share and two stages of at
-    least ``MIN_STAGE_VECTORS`` vectors (tiled only past ``MAX_CLUSTER``
-    CTAs). The number of clusters is at most one CTA per SM, at most what
-    keeps the partial histograms added into the output (clusters x counters
-    x 4 bytes) within the input bytes, and at most what gives each CTA
-    ``MIN_INPUTS_PER_CTA`` inputs. Among the cluster sizes that fit, up to
-    ``PREFERRED_CLUSTER`` or the smallest that fits, the plan takes the one
-    with the most clusters, then the most CTAs.
+    A shared index of at least ``ROWS_PLAN_MIN_ROWS`` float32 weight rows
+    takes the rows plan: column tiles of up to ``ROWS_CTA_COLS`` rows, bin
+    tiles of at most as many bins as shared memory holds (each tile reads
+    every label and only its own samples' weights), and chunks of at least
+    ``ROWS_MIN_CHUNK`` samples, at most one wave of them. Among up to twice
+    the fewest bin tiles and the chunks that fit, it takes the grid whose
+    SMs read the fewest bytes over its waves (``_rows_cost``). One call,
+    whatever the number of rows (two kernels where there are several
+    chunks: the histogram, then their merge); a fixed order of adds.
 
-    Counters that do not fit one CTA, for at most ``num_bins /
-    SPARSE_BINS_PER_INPUT`` inputs per output row, take the sparse plan
-    instead: a grid of up to one CTA per SM adding each input into the
-    zeroed output with global atomics.
+    Otherwise, when every counter fits one CTA, each CTA holds them all: one
+    CTA for small calls (at most ``SINGLE_CTA_INPUTS`` index reads), else a
+    grid of such CTAs reading disjoint inputs: at most one CTA per SM, at
+    most what keeps the partial histograms added into the output (CTAs x
+    counters x 4 bytes) within the input bytes, and at most what gives each
+    CTA ``MIN_INPUTS_PER_CTA`` inputs.
+
+    Counters that do not fit one CTA take the global plan, adding each input
+    into the zeroed output with global reductions: from
+    ``GLOBAL_VECTOR_INPUTS`` index reads on, 16-byte vectors and a grid of
+    ``GLOBAL_INPUTS_PER_CTA`` reads a CTA, up to ``GLOBAL_CTAS_PER_SM`` CTAs
+    an SM; below, and for more than two weight rows over a shared index, one
+    input a thread and ``GLOBAL_SMALL_INPUTS_PER_CTA`` a CTA, up to one CTA
+    an SM (bincount_ablation.py's sweep, PERF.md).
     """
-    streams = 1 + (out_rows // rows if weighted else 0)
-    hist = out_rows * num_bins
     inputs = rows * n
-    in_bytes = 4 * inputs + (4 * out_rows * n if weighted else 0)
-    merge_cap = max(1, in_bytes // (4 * hist))
-    whole = LaunchPlan(1, 1, 1, num_bins, num_bins, 0)
-    if smem_bytes(whole, out_rows, streams) <= SMEM_BYTES:
+    if weighted and rows == 1 and out_rows >= ROWS_PLAN_MIN_ROWS:
+        tile_cap = (SMEM_BYTES - smem_bytes(LaunchPlan("rows", 1, 1, 0), out_rows)) // (
+            (rows_tile_cols(out_rows) + 1) * 4)
+        tiles = _cdiv(num_bins, tile_cap)
+        if tiles > MAX_GRID_YZ:
+            raise NoLaunchPlan(f"no kernel plan for {out_rows} weight rows into {num_bins} bins: "
+                               f"{tiles} bin tiles of {tile_cap}")
+        col_tiles = _cdiv(out_rows, rows_tile_cols(out_rows))
+        best = None
+        for t in range(tiles, min(2 * tiles, num_bins, MAX_GRID_YZ) + 1):
+            if (t - 1) * _cdiv(num_bins, t) >= num_bins:
+                continue  # the last tile would hold no bin
+            plan = LaunchPlan("rows", 1, t, _cdiv(num_bins, t))
+            slots = sm_count * max(1, min(SM_THREADS // THREADS, SM_SMEM_BYTES // smem_bytes(plan, out_rows)))
+            for chunks in range(1, max(1, min(slots // (col_tiles * t), _cdiv(n, ROWS_MIN_CHUNK))) + 1):
+                ctas = col_tiles * t * chunks
+                cost = _rows_cost(n, out_rows, num_bins, t, chunks, _cdiv(ctas, slots), sm_count)
+                if best is None or cost < best[0]:
+                    best = (cost, plan._replace(ctas=ctas, chunks=chunks))
+        return best[1]
+    whole = LaunchPlan("smem", 1, 1, num_bins)
+    if smem_bytes(whole, out_rows) <= SMEM_BYTES:
         if inputs <= SINGLE_CTA_INPUTS:
             return whole
-        clusters = min(sm_count, merge_cap, _cdiv(inputs, MIN_INPUTS_PER_CTA))
-        return whole._replace(clusters=max(1, clusters))
-    if n * SPARSE_BINS_PER_INPUT <= num_bins:
-        return whole._replace(clusters=max(1, min(sm_count, _cdiv(inputs, SPARSE_INPUTS_PER_CTA))), sparse=True)
-    # a cluster stages every input stream (the index and each weight row of a
-    # shared index): the smallest cluster plan, two CTAs of 4 bins each with
-    # the least stages, must fit, or no number of tiles does
-    if smem_bytes(LaunchPlan(1, 2, 1, 8, 4, MIN_STAGE_VECTORS), out_rows, streams) > SMEM_BYTES:
-        raise NoLaunchPlan(f"no kernel plan for {out_rows} weight rows over one shared index of {n} inputs into "
-                           f"{num_bins} bins: a cluster cannot stage {streams} input streams")
-    tiles = 1
-    while True:
-        tile_bins = _align4(_cdiv(num_bins, tiles))
-        best = None
-        cluster = 2
-        while cluster <= MAX_CLUSTER:
-            plan = LaunchPlan(1, cluster, tiles, tile_bins, _align4(_cdiv(tile_bins, cluster)), 0)
-            room = SMEM_BYTES - smem_bytes(plan, out_rows, streams)
-            chv = min(MAX_STAGE_VECTORS, room // (2 * cluster * 16 * streams)) // 32 * 32
-            if chv >= MIN_STAGE_VECTORS:
-                clusters = max(1, min(sm_count // (cluster * tiles), merge_cap,
-                                      _cdiv(inputs, MIN_INPUTS_PER_CTA * cluster)))
-                if best is None or (clusters, cluster) > (best.clusters, best.cluster):
-                    best = plan._replace(clusters=clusters, chv=chv)
-                if cluster >= PREFERRED_CLUSTER:
-                    return best
-            cluster *= 2
-        if best is not None:
-            return best
-        tiles += 1
-
-
-@functools.lru_cache(maxsize=None)
-def shared_rows_per_launch(n: int, out_rows: int, num_bins: int) -> int:
-    """The most of ``out_rows`` weight rows over one shared index of ``n``
-    inputs that one launch takes: all of them when the kernel has a plan for
-    them, else the most whose counters fit one CTA (the plan without a
-    cluster, which stages nothing), else the most a cluster can stage, at
-    least 1. A call of more rows is this many rows per launch. Whether a
-    plan exists does not depend on the SM count (it sets only how many
-    clusters a plan has), so any count serves to ask."""
-    try:
-        launch_plan(n, 1, out_rows, num_bins, True, 1)
-        return out_rows
-    except NoLaunchPlan:
-        pass
-    rows = min(out_rows - 1, (SMEM_BYTES - 16) // ((_align4(num_bins) + 4) * 4))
-    while rows > 1:
-        try:
-            launch_plan(n, 1, rows, num_bins, True, 1)
-            return rows
-        except NoLaunchPlan:
-            rows //= 2
-    return 1
-
-
-def slice_magic(bs: int) -> int:
-    """``ceil(2^40 / bs)``: the kernel finds the CTA that owns a bin as
-    ``(b * magic) >> 40``, which equals ``b // bs`` while ``b * bs < 2^40``
-    (true for every bin of a tile: both stay below 2^20)."""
-    return (2**40 + bs - 1) // bs
+        in_bytes = 4 * inputs + (4 * out_rows * n if weighted else 0)
+        merge_cap = max(1, in_bytes // (4 * out_rows * num_bins))
+        return whole._replace(ctas=max(1, min(sm_count, merge_cap, _cdiv(inputs, MIN_INPUTS_PER_CTA))))
+    if inputs < GLOBAL_VECTOR_INPUTS or (weighted and out_rows // rows > 2):
+        ctas = max(1, min(sm_count, _cdiv(inputs, GLOBAL_SMALL_INPUTS_PER_CTA)))
+        return LaunchPlan("global", ctas, 1, num_bins, vectors=False)
+    ctas = max(1, min(sm_count * GLOBAL_CTAS_PER_SM, _cdiv(inputs, GLOBAL_INPUTS_PER_CTA)))
+    return LaunchPlan("global", ctas, 1, num_bins)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_plan(device_index: int, n: int, rows: int, out_rows: int, num_bins: int, weighted: bool) -> tuple:
-    """(plan structure, its address), built once per shape; the cache keeps
-    the structure alive for its address."""
+    """(plan, plan structure, its address), built once per shape; the cache
+    keeps the structure alive for its address. The structure's weight
+    strides are those of contiguous rows; the rows plan's come from
+    :func:`_rows_struct`."""
     p = launch_plan(n, rows, out_rows, num_bins, weighted, _sm_count(device_index))
-    st = _PlanStruct(n, rows, out_rows if rows == 1 else 1, num_bins, p.clusters, p.cluster, p.tiles, p.tile_bins,
-                     p.bs, p.chv, slice_magic(p.bs), device_index, int(p.sparse))
+    st = _plan_struct(p, device_index, n, rows, out_rows, num_bins, (n, 1))
+    return p, st, ctypes.addressof(st)
+
+
+def _plan_struct(p: LaunchPlan, device_index: int, n: int, rows: int, out_rows: int, num_bins: int,
+                 w_strides: tuple) -> _PlanStruct:
+    return _PlanStruct(n, rows, out_rows if rows == 1 else 1, num_bins, KINDS[p.kind], p.ctas, int(p.vectors),
+                       p.tiles, p.tile_bins, p.chunks, *w_strides, device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_struct(device_index: int, n: int, out_rows: int, num_bins: int, w_strides: tuple) -> tuple:
+    """(plan structure, its address) of a rows-plan call whose weights lie
+    with (row, input) strides ``w_strides`` in elements."""
+    p = _kernel_plan(device_index, n, 1, out_rows, num_bins, True)[0]
+    st = _plan_struct(p, device_index, n, 1, out_rows, num_bins, w_strides)
     return st, ctypes.addressof(st)
 
 
@@ -344,35 +368,59 @@ def weighted_bincount_plain(idx: torch.Tensor, weights: Optional[torch.Tensor], 
     return weighted_bincount_batched_plain(idx.reshape(1, -1), w, num_bins)[0]
 
 
+def _kernel_weights(plan: LaunchPlan, weights: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The weights as the kernel reads them: the rows plan's as they lie,
+    copied only where a stride would not fit an int32; the other plans' as
+    contiguous rows."""
+    if weights is None:
+        return None
+    if plan.kind != "rows" or max(weights.stride()) >= 2**31:
+        return weights.contiguous()
+    return weights
+
+
 def _launch(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: int, out_rows: int) -> torch.Tensor:
-    """One kernel launch for (out_rows, num_bins) counters; ``idx`` is (N,)
-    or (out_rows, N) int32, ``weights`` (out_rows, N) float32 or None."""
+    """One call of the kernel for (out_rows, num_bins) counters; ``idx`` is
+    (N,) or (out_rows, N) int32, ``weights`` (out_rows, N) float32 or None.
+    The rows plan reads the weights through their strides (the transpose of
+    a contiguous (N, S) matrix, strides (1, S), as it lies; see
+    :func:`_kernel_weights`). Counts the kernels the call ran: two for the rows plan of several
+    chunks, else one."""
     dtype = torch.int32 if weights is None else torch.float32
     n = idx.shape[-1]
     rows = idx.shape[0] if idx.dim() == 2 else 1
     out = torch.empty((out_rows, num_bins), dtype=dtype, device=idx.device)
     if n == 0:
         return out.zero_()
-    idx = idx.contiguous()
-    weights = None if weights is None else weights.contiguous()
     if rows * n >= 2**31 or out_rows * n >= 2**31 or out_rows * num_bins >= 2**31:
         raise ValueError(f"weighted_bincount kernel counts below 2^31 inputs and counters, got "
                          f"{rows} x {n} indices, {out_rows} x {num_bins} counters")
-    _, plan = _kernel_plan(idx.device.index, n, rows, out_rows, num_bins, weights is not None)
+    idx = idx.contiguous()
+    device = idx.device.index
+    plan, _, st = _kernel_plan(device, n, rows, out_rows, num_bins, weights is not None)
+    weights = _kernel_weights(plan, weights)
+    scratch = None
+    if plan.kind == "rows":
+        _, st = _rows_struct(device, n, out_rows, num_bins, weights.stride())
+        if plan.chunks > 1:
+            scratch = torch.empty((plan.chunks, out_rows, num_bins), dtype=torch.float32, device=idx.device)
     lib = _library()
     err = lib.tm_bincount(
-        plan,
+        st,
         idx.data_ptr(),
         None if weights is None else weights.data_ptr(),
         out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(idx.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"weighted_bincount kernel launch failed: cudaError {err} "
                            f"({lib.tm_bincount_error_string(err).decode()})")
-    weighted_bincount.launches += 1
+    weighted_bincount.launches += plan.kernels
     if _RECORDING:
         note_launch("weighted_bincount", bound_bytes(idx, weights, num_bins))
+        if plan.chunks > 1:  # the merge reads the chunks' sums and writes the output
+            note_launch("weighted_bincount", (plan.chunks + 1) * out_rows * num_bins * 4)
     return out
 
 
@@ -422,13 +470,7 @@ def _bincount_op(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: i
 def _bincount_batched_op(idx: torch.Tensor, weights: Optional[torch.Tensor], num_bins: int) -> torch.Tensor:
     if not _on_kernel_device(idx):
         return weighted_bincount_batched_plain(idx, weights, num_bins)
-    rows = idx.shape[0] if weights is None else weights.shape[0]
-    if weights is not None and idx.dim() == 1 and rows > 1:
-        group = shared_rows_per_launch(idx.shape[0], rows, num_bins)
-        if group < rows:  # more weight rows than one launch stages: one launch per group of rows
-            return torch.cat([_launch(idx, weights[r:r + group], num_bins, min(group, rows - r))
-                              for r in range(0, rows, group)])
-    return _launch(idx, weights, num_bins, rows)
+    return _launch(idx, weights, num_bins, idx.shape[0] if weights is None else weights.shape[0])
 
 
 @_bincount_op.register_fake
@@ -491,21 +533,23 @@ def _weights_of(weights: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def weighted_bincount_batched(idx: torch.Tensor, weights: Optional[torch.Tensor] = None,
                               num_bins: int = 0) -> torch.Tensor:
-    """S weighted bincounts in one kernel launch (see below for a shared
-    index with many weight rows): ``jax.vmap`` of ``weighted_bincount`` over
-    a leading axis.
+    """S weighted bincounts in one kernel launch: ``jax.vmap`` of
+    ``weighted_bincount`` over a leading axis.
 
     ``weights`` is (S, N) or ``None`` for int32 counts; ``idx`` is (S, N),
     or (N,) shared by all S weight rows, whose indices the kernel then reads
-    once for all of them. Returns (S, num_bins). A shared index with more
-    weight rows than one launch stages (``shared_rows_per_launch``: 2,048
-    rows over 1,000 bins take 36 launches of 57 rows) takes one launch per
-    group of rows. The 1-D contract holds per
+    once for all of them. Returns (S, num_bins). A shared index of at least
+    ``ROWS_PLAN_MIN_ROWS`` float32 rows takes the rows plan (see
+    :func:`launch_plan`): one call for any S, the weights read through
+    their strides (the transpose ``data.T`` of (N, D) features without a
+    copy), and sums added in a fixed order, so that two runs give the same
+    bits. The 1-D contract holds per
     row: indices cast to int32, out-of-range ones dropped, ``N == 0`` gives
     zeros, ``num_bins <= 0`` raises.
 
     CPU tensors take :func:`weighted_bincount_batched_plain`; CUDA tensors
-    launch the kernel, and ``weighted_bincount.launches`` counts it. Under
+    launch the kernel, and ``weighted_bincount.launches`` counts each
+    kernel a call runs (``LaunchPlan.kernels``). Under
     ``torch.func.vmap`` the vmapped calls are one call of more rows.
     """
     if num_bins <= 0:
